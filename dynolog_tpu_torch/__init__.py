@@ -1,0 +1,31 @@
+"""dynolog_tpu_torch: the PyTorch/CUDA port of dynolog_tpu's Python half.
+
+It runs beside the JAX package and imports nothing of it (nor JAX):
+
+- :mod:`dynolog_tpu_torch.client` — the in-process shim a PyTorch training
+  job embeds so dynologd can trigger on-demand torch.profiler captures;
+- :mod:`dynolog_tpu_torch.models` — the flagship transformer workload and
+  its AdamW train step;
+- :mod:`dynolog_tpu_torch.ops` — flash attention as hand-written CUDA
+  kernels for Hopper, each with a plain PyTorch version.
+
+Entry points run on the card (``device="cuda"``) and raise where there is
+none; only a caller that asks for ``device="cpu"`` gets the CPU.
+"""
+
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device="cuda"):
+    """torch.device for `device`; raises if it names CUDA and there is no
+    card, rather than running somewhere else."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU")
+    return device

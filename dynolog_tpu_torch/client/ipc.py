@@ -1,0 +1,444 @@
+"""UNIX-datagram IPC client, wire-compatible with the daemon's ipc fabric.
+
+Speaks the same framing as src/ipc/FabricManager.h (and therefore the
+reference's ipcfabric / libkineto IpcFabricConfigClient): one datagram =
+40-byte metadata (u64 little-endian payload size + 32-byte NUL-padded ASCII
+type tag) followed by the payload. Sockets live in the Linux abstract
+namespace (name prefixed with NUL) unless DYNOLOG_IPC_SOCKET_DIR /
+KINETO_IPC_SOCKET_DIR selects filesystem sockets.
+
+Message payloads (layouts match src/tracing/IPCMonitor.h wire structs):
+
+- type "ctxt": <i32 device, i32 pid, i64 job_id>  -> daemon replies with the
+  i32 instance count for (job, device).
+- type "req":  <i32 config_type, i32 n_pids, i64 job_id, i32 pids[n]> ->
+  daemon replies with the pending on-demand config string ("" if none).
+- type "pstat": <i32 pid, i32 0, i64 job_id, f64 window_s, f64 steps,
+  f64 p50_ms, f64 p95_ms, f64 max_ms> -> fire-and-forget step telemetry;
+  the daemon stores it as job<job_id>.* metric series (no reply).
+- type "sub": <i32 pid, i32 0, i64 job_id> -> fire-and-forget opt-in to
+  "kick" datagrams: the daemon sends <i64 job_id> (type "kick") the
+  moment an on-demand config is installed for the job, so the shim can
+  poll immediately instead of waiting out its poll interval. Purely an
+  optimization — delivery is still the poll; a lost kick costs one poll
+  interval of latency, nothing else. Kicks route to whatever address the
+  "sub" came FROM; this client subscribes from a dedicated kick socket so
+  a tick-wait select() can never consume a request/reply datagram meant
+  for another thread's exchange on the main socket.
+"""
+
+from __future__ import annotations
+
+import os
+import select
+import socket
+import struct
+import threading
+import time
+from dataclasses import dataclass
+
+METADATA = struct.Struct("<Q32s")
+CONTEXT = struct.Struct("<iiq")
+REQUEST_HEADER = struct.Struct("<iiq")
+PERF_STATS = struct.Struct("<iiqddddd")
+SUBSCRIBE = struct.Struct("<iiq")
+# Completed self-trace span (type "span", fire-and-forget): the shim /
+# trace converter flush their half of a request's spans to the daemon,
+# which merges them into its SpanJournal ring for `dyno selftrace`.
+# Layout pins src/tracing/IPCMonitor.h ClientSpan.
+SPAN = struct.Struct("<QQQqqii48s")
+# The SPAN datagram's schema generation (docs/COMPATIBILITY.md; pinned
+# by dynolint's compat pass). There is no in-band version field — the
+# struct's reserved word fails closed on any layout change — so this
+# constant IS the version: bump it (and the table) when SPAN changes.
+SPAN_VERSION = 1
+# Scalar wire atoms: the "ctxt" reply's i32 instance count, and the i32
+# pid-array elements trailing a "req". Module-level Structs (not inline
+# struct.pack format strings) so dynolint's wire-schema pass can see and
+# cross-check every layout this client puts on the wire.
+INT32 = struct.Struct("<i")
+
+DAEMON_ENDPOINT = "dynolog"
+MSG_TYPE_CONTEXT = b"ctxt"
+MSG_TYPE_REQUEST = b"req"
+MSG_TYPE_PERF_STATS = b"pstat"
+MSG_TYPE_SUBSCRIBE = b"sub"
+MSG_TYPE_KICK = b"kick"
+MSG_TYPE_SPAN = b"span"
+
+CONFIG_TYPE_EVENTS = 0x1
+CONFIG_TYPE_ACTIVITIES = 0x2
+
+# Worst-case datagram we accept (metadata + config payload).
+_MAX_DGRAM = 1 << 20
+
+
+def _socket_dir() -> str | None:
+    for var in ("DYNOLOG_IPC_SOCKET_DIR", "KINETO_IPC_SOCKET_DIR"):
+        d = os.environ.get(var)
+        if d:
+            return d
+    return None
+
+
+def _address(name: str) -> bytes | str:
+    d = _socket_dir()
+    if d:
+        return os.path.join(d, name)
+    # Abstract-namespace name INCLUDING a trailing NUL: the C++ side (like
+    # the reference Endpoint.h:231) counts the terminator in the address
+    # length, so it is part of the abstract name and must match exactly.
+    return b"\0" + name.encode() + b"\0"
+
+
+@dataclass
+class Message:
+    type: str
+    payload: bytes
+    src: str
+
+
+class IpcClient:
+    """One bound endpoint; send/recv framed messages to named peers."""
+
+    def __init__(self, name: str | None = None):
+        self.name = name or f"dynotpu_client_{os.getpid()}_{id(self) & 0xFFFF}"
+        self.sock = self._bind(self.name)
+        # Kicks get their OWN socket: "sub" is sent from it, so the daemon
+        # addresses kicks here and a select() on this socket (the shim's
+        # inter-poll wait) can never swallow a "req"/"ctxt" reply that a
+        # concurrent exchange on the main socket is blocked on. Sharing
+        # one socket made the tick-wait steal replies from any second
+        # thread calling request_config, which then span its full timeout
+        # (~20x the CPU) — measured live by bench.py's shim-cost probe.
+        self.kick_name = self.name + "_k"
+        try:
+            self.kick_sock = self._bind(self.kick_name)
+        except OSError:
+            # Half-constructed: close() will never run, so release the
+            # already-bound main socket (and its path) before raising.
+            self.sock.close()
+            addr = _address(self.name)
+            if isinstance(addr, str) and os.path.exists(addr):
+                os.unlink(addr)
+            raise
+        # Serialize request/reply exchanges: concurrent requesters on one
+        # datagram socket would steal each other's replies.
+        self._xchg_lock = threading.Lock()
+        # Set when an unsolicited "kick" arrives interleaved with a
+        # request/reply exchange; the poll loop consumes it via
+        # take_pending_kick() so the wakeup is never lost.
+        self._pending_kick = False
+        # Late "req" replies (a loaded daemon answering after the
+        # request's timeout) carry configs the daemon already cleared
+        # server-side — dropping one would silently lose a capture.
+        # They are stashed here and consumed by take_late_config().
+        self._late_configs: list[str] = []
+
+    @staticmethod
+    def _bind(name: str) -> socket.socket:
+        sock = socket.socket(socket.AF_UNIX, socket.SOCK_DGRAM)
+        addr = _address(name)
+        if isinstance(addr, str) and os.path.exists(addr):
+            os.unlink(addr)
+        sock.bind(addr)
+        sock.setblocking(False)
+        return sock
+
+    def close(self) -> None:
+        for sock, name in ((self.sock, self.name),
+                           (self.kick_sock, self.kick_name)):
+            sock.close()
+            addr = _address(name)
+            if isinstance(addr, str) and os.path.exists(addr):
+                os.unlink(addr)
+
+    def __enter__(self) -> "IpcClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- framing ---------------------------------------------------------
+
+    def send(
+        self,
+        msg_type: bytes,
+        payload: bytes,
+        dest: str = DAEMON_ENDPOINT,
+        retries: int = 10,
+        sleep_s: float = 0.01,
+        sock: socket.socket | None = None,
+    ) -> bool:
+        """Send with exponential backoff (sync_send analog)."""
+        frame = METADATA.pack(len(payload), msg_type) + payload
+        addr = _address(dest)
+        for _ in range(retries):
+            try:
+                (sock or self.sock).sendto(frame, addr)
+                return True
+            except (BlockingIOError, ConnectionRefusedError, FileNotFoundError):
+                time.sleep(sleep_s)
+                sleep_s *= 2
+        return False
+
+    def recv(
+        self,
+        timeout_s: float = 1.0,
+        sock: socket.socket | None = None,
+    ) -> Message | None:
+        """Wait up to timeout_s for one message."""
+        sock = sock or self.sock
+        deadline = time.monotonic() + timeout_s
+        while True:
+            try:
+                frame, addr = sock.recvfrom(_MAX_DGRAM)
+            except BlockingIOError:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return None
+                # select, not a sleep loop: wakes the instant the reply
+                # lands (the daemon answers within its 10ms IPC tick) and
+                # burns no CPU while waiting.
+                try:
+                    select.select([sock], [], [], left)
+                except (OSError, ValueError):
+                    return None  # socket closed mid-shutdown
+                continue
+            except OSError:
+                return None  # socket closed mid-shutdown
+            if len(frame) < METADATA.size:
+                continue
+            size, raw_type = METADATA.unpack_from(frame)
+            payload = frame[METADATA.size : METADATA.size + size]
+            msg_type = raw_type.split(b"\0", 1)[0].decode(errors="replace")
+            if isinstance(addr, bytes):
+                src = addr.strip(b"\0").decode(errors="replace")
+            elif addr:
+                src = os.path.basename(addr)
+            else:
+                src = ""
+            return Message(msg_type, payload, src)
+
+    # -- protocol helpers ------------------------------------------------
+
+    def _recv_reply(self, want: str, timeout_s: float):
+        """recv() until a message of type `want` (or the deadline).
+
+        Unsolicited datagrams on the shared socket are remembered, never
+        returned as the reply and never left queued to corrupt the NEXT
+        exchange: a "kick" sets the pending flag; a non-matching "req"
+        reply with a payload is a LATE config (the daemon cleared it
+        server-side when it answered) and is stashed, not dropped.
+        """
+        deadline = time.monotonic() + timeout_s
+        while True:
+            left = deadline - time.monotonic()
+            if left < 0:
+                return None
+            reply = self.recv(max(left, 0.0))
+            if reply is None:
+                return None
+            if reply.type == want:
+                return reply
+            self._classify_unsolicited(reply)
+
+    def _classify_unsolicited(self, msg: Message) -> None:
+        """One set of rules for datagrams that are not the awaited reply:
+        a "kick" sets the pending flag, a "req" WITH a payload is a late
+        config (the daemon already cleared it server-side) and is
+        stashed, everything else (e.g. an empty late reply) is dropped.
+        """
+        if msg.type == "kick":
+            self._pending_kick = True
+        elif msg.type == "req" and msg.payload:
+            self.stash_late_config(msg.payload.decode(errors="replace"))
+
+    def _drain_queued(self) -> None:
+        """Classify datagrams left over from a PREVIOUS exchange before
+        starting a new one (caller holds the exchange lock).
+
+        A reply that lands after its request timed out sits in the kernel
+        queue; with nothing else reading the main socket, the next
+        exchange's _recv_reply would read it first, and a same-type stale
+        reply would be returned as the fresh answer — desynchronizing
+        every exchange after it by one reply, permanently. Draining
+        first makes that impossible.
+        """
+        while True:
+            msg = self.recv(0)
+            if msg is None:
+                return
+            self._classify_unsolicited(msg)
+
+    def take_pending_kick(self) -> bool:
+        """True once per kick observed while awaiting another reply."""
+        pending, self._pending_kick = self._pending_kick, False
+        return pending
+
+    def stash_late_config(self, text: str) -> None:
+        """Remember a config from a late/out-of-band "req" reply."""
+        if text:
+            self._late_configs.append(text)
+
+    def take_late_config(self) -> str | None:
+        """Oldest stashed late config, or None."""
+        return self._late_configs.pop(0) if self._late_configs else None
+
+    def register_context(
+        self,
+        job_id: int,
+        device: int = 0,
+        pid: int | None = None,
+        dest: str = DAEMON_ENDPOINT,
+        timeout_s: float = 2.0,
+    ) -> int | None:
+        """Register this process; returns the instance count or None."""
+        payload = CONTEXT.pack(device, pid or os.getpid(), job_id)
+        with self._xchg_lock:
+            self._drain_queued()
+            if not self.send(MSG_TYPE_CONTEXT, payload, dest):
+                return None
+            reply = self._recv_reply("ctxt", timeout_s)
+        if reply is None or len(reply.payload) < 4:
+            return None
+        return INT32.unpack(reply.payload[:4])[0]
+
+    def request_config(
+        self,
+        job_id: int,
+        pids: list[int],
+        config_type: int = CONFIG_TYPE_ACTIVITIES,
+        dest: str = DAEMON_ENDPOINT,
+        timeout_s: float = 2.0,
+        retries: int = 10,
+    ) -> str | None:
+        """Poll for a pending on-demand config; '' = none, None = no reply.
+
+        `retries` bounds the send-side backoff: the shim's poll loop
+        passes a small count once the daemon has gone absent, so riding
+        out a restart costs quick cheap probes instead of the full
+        send-retry ladder every poll."""
+        payload = REQUEST_HEADER.pack(config_type, len(pids), job_id)
+        payload += b"".join(INT32.pack(p) for p in pids)
+        with self._xchg_lock:
+            self._drain_queued()
+            if not self.send(MSG_TYPE_REQUEST, payload, dest,
+                             retries=retries):
+                return None
+            reply = self._recv_reply("req", timeout_s)
+        if reply is None:
+            return None
+        return reply.payload.decode(errors="replace")
+
+    def subscribe_kicks(
+        self,
+        job_id: int,
+        pid: int | None = None,
+        dest: str = DAEMON_ENDPOINT,
+    ) -> bool:
+        """Fire-and-forget opt-in to config "kick" datagrams (no reply;
+        re-send periodically — the daemon expires stale subscriptions).
+
+        Sent FROM the kick socket: the daemon addresses kicks at the
+        "sub" datagram's source, which keeps them off the request/reply
+        socket entirely (see __init__). Few retries: losing one costs a
+        poll interval of pickup latency until the next keep-alive."""
+        payload = SUBSCRIBE.pack(pid or os.getpid(), 0, job_id)
+        return self.send(MSG_TYPE_SUBSCRIBE, payload, dest, retries=3,
+                         sock=self.kick_sock)
+
+    def wait_for_kick(self, timeout_s: float) -> bool:
+        """Block up to timeout_s for a wakeup; True if one arrived.
+
+        Watches the kick socket (draining every queued kick so a burst
+        wakes one poll, not several) AND the main socket for bare
+        READABILITY: a datagram landing outside any exchange is a late
+        reply worth polling for immediately — but it is never recv'd
+        here, so this wait can't steal a concurrent exchange's reply;
+        the next exchange's drain consumes and classifies it under the
+        lock.
+        """
+        if self.take_pending_kick() or self._late_configs:
+            # A stashed late config is as wake-worthy as a kick: its
+            # corresponding kick datagram may have been lost
+            # (fire-and-forget), and the next poll captures it.
+            return True
+        try:
+            ready, _, _ = select.select(
+                [self.kick_sock, self.sock], [], [], timeout_s)
+        except (OSError, ValueError):
+            return False  # socket closed mid-shutdown
+        got = self.sock in ready
+        if self.kick_sock in ready:
+            while True:
+                msg = self.recv(0, sock=self.kick_sock)
+                if msg is None:
+                    break
+                if msg.type == "kick":
+                    got = True
+        return got
+
+
+    def send_perf_stats(
+        self,
+        job_id: int,
+        window_s: float,
+        steps: int,
+        p50_ms: float = 0.0,
+        p95_ms: float = 0.0,
+        max_ms: float = 0.0,
+        dest: str = DAEMON_ENDPOINT,
+    ) -> bool:
+        """Fire-and-forget step telemetry (the daemon sends no reply)."""
+        payload = PERF_STATS.pack(
+            os.getpid(), 0, job_id, window_s, float(steps),
+            p50_ms, p95_ms, max_ms,
+        )
+        # One quick retry only: a dropped report costs one window of
+        # telemetry, not correctness — never stall the app's shim thread.
+        return self.send(MSG_TYPE_PERF_STATS, payload, dest, retries=2)
+
+    def send_span(self, span, dest: str = DAEMON_ENDPOINT) -> bool:
+        """Fire-and-forget completed-span report (obs.Span or anything
+        with its fields; the daemon merges it into the `selftrace` ring
+        and feeds trace.convert durations to the scrape histogram).
+
+        Same posture as pstat: one quick retry, never stall the caller —
+        a dropped span costs one line of self-observation, nothing else.
+        """
+        payload = SPAN.pack(
+            span.trace_id,
+            span.span_id,
+            span.parent_id,
+            span.start_us,
+            span.dur_us,
+            span.pid,
+            0,
+            span.name.encode(errors="replace")[:47],
+        )
+        return self.send(MSG_TYPE_SPAN, payload, dest, retries=2)
+
+    def send_spans(self, spans, dest: str = DAEMON_ENDPOINT) -> int:
+        """send_span() each; returns how many were accepted by the
+        socket layer (delivery is still fire-and-forget)."""
+        return sum(1 for s in spans if self.send_span(s, dest=dest))
+
+
+def pid_ancestry(max_depth: int = 10) -> list[int]:
+    """This process's pid followed by its ancestors (leaf first), read from
+    /proc — the ancestry list the daemon matches trace targets against."""
+    pids = [os.getpid()]
+    pid = os.getpid()
+    for _ in range(max_depth):
+        try:
+            with open(f"/proc/{pid}/stat", "rb") as f:
+                fields = f.read().rsplit(b")", 1)[1].split()
+            ppid = int(fields[1])
+        except (OSError, IndexError, ValueError):
+            break
+        if ppid <= 1:
+            break
+        pids.append(ppid)
+        pid = ppid
+    return pids

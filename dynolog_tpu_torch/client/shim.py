@@ -1,0 +1,770 @@
+"""In-process trace shim for PyTorch applications.
+
+The counterpart of ``dynolog_tpu/client/shim.py``: at app start it
+registers with the local dynologd over the IPC fabric, then polls for
+on-demand configs (and wakes early on the daemon's config "kick"
+datagrams). When the operator runs ``dyno gputrace``, the received
+key=value config is parsed and a torch.profiler capture (CPU and CUDA
+activities, input shapes) is taken and written as a kineto Chrome-trace
+JSON, with a manifest next to it. If the app calls step(), the shim also
+reports step rate and step-time percentiles to the daemon ("pstat").
+
+The one design divergence from the JAX shim: torch.profiler records the
+CPU ops of the thread that starts it, and kineto insists that start and
+stop happen on one thread. So the capture cannot run on the poll thread.
+The poll thread receives and parses the config and *arms* a window; the
+training thread's next ``step()`` starts the profiler, and the ``step()``
+at which the window ends (duration or iterations) stops it. The poll
+thread then exports the trace and writes the manifest. An app that never
+calls ``step()`` can register and report, but cannot be traced.
+
+Config keys understood (the text the dyno CLI emits):
+
+    PROFILE_START_TIME=<unix ms, 0 = now>
+    ACTIVITIES_LOG_FILE=<output path>
+    ACTIVITIES_DURATION_MSECS=<ms>          (duration mode)
+    ACTIVITIES_ITERATIONS=<n>               (iteration mode)
+    PROFILE_START_ITERATION_ROUNDUP=<r>
+    TRACE_CONTEXT=<trace-id/span-id>
+
+Usage::
+
+    from dynolog_tpu_torch.client import TraceClient
+
+    client = TraceClient(job_id=42)
+    client.start()
+    for batch in data:
+        train_step(batch)
+        client.step()   # required: captures start and stop here
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import math
+import os
+import shutil
+import tempfile
+import threading
+import time
+from dataclasses import dataclass, field
+
+from dynolog_tpu_torch import failpoints, obs
+from dynolog_tpu_torch.client import ipc
+from dynolog_tpu_torch.stream import stream_write
+
+_log = logging.getLogger("dynolog_tpu_torch.shim")
+
+# Chrome-trace files the shim writes into a capture's trace dir.
+TRACE_SUFFIX = ".pt.trace.json"
+
+
+def _ttl_from_env() -> float:
+    """Stale-artifact sweep TTL: DYNO_TPU_SWEEP_TTL_S, else a day (long past
+    any live capture, short enough that a crash-looping job cannot fill the
+    trace volume). A typo'd value falls back to the default."""
+    raw = os.environ.get("DYNO_TPU_SWEEP_TTL_S")
+    if raw is None:
+        return 24 * 3600
+    try:
+        return float(raw)
+    except ValueError:
+        _log.warning("DYNO_TPU_SWEEP_TTL_S=%r is not a number; using default",
+                     raw)
+        return 24 * 3600
+
+
+DEFAULT_SWEEP_TTL_S = _ttl_from_env()
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except (PermissionError, OSError):
+        return True  # exists (another user's), or unknowable: keep it
+    return True
+
+
+def _trace_session_dir(path: str, prefix: str) -> int | None:
+    """The pid of a `<prefix>_<pid>` trace-session dir, or None if `path`
+    does not look like one: the shim's own trace base name as the prefix,
+    and only what the shim itself writes there (Chrome traces and their
+    .tmp leftovers)."""
+    base = os.path.basename(path.rstrip(os.sep))
+    head, sep, pid_part = base.rpartition("_")
+    if not sep or head != prefix or not pid_part.isdigit():
+        return None
+    try:
+        entries = os.listdir(path)
+    except OSError:
+        return None
+    if any(not (e.endswith(TRACE_SUFFIX) or e.endswith(".tmp"))
+           for e in entries):
+        return None
+    return int(pid_part)
+
+
+def _reclaim(path: str, cutoff: float, reclaimed: list[str]) -> None:
+    try:
+        if os.path.getmtime(path) >= cutoff:
+            return
+        os.unlink(path)
+    except OSError:
+        return
+    _log.info("reclaimed stale artifact: %s", path)
+    reclaimed.append(path)
+
+
+def sweep_stale_artifacts(
+    trace_base: str, ttl_s: float = DEFAULT_SWEEP_TTL_S, *,
+    now: float | None = None
+) -> list[str]:
+    """Garbage-collects debris a killed capture left around ``trace_base``
+    (the log_file path minus its .json suffix), touching ONLY artifacts
+    that carry the trace base's own name prefix — the parent is often a
+    shared /tmp:
+
+    - expired ``*.tmp`` files inside `<base>_<pid>` trace-session dirs;
+    - `<base>_<pid>` session dirs whose pid is dead, that are older than
+      ``ttl_s`` and that have NO `<base>_<pid>.json` manifest (the
+      manifest marks a completed capture, which is never reclaimed);
+    - expired `<base>_<pid>.json.tmp` manifest leftovers of dead pids.
+
+    Returns the reclaimed paths. Best-effort: races lose politely."""
+    trace_base = os.path.abspath(trace_base)
+    root = os.path.dirname(trace_base)
+    prefix = os.path.basename(trace_base)
+    if ttl_s <= 0 or not prefix or not os.path.isdir(root):
+        return []
+    cutoff = (now if now is not None else time.time()) - ttl_s
+    reclaimed: list[str] = []
+    try:
+        entries = os.listdir(root)
+    except OSError:
+        return []
+    for name in entries:
+        path = os.path.join(root, name)
+        if os.path.isdir(path):
+            pid = _trace_session_dir(path, prefix)
+            if pid is None:
+                continue
+            for entry in os.listdir(path):
+                if entry.endswith(".tmp"):
+                    _reclaim(os.path.join(path, entry), cutoff, reclaimed)
+            try:
+                expired = os.path.getmtime(path) < cutoff
+            except OSError:
+                continue
+            if not expired or _pid_alive(pid) or os.path.exists(
+                    path + ".json"):
+                continue
+            shutil.rmtree(path, ignore_errors=True)
+            _log.info("reclaimed stale trace-session dir (pid %d gone): %s",
+                      pid, path)
+            reclaimed.append(path)
+        elif name.endswith(".json.tmp"):
+            head, sep, pid_part = name[: -len(".json.tmp")].rpartition("_")
+            if (sep and head == prefix and pid_part.isdigit()
+                    and not _pid_alive(int(pid_part))):
+                _reclaim(path, cutoff, reclaimed)
+    return reclaimed
+
+
+_run_seq_lock = threading.Lock()
+_run_seq = 0
+
+
+def _unique_run_name() -> str:
+    """File stem for one capture: milliseconds plus a per-process counter,
+    so back-to-back captures never share a file."""
+    global _run_seq
+    with _run_seq_lock:
+        _run_seq += 1
+        seq = _run_seq
+    return "%s_%03d_p%d_%d" % (
+        time.strftime("%Y_%m_%d_%H_%M_%S"), int(time.time() * 1000) % 1000,
+        os.getpid(), seq)
+
+
+@dataclass
+class TraceConfig:
+    """Parsed on-demand trace request."""
+
+    log_file: str = ""
+    start_time_ms: int = 0
+    duration_ms: int = 500
+    iterations: int = -1
+    iteration_roundup: int = 1
+    # Control-plane trace context (TRACE_CONTEXT=..., injected by the
+    # daemon's RPC verb): the id this capture's spans are recorded under.
+    trace_ctx: str = ""
+    raw: dict = field(default_factory=dict)
+
+    @classmethod
+    def parse(cls, text: str) -> "TraceConfig":
+        cfg = cls()
+        for line in text.replace("\\n", "\n").splitlines():
+            line = line.strip()
+            if not line or "=" not in line:
+                continue
+            key, value = line.split("=", 1)
+            key = key.strip().upper()
+            value = value.strip()
+            cfg.raw[key] = value
+            try:
+                if key == "ACTIVITIES_LOG_FILE":
+                    cfg.log_file = value
+                elif key == "PROFILE_START_TIME":
+                    cfg.start_time_ms = int(value)
+                elif key == "ACTIVITIES_DURATION_MSECS":
+                    cfg.duration_ms = int(value)
+                elif key == "ACTIVITIES_ITERATIONS":
+                    cfg.iterations = int(value)
+                elif key == "PROFILE_START_ITERATION_ROUNDUP":
+                    cfg.iteration_roundup = int(value)
+                elif key == obs.CONFIG_KEY:
+                    cfg.trace_ctx = value
+            except ValueError:
+                pass
+        return cfg
+
+    def _base(self) -> str:
+        base = self.log_file or os.path.join(
+            tempfile.gettempdir(), "dynolog_tpu_torch_trace.json")
+        return base[:-5] if base.endswith(".json") else base
+
+    def trace_dir(self, pid: int) -> str:
+        """Directory the Chrome trace is written to, derived from log_file
+        per pid (as dyno prints it)."""
+        return f"{self._base()}_{pid}"
+
+    def manifest_path(self, pid: int) -> str:
+        return f"{self._base()}_{pid}.json"
+
+
+class TorchProfiler:
+    """Default profiler backend: a torch.profiler capture with CPU and CUDA
+    activities (CUDA where a card is present) and input shapes recorded.
+
+    start(), step() and stop() must run on the training thread (the
+    TraceClient calls them from its step()); export() may run on any
+    thread after stop() — the TraceClient's poll thread calls it.
+    step() marks ProfilerStep#N spans in the trace."""
+
+    def __init__(self):
+        self._prof = None
+        self._stopped = None
+
+    @staticmethod
+    def _activities():
+        import torch
+        from torch.profiler import ProfilerActivity
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        return acts
+
+    def start(self, trace_dir: str) -> None:
+        from torch.profiler import ProfilerAction, profile
+
+        # A schedule that always records is what makes step() emit the
+        # ProfilerStep#N spans; without one, profile.step() records none.
+        # acc_events: the window is one cycle, so nothing is dropped either
+        # way; it only quiets the per-cycle warning a schedule brings.
+        self._prof = profile(
+            activities=self._activities(),
+            record_shapes=True,
+            schedule=lambda _step: ProfilerAction.RECORD,
+            acc_events=True,
+        )
+        self._prof.start()
+
+    def step(self) -> None:
+        self._prof.step()
+
+    def stop(self) -> None:
+        prof, self._prof = self._prof, None
+        prof.stop()
+        self._stopped = prof
+
+    def export(self, trace_dir: str) -> str:
+        """Writes the stopped capture's Chrome trace into `trace_dir`
+        (tmp + rename) and returns its path."""
+        prof, self._stopped = self._stopped, None
+        path = os.path.join(trace_dir, _unique_run_name() + TRACE_SUFFIX)
+        tmp = path + ".tmp"
+        try:
+            prof.export_chrome_trace(tmp)
+            os.replace(tmp, path)
+        finally:
+            try:
+                os.unlink(tmp)  # no-op after a successful rename
+            except OSError:
+                pass
+        return path
+
+
+class _Window:
+    """One armed capture, handed from the poll thread to the training
+    thread. State moves armed -> active -> stopped on the training thread;
+    the poll thread may cancel an armed window or abandon an active one.
+    Every transition happens under the client's step condition."""
+
+    def __init__(self, trace_dir: str, start_at: int, end_at: int | None,
+                 duration_s: float):
+        self.trace_dir = trace_dir
+        self.start_at = start_at  # the step() count that starts it
+        self.end_at = end_at  # iteration mode: the count that stops it
+        self.duration_s = duration_s  # duration mode
+        self.state = "armed"
+        self.error: str | None = None
+        self.timing: dict = {}
+        self.started_ms = 0
+        self.thread_id: int | None = None
+        self._t_start = 0.0
+
+    def should_stop(self, count: int, now: float) -> bool:
+        if self.end_at is not None:
+            return count >= self.end_at
+        return now - self._t_start >= self.duration_s
+
+
+class TraceClient:
+    """Registers with dynologd and serves on-demand trace requests."""
+
+    def __init__(
+        self,
+        job_id: int = 0,
+        device: int = 0,
+        endpoint: str = ipc.DAEMON_ENDPOINT,
+        poll_interval_s: float = 1.0,
+        profiler=None,
+        step_start_timeout_s: float = 60.0,
+        step_trace_timeout_s: float = 600.0,
+        report_interval_s: float = 10.0,
+        stall_grace_s: float = 60.0,
+        sweep_ttl_s: float = DEFAULT_SWEEP_TTL_S,
+    ):
+        self.job_id = job_id
+        self.device = device
+        self.endpoint = endpoint
+        self.poll_interval_s = poll_interval_s
+        # How long to wait for the app to step into the capture window,
+        # and for the window to end once open. A timeout fails the capture
+        # loudly (error manifest + last_error) instead of tracing the
+        # wrong window.
+        self.step_start_timeout_s = step_start_timeout_s
+        self.step_trace_timeout_s = step_trace_timeout_s
+        self.profiler = profiler if profiler is not None else TorchProfiler()
+        self._client = ipc.IpcClient()
+        self._ancestry = ipc.pid_ancestry()
+        self._last_subscribe = 0.0
+        self._thread: threading.Thread | None = None
+        self._stop = threading.Event()
+        self._step_count = 0
+        self._step_cv = threading.Condition()
+        self._window: _Window | None = None
+        # Step telemetry ("pstat"): durations between step() calls,
+        # drained every report_interval_s by the poll thread. <= 0
+        # disables.
+        self.report_interval_s = report_interval_s
+        self._step_durations: list[float] = []
+        self._last_step_t: float | None = None
+        self._ever_stepped = False
+        self._last_report_t = time.monotonic()
+        # Rate comes from the step-count delta per report, so a job whose
+        # step period exceeds the report interval still has an exact rate.
+        self._reported_steps = 0
+        self._recent_step_s = 0.0
+        # Idle span after which a job with no measured step time yet is
+        # declared stalled; once a step time is known the threshold scales
+        # with it.
+        self.stall_grace_s = stall_grace_s
+        self.sweep_ttl_s = sweep_ttl_s
+        self._swept_dirs: set[str] = set()
+        self.instance_rank: int | None = None
+        self.traces_completed = 0
+        self.last_error: str | None = None
+        self.last_manifest: dict | None = None
+        # Daemon-restart ride-through: after _absent_threshold no-reply
+        # polls the daemon is absent — polls back off exponentially, and
+        # the first reply after an absence re-announces this pid.
+        self.reconnect_backoff_max_s = 30.0
+        self.daemon_reconnects = 0
+        self._absent_polls = 0
+        self._absent_threshold = 2
+        self._need_reannounce = False
+
+    # -- lifecycle -------------------------------------------------------
+
+    def start(self) -> bool:
+        """Registers and spawns the polling thread. False if the daemon is
+        unreachable (the app keeps running untraced)."""
+        self.instance_rank = self._client.register_context(
+            self.job_id, self.device, dest=self.endpoint)
+        if self.instance_rank is not None:
+            # One synchronous poll so this process is in the daemon's
+            # trace registry before start() returns, then opt in to kicks.
+            self._client.request_config(
+                self.job_id, self._ancestry, ipc.CONFIG_TYPE_ACTIVITIES,
+                dest=self.endpoint)
+            self._client.subscribe_kicks(self.job_id, dest=self.endpoint)
+            self._last_subscribe = time.monotonic()
+        self._thread = threading.Thread(
+            target=self._poll_loop, name="dynolog_tpu_torch_shim",
+            daemon=True)
+        self._thread.start()
+        return self.instance_rank is not None
+
+    def stop(self) -> None:
+        """Stops polling. Call it from the training thread: a capture still
+        open there is stopped and dropped."""
+        self._stop.set()
+        with self._step_cv:
+            self._step_cv.notify_all()
+        if self._thread:
+            self._thread.join(timeout=5)
+        with self._step_cv:
+            window = self._window
+            if (window is not None and window.state in ("active", "abandoned")
+                    and window.thread_id == threading.get_ident()):
+                self._stop_profiler(window, "abandoned")
+            self._window = None
+        self._client.close()
+
+    def __enter__(self) -> "TraceClient":
+        self.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def step(self) -> None:
+        """Call once per training iteration, on the training thread: an
+        armed capture starts and stops here, and step-rate/latency
+        telemetry counts these calls."""
+        now = time.monotonic()
+        with self._step_cv:
+            self._step_count += 1
+            if self._last_step_t is not None:
+                self._step_durations.append(now - self._last_step_t)
+                self._recent_step_s = now - self._last_step_t
+            else:
+                # Epoch-opening step: the measurement origin of the next
+                # report, excluded from its count.
+                self._last_report_t = now
+                self._reported_steps = self._step_count
+            self._ever_stepped = True
+            self._last_step_t = now
+            if self._window is not None:
+                self._drive_window(self._window, self._step_count, now)
+            self._step_cv.notify_all()
+
+    # -- capture window (training thread, under _step_cv) ---------------
+
+    def _drive_window(self, w: _Window, count: int, now: float) -> None:
+        if w.state == "armed" and count >= w.start_at:
+            t0 = time.time()
+            try:
+                self.profiler.start(w.trace_dir)
+            except Exception as e:  # noqa: BLE001 - never kill the app
+                w.error = f"profiler start failed: {e}"
+                w.state = "stopped"
+                return
+            w.timing["profiler_start_ms"] = int((time.time() - t0) * 1000)
+            w.started_ms = int(t0 * 1000)
+            w.thread_id = threading.get_ident()
+            w._t_start = time.monotonic()
+            w.state = "active"
+        elif w.state == "active":
+            self.profiler.step()
+            if w.should_stop(count, now):
+                self._stop_profiler(w, "stopped")
+        elif w.state == "abandoned":
+            # The poll thread gave up on this window; close the profiler
+            # on the thread that opened it and drop the capture.
+            self._stop_profiler(w, "dropped")
+            self._window = None
+
+    def _stop_profiler(self, w: _Window, state: str) -> None:
+        t0 = time.time()
+        try:
+            self.profiler.stop()
+        except Exception as e:  # noqa: BLE001 - never kill the app
+            w.error = w.error or f"profiler stop failed: {e}"
+        w.timing["profiler_stop_ms"] = int((time.time() - t0) * 1000)
+        w.state = state
+
+    # -- poll thread -----------------------------------------------------
+
+    def _poll_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                text = self._client.request_config(
+                    self.job_id, self._ancestry, ipc.CONFIG_TYPE_ACTIVITIES,
+                    dest=self.endpoint,
+                    # Short ladders: absence is ridden out by the backoff
+                    # in _wait_for_tick, not inside one send.
+                    retries=2 if self._absent_polls else 4)
+            except OSError as e:  # daemon went away; keep trying
+                self.last_error = str(e)
+                text = None
+            if text is None:
+                self._absent_polls += 1
+                if self._absent_polls == self._absent_threshold:
+                    _log.warning(
+                        "dynolog daemon unreachable; polling with backoff "
+                        "(up to %.0fs) until it returns",
+                        self.reconnect_backoff_max_s)
+            else:
+                # Any reply is daemon liveness; after an absence the
+                # daemon may have restarted and lost this registration.
+                if self._absent_polls:
+                    self._need_reannounce = True
+                self._absent_polls = 0
+                if self._need_reannounce and self._reannounce():
+                    self._need_reannounce = False
+            if not text:
+                # A late reply to a timed-out request still carries a
+                # config the daemon already cleared: capture it.
+                text = self._client.take_late_config()
+            if text:
+                try:
+                    self._run_trace(TraceConfig.parse(text))
+                except Exception as e:  # noqa: BLE001 - never kill the app
+                    self.last_error = f"trace failed: {e}"
+            try:
+                self._maybe_report_stats()
+            except Exception as e:  # noqa: BLE001 - telemetry must never
+                # kill the poll thread
+                self.last_error = f"stats report failed: {e}"
+            # Kick-subscription keep-alive (the daemon expires stale ones).
+            if time.monotonic() - self._last_subscribe > 30.0:
+                self._client.subscribe_kicks(self.job_id, dest=self.endpoint)
+                self._last_subscribe = time.monotonic()
+            self._wait_for_tick()
+
+    def _wait_for_tick(self) -> None:
+        """Sleep until the next poll, or until the daemon kicks (sliced at
+        200 ms to keep stop() prompt); back off while the daemon is
+        absent."""
+        interval = self.poll_interval_s
+        if self._absent_polls >= self._absent_threshold:
+            interval = min(
+                self.poll_interval_s *
+                (2 ** min(self._absent_polls - self._absent_threshold + 1,
+                          20)),
+                self.reconnect_backoff_max_s)
+        deadline = time.monotonic() + interval
+        while not self._stop.is_set():
+            left = deadline - time.monotonic()
+            if left <= 0:
+                return
+            if self._client.wait_for_kick(min(left, 0.2)):
+                return
+
+    def _reannounce(self) -> bool:
+        """Re-registers this pid after the daemon came back; True once the
+        daemon confirmed it."""
+        try:
+            rank = self._client.register_context(
+                self.job_id, self.device, dest=self.endpoint)
+            if rank is None:
+                self.last_error = "re-announce: no reply to register_context"
+                return False
+            self.instance_rank = rank
+            self._client.subscribe_kicks(self.job_id, dest=self.endpoint)
+            self._last_subscribe = time.monotonic()
+        except OSError as e:
+            self.last_error = str(e)
+            return False
+        self.daemon_reconnects += 1
+        _log.info("dynolog daemon is back (ride-through #%d); pid "
+                  "re-announced", self.daemon_reconnects)
+        return True
+
+    def _maybe_report_stats(self) -> None:
+        if self.report_interval_s <= 0:
+            return
+        with self._step_cv:
+            if not self._ever_stepped:
+                # No step() ever: publish nothing (a permanent zero-rate
+                # series would misfire step-rate auto-triggers).
+                return
+        now = time.monotonic()
+        window_s = now - self._last_report_t
+        if window_s < self.report_interval_s:
+            return
+        with self._step_cv:
+            durations = self._step_durations
+            self._step_durations = []
+            steps = self._step_count - self._reported_steps
+            if steps == 0:
+                # An empty window is a stall only once the idle span
+                # dwarfs both the report interval and the recent step
+                # time (or the stall grace, before any step time is known).
+                threshold = max(
+                    2 * self.report_interval_s,
+                    4 * self._recent_step_s
+                    if self._recent_step_s > 0 else self.stall_grace_s)
+                if (self._last_step_t is not None
+                        and now - self._last_step_t <= threshold):
+                    return
+                # Stalled: close the stepping epoch (the next step opens a
+                # fresh window) and report the zero rate.
+                self._last_step_t = None
+                self._recent_step_s = 0.0
+            self._reported_steps = self._step_count
+        self._last_report_t = now
+        if steps == 0:
+            self._client.send_perf_stats(self.job_id, window_s, 0,
+                                         dest=self.endpoint)
+            return
+        kwargs: dict = {}
+        if durations:
+            durations.sort()
+
+            def pctl(p: float) -> float:
+                # Nearest-rank, like the daemon's MetricStore stats.
+                k = max(math.ceil(p * len(durations)), 1)
+                return durations[min(k - 1, len(durations) - 1)]
+
+            kwargs = dict(p50_ms=pctl(0.50) * 1000.0,
+                          p95_ms=pctl(0.95) * 1000.0,
+                          max_ms=durations[-1] * 1000.0)
+        self._client.send_perf_stats(self.job_id, window_s, steps,
+                                     dest=self.endpoint, **kwargs)
+
+    # -- one capture (poll thread) ---------------------------------------
+
+    def _run_trace(self, cfg: TraceConfig) -> None:
+        # Fault drill: shim.run_trace=throw proves the poll loop contains
+        # a capture-path crash (last_error set, polling continues).
+        failpoints.fire("shim.run_trace")
+        pid = os.getpid()
+        trace_dir = cfg.trace_dir(pid)
+        # First capture against this trace base: reclaim expired debris
+        # carrying this base's name prefix before writing next to it.
+        base = os.path.abspath(trace_dir)[: -len(f"_{pid}")]
+        if base not in self._swept_dirs:
+            self._swept_dirs.add(base)
+            try:
+                sweep_stale_artifacts(base, self.sweep_ttl_s)
+            except Exception as e:  # noqa: BLE001 - never costs the capture
+                _log.warning("artifact sweep of %s failed: %s", base, e)
+        os.makedirs(trace_dir, exist_ok=True)
+        ctx = obs.TraceContext.parse(cfg.trace_ctx) or obs.TraceContext.mint()
+        received_ms = int(time.time() * 1000)
+        if cfg.start_time_ms > 0:
+            # Synchronized start across hosts.
+            delay = cfg.start_time_ms / 1000.0 - time.time()
+            if delay > 0:
+                time.sleep(delay)
+        trace_file = None
+        with obs.span("shim.capture", ctx=ctx):
+            error, window = self._capture_window(cfg, trace_dir)
+        timing = {"received_ms": received_ms, **window.timing}
+        if error is None:
+            with obs.span("shim.export", ctx=ctx):
+                t0 = time.time()
+                try:
+                    trace_file = self.profiler.export(trace_dir)
+                    timing["export_ms"] = int((time.time() - t0) * 1000)
+                    timing["trace_bytes"] = os.path.getsize(trace_file)
+                except Exception as e:  # noqa: BLE001 - fails the capture
+                    error = f"trace export failed: {e}"
+        self._finish_trace(cfg, pid, trace_dir, trace_file,
+                           window.started_ms, error, timing, ctx)
+
+    def _capture_window(self, cfg: TraceConfig, trace_dir: str):
+        """Arms a window for the training thread and waits for it to open
+        and close; returns (error or None, window)."""
+        with self._step_cv:
+            base = self._step_count
+            if cfg.iterations > 0:
+                # The next roundup boundary STRICTLY after the current
+                # step: the window always begins at a future iteration.
+                roundup = max(cfg.iteration_roundup, 1)
+                start_at = ((base // roundup) + 1) * roundup
+                window = _Window(trace_dir, start_at,
+                                 start_at + cfg.iterations, 0.0)
+            else:
+                window = _Window(trace_dir, base + 1, None,
+                                 cfg.duration_ms / 1000.0)
+            if self._window is not None:
+                window.state = "stopped"
+                return ("a previous capture is still open on the training "
+                        "thread", window)
+            self._window = window
+            opened = self._step_cv.wait_for(
+                lambda: window.state != "armed" or self._stop.is_set(),
+                timeout=self.step_start_timeout_s)
+            if window.state == "armed":
+                self._window = None
+                return (f"trace aborted: app did not reach step "
+                        f"{window.start_at} within "
+                        f"{self.step_start_timeout_s:g}s (at "
+                        f"{self._step_count})"
+                        if not opened else "trace aborted: client stopped",
+                        window)
+            limit = self.step_trace_timeout_s + window.duration_s
+            closed = self._step_cv.wait_for(
+                lambda: window.state != "active" or self._stop.is_set(),
+                timeout=limit)
+            if window.state == "active":
+                # The training thread must close the profiler it opened:
+                # its next step() (or stop()) drops this capture.
+                window.state = "abandoned"
+                return (f"trace timed out: the window did not close within "
+                        f"{limit:g}s (at step {self._step_count})"
+                        if not closed else "trace aborted: client stopped",
+                        window)
+            self._window = None
+            return window.error, window
+
+    def _finish_trace(self, cfg, pid, trace_dir, trace_file, started_ms,
+                      error, timing, ctx) -> None:
+        """Writes the manifest at the path dyno prints (log_file_<pid>.json):
+        status is "ok" only if the Chrome trace is on disk."""
+        if error is None and not (trace_file and os.path.exists(trace_file)):
+            error = "capture produced no trace file"
+        manifest = {
+            "pid": pid,
+            "job_id": self.job_id,
+            "trace_dir": trace_dir,
+            "trace_file": trace_file,
+            "started_ms": started_ms,
+            "ended_ms": int(time.time() * 1000),
+            "mode": "iterations" if cfg.iterations > 0 else "duration",
+            "config": cfg.raw,
+            "status": "error" if error else "ok",
+            "timing": timing,
+            "trace_ctx": ctx.header(),
+        }
+        if error:
+            manifest["error"] = error
+            self.last_error = error
+        # Atomic: the manifest's existence IS the completion signal. A
+        # refused write (ENOSPC, or the trace.artifact.write drill) leaves
+        # nothing behind and lands in last_error.
+        wrote = False
+        with obs.span("shim.artifact_write", ctx=ctx):
+            try:
+                failpoints.fire("trace.artifact.write")
+                stream_write(cfg.manifest_path(pid),
+                             [json.dumps(manifest, indent=2).encode()])
+                wrote = True
+            except OSError as e:
+                self.last_error = f"manifest write refused: {e}"
+        self.last_manifest = manifest
+        if wrote and not error:
+            self.traces_completed += 1
+        # Ship this capture's spans to the daemon (fire-and-forget).
+        try:
+            self._client.send_spans(obs.JOURNAL.drain(), dest=self.endpoint)
+        except OSError as e:
+            self.last_error = f"span flush failed: {e}"

@@ -1,0 +1,214 @@
+"""Named failpoints for the PyTorch shim — the mirror of
+src/common/Failpoints.h (same spec grammar, same env variable), so one
+``DYNO_FAILPOINTS`` setting can drive a fault drill through both halves
+of the stack: the C++ daemon's collectors/sinks and the PyTorch shim.
+
+Spec grammar (one failpoint)::
+
+    MODE[:ARG][*COUNT]
+
+    throw        fire(name) raises FailpointError
+    delay:MS     fire(name) sleeps MS milliseconds, then continues
+    error        fire(name) returns True (caller takes its simulated
+                 error path)
+    kill         fire(name) SIGKILLs this process — the crash chaos
+                 drills need: no unwind, no atexit, no buffered-IO
+                 flush, exactly what a preemption or OOM kill looks
+                 like from outside (mirror of the C++ kKill mode)
+    errno:CODE   fire(name) raises OSError(CODE, ...) — the errno-level
+                 IO drill (resource-pressure chaos). Python persistence
+                 sites wrap their real IO in ``try/except OSError``, so
+                 raising IS taking the real error path with the exact
+                 errno a full disk / dying volume / fd exhaustion
+                 produces (the C++ kErrno mode instead returns True
+                 with ``errno`` set — each language's idiomatic error
+                 channel, same spec string). CODE is a symbolic name
+                 from the closed cross-language set: ENOSPC | EIO |
+                 EMFILE | ENFILE | EDQUOT | ENOMEM | EROFS | EACCES.
+    off          disarm
+    *COUNT       fire at most COUNT times, then auto-disarm — how a test
+                 lets "the fault clear" without a second control channel
+
+Arming: the ``DYNO_FAILPOINTS`` env var (``name=spec;name2=spec2``,
+parsed at import), or :func:`arm` / :func:`disarm` from tests.
+
+Instrumented sites (see docs/RELIABILITY.md for the catalog)::
+
+    shim.run_trace        TraceClient capture path (poll-loop containment)
+    trace.artifact.write  the capture manifest's atomic write
+
+Cost when unarmed: one falsy dict check per site.
+"""
+
+from __future__ import annotations
+
+import errno as _errno_mod
+import os
+import signal
+import threading
+import time
+
+
+class FailpointError(RuntimeError):
+    """Raised by a failpoint armed in ``throw`` mode."""
+
+
+# The errno: action's symbolic-name table — the same closed set the C++
+# parser accepts (Failpoints.cpp errnoByName), so one spec string arms
+# both languages. Names rather than numbers: errno values are
+# ABI-specific, and a drill spec must mean the same fault everywhere.
+_ERRNO_NAMES = {
+    name: getattr(_errno_mod, name)
+    for name in ("ENOSPC", "EIO", "EMFILE", "ENFILE", "EDQUOT", "ENOMEM",
+                 "EROFS", "EACCES")
+}
+
+
+class _Point:
+    __slots__ = ("mode", "delay_ms", "errno_value", "remaining", "spec")
+
+    def __init__(self, mode: str, delay_ms: int, remaining: int, spec: str,
+                 errno_value: int = 0):
+        self.mode = mode
+        self.delay_ms = delay_ms
+        self.errno_value = errno_value
+        self.remaining = remaining  # -1 = unlimited
+        self.spec = spec
+
+
+_lock = threading.Lock()
+_points: dict[str, _Point] = {}
+_hits: dict[str, int] = {}
+
+
+def _parse_spec(spec: str) -> _Point:
+    body = spec
+    remaining = -1
+    if "*" in body:
+        body, _, count = body.rpartition("*")
+        if not count.isdigit() or int(count) <= 0:
+            raise ValueError(
+                f"bad failpoint spec {spec!r}: *COUNT must be a positive "
+                "integer")
+        remaining = int(count)
+    body, _, arg = body.partition(":")
+    if body in ("throw", "error", "kill"):
+        # Argless modes reject a stray :ARG — "kill:5" is a typo'd
+        # drill, and silently ignoring the argument would run the WRONG
+        # drill (same rule as the C++ parser).
+        if arg:
+            raise ValueError(
+                f"bad failpoint spec {spec!r}: {body} takes no argument")
+        return _Point(body, 0, remaining, spec)
+    if body == "delay":
+        if not arg.isdigit():
+            raise ValueError(
+                f"bad failpoint spec {spec!r}: delay needs a non-negative "
+                ":MS argument")
+        return _Point("delay", int(arg), remaining, spec)
+    if body == "errno":
+        if arg not in _ERRNO_NAMES:
+            raise ValueError(
+                f"bad failpoint spec {spec!r}: errno needs a :CODE "
+                "argument from " + " | ".join(sorted(_ERRNO_NAMES)))
+        return _Point("errno", 0, remaining, spec,
+                      errno_value=_ERRNO_NAMES[arg])
+    raise ValueError(
+        f"bad failpoint spec {spec!r}: mode must be throw | delay:MS | "
+        "error | errno:CODE | kill | off")
+
+
+def arm(name: str, spec: str) -> None:
+    """Arms ``name`` with ``spec`` (raises ValueError on a bad spec;
+    ``off`` disarms)."""
+    if not name:
+        raise ValueError("failpoint name must be non-empty")
+    if spec == "off":
+        disarm(name)
+        return
+    point = _parse_spec(spec)
+    with _lock:
+        _points[name] = point
+
+
+def disarm(name: str) -> bool:
+    with _lock:
+        return _points.pop(name, None) is not None
+
+
+def disarm_all() -> None:
+    with _lock:
+        _points.clear()
+
+
+def arm_from_spec(multi_spec: str) -> int:
+    """``a=throw;b=delay:100`` — arms each pair, returns the count armed."""
+    armed = 0
+    for entry in multi_spec.split(";"):
+        entry = entry.strip()
+        if not entry:
+            continue
+        name, eq, spec = entry.partition("=")
+        if not eq:
+            raise ValueError(f"expected name=spec, got {entry!r}")
+        arm(name.strip(), spec.strip())
+        armed += 1
+    return armed
+
+
+def fire(name: str) -> bool:
+    """Evaluates the failpoint at an instrumented site. May raise
+    (:class:`FailpointError`, ``throw`` mode) or sleep (``delay`` mode);
+    returns True iff an ``error``-mode action fired and the caller should
+    take its simulated-failure path."""
+    if not _points:  # unarmed fast path
+        return False
+    with _lock:
+        point = _points.get(name)
+        if point is None:
+            return False
+        _hits[name] = _hits.get(name, 0) + 1
+        if point.remaining > 0:
+            point.remaining -= 1
+            if point.remaining == 0:
+                # Count exhausted: the fault clears.
+                del _points[name]
+    if point.mode == "throw":
+        raise FailpointError(f"failpoint {name}")
+    if point.mode == "errno":
+        # The errno-level IO drill: persistence sites wrap their real IO
+        # in try/except OSError, so raising here IS the site's real
+        # error path — e.errno carries the drilled code (strerror text
+        # plus the failpoint name, so a drill's log shows the injection).
+        raise OSError(
+            point.errno_value,
+            os.strerror(point.errno_value) + f" [failpoint {name}]")
+    if point.mode == "delay":
+        time.sleep(point.delay_ms / 1000.0)
+        return False
+    if point.mode == "kill":
+        # The chaos-drill crash: die the way a preemption/OOM kill looks
+        # from outside. The stderr line lands first (unbuffered write)
+        # so the drill's log shows WHERE the process died.
+        os.write(2, f"failpoint {name}: SIGKILL'ing this process\n".encode())
+        os.kill(os.getpid(), signal.SIGKILL)
+    return True  # error mode
+
+
+def hits(name: str) -> int:
+    """Lifetime fire count (survives auto-disarm)."""
+    with _lock:
+        return _hits.get(name, 0)
+
+
+def armed() -> dict[str, str]:
+    """Currently-armed failpoints: name -> spec."""
+    with _lock:
+        return {name: p.spec for name, p in _points.items()}
+
+
+# Env arming at import, like the C++ registry's first-use arming: a child
+# process (the shim's export child, a spawned daemon harness) inherits
+# the drill through its environment with no extra plumbing.
+if os.environ.get("DYNO_FAILPOINTS"):
+    arm_from_spec(os.environ["DYNO_FAILPOINTS"])

@@ -1,0 +1,39 @@
+"""Parameters of the JAX package's transformer, as numpy arrays, into the
+port's parameter tree. The two packages share the tree and the [in, out]
+weight layout, so this is a leaf-by-leaf copy with no transposes.
+
+bf16 leaves come out of JAX as ``ml_dtypes.bfloat16`` arrays, which
+``torch.from_numpy`` rejects; they go through f32 (exact for bf16) and are
+cast back with ``.to(dtype)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dynolog_tpu_torch import resolve_device
+from dynolog_tpu_torch.models.transformer import param_leaves
+
+
+def _leaf(x, device, dtype) -> torch.Tensor:
+    t = torch.from_numpy(np.asarray(x).astype(np.float32))
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_jax(np_params: dict, device="cuda",
+                    dtype: torch.dtype = torch.bfloat16) -> dict:
+    """{embedding, w_out, final_scale, layers: [...]} of array-likes ->
+    the same tree of `dtype` tensors on `device`, requiring grad."""
+    device = resolve_device(device)
+    params = {
+        name: _leaf(np_params[name], device, dtype)
+        for name in ("embedding", "w_out", "final_scale")
+    }
+    params["layers"] = [
+        {name: _leaf(value, device, dtype) for name, value in layer.items()}
+        for layer in np_params["layers"]
+    ]
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    return params

@@ -1,0 +1,193 @@
+"""Flagship workload in PyTorch: the Llama-style decoder-only transformer of
+``dynolog_tpu/models/transformer.py``, with the same parameter tree, the
+same weight layout (``x @ W`` with W shaped [in, out]) and the same cast
+order, so the JAX package's weights convert without transposes
+(``models.convert.params_from_jax``).
+
+Parameters are a plain dict of leaf tensors mirroring the reference's
+pytree: {embedding, w_out, final_scale, layers: [{attn_scale, wq, wk, wv,
+wo, mlp_scale, w_gate, w_up, w_down}, ...]}.
+
+This is a *workload*, not a modeling library: the monitoring framework
+only observes it. MoE and ring attention are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from dynolog_tpu_torch import resolve_device
+from dynolog_tpu_torch.ops.flash_attention import (
+    flash_attention, reference_attention)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 1024
+    d_model: int = 256
+    n_layers: int = 4
+    n_heads: int = 8
+    d_ff: int = 704  # ~8/3 * d_model, rounded to a multiple of 64
+    max_seq_len: int = 512
+    rope_theta: float = 10000.0
+    dtype: str = "bfloat16"
+    # "reference": plain attention; "flash": the CUDA flash kernels
+    # (dynolog_tpu_torch.ops.flash_attention). "ring" is not ported yet.
+    attn_impl: str = "reference"
+    # MoE (n_experts > 0) is not ported yet; the fields stay so configs
+    # carry over from the JAX package unchanged.
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @classmethod
+    def llama_8b_like(cls, **overrides) -> "TransformerConfig":
+        """Shape class of the north-star workload (Llama-3-8B widths)."""
+        fields = dict(
+            vocab_size=128256,
+            d_model=4096,
+            n_layers=32,
+            n_heads=32,
+            d_ff=14336,
+            max_seq_len=8192,
+        )
+        fields.update(overrides)
+        return cls(**fields)
+
+
+def check_supported(cfg: TransformerConfig) -> None:
+    if cfg.n_experts > 0:
+        raise NotImplementedError("MoE layers are not ported to PyTorch yet")
+    if cfg.attn_impl == "ring":
+        raise NotImplementedError("ring attention is not ported to PyTorch yet")
+    if cfg.attn_impl not in ("reference", "flash"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+
+
+def init_params(cfg: TransformerConfig, device="cuda",
+                generator: torch.Generator | None = None) -> dict:
+    """Random parameters in the reference's tree and layout, drawn with
+    `generator` (which must live on `device`): normal / sqrt(fan_in) drawn
+    in f32, then cast to cfg.dtype, as the reference draws them. The
+    numbers differ from the JAX package's (another generator); tests
+    convert the JAX package's parameters instead."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    dtype = cfg.torch_dtype
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=device)
+        return (w / fan_in ** 0.5).to(dtype)
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    d, f = cfg.d_model, cfg.d_ff
+    params = {
+        "embedding": dense((cfg.vocab_size, d), d),
+        "w_out": dense((d, cfg.vocab_size), d),
+        "final_scale": ones(d),
+        "layers": [],
+    }
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "attn_scale": ones(d),
+            "wq": dense((d, d), d),
+            "wk": dense((d, d), d),
+            "wv": dense((d, d), d),
+            "wo": dense((d, d), d),
+            "mlp_scale": ones(d),
+            "w_gate": dense((d, f), d),
+            "w_up": dense((d, f), d),
+            "w_down": dense((f, d), f),
+        })
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    return params
+
+
+def param_leaves(params: dict) -> list[torch.Tensor]:
+    """Every parameter tensor, in a fixed order."""
+    leaves = [params["embedding"], params["w_out"], params["final_scale"]]
+    for layer in params["layers"]:
+        leaves.extend(layer[name] for name in sorted(layer))
+    return leaves
+
+
+def _rmsnorm(x, scale):
+    var = x.float().square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * scale
+
+
+def _rope(x, positions, theta):
+    """Rotary embeddings over the last (head_dim) axis, halves split (not
+    interleaved). x: [B, S, H, D]; positions: [B, S]."""
+    half = x.shape[-1] // 2
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+    freqs = torch.exp(
+        -log_theta * torch.arange(0, half, dtype=torch.float32) / half
+    ).to(x.device)
+    angles = positions[..., None].float() * freqs  # [B, S, half]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def _attention(layer, x, positions, cfg: TransformerConfig):
+    b, s, d = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ layer["wq"]).reshape(b, s, h, hd)
+    k = (x @ layer["wk"]).reshape(b, s, h, hd)
+    v = (x @ layer["wv"]).reshape(b, s, h, hd)
+    q = _rope(q, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg.rope_theta)
+
+    if cfg.attn_impl == "flash":
+        out = flash_attention(q, k, v, True).reshape(b, s, d)
+    else:
+        out = reference_attention(q, k, v, causal=True).reshape(b, s, d)
+    return out @ layer["wo"]
+
+
+def _mlp(layer, x):
+    gate = torch.nn.functional.silu(x @ layer["w_gate"])
+    return (gate * (x @ layer["w_up"])) @ layer["w_down"]
+
+
+def forward(params, tokens, cfg: TransformerConfig):
+    """tokens [B, S] int -> logits [B, S, vocab] float32."""
+    check_supported(cfg)
+    x = params["embedding"][tokens]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    positions = positions.expand(tokens.shape)
+    for layer in params["layers"]:
+        x = x + _attention(layer, _rmsnorm(x, layer["attn_scale"]),
+                           positions, cfg)
+        x = x + _mlp(layer, _rmsnorm(x, layer["mlp_scale"]))
+    x = _rmsnorm(x, params["final_scale"])
+    return (x @ params["w_out"]).float()
+
+
+def loss_fn(params, tokens, cfg: TransformerConfig):
+    """Next-token cross entropy (tokens serve as their own shifted targets).
+    The full [B, S] sequence is forwarded and the last-position logits
+    dropped afterwards, as the reference does."""
+    logits = forward(params, tokens, cfg)[:, :-1]
+    targets = tokens[:, 1:]
+    logprobs = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logprobs, -1, targets[..., None])
+    return nll.mean()

@@ -1,0 +1,71 @@
+"""The kernel build of the PyTorch port (dynolog_tpu_torch.ops._build) on
+the CPU, with a stand-in for nvcc: one compiler process per library, all
+started together, libraries reused by content hash, failures raised with
+the compiler's log. (The real nvcc runs only on the machine with the
+card, through chip_smoke.py.)"""
+
+import os
+import stat
+
+import pytest
+
+from dynolog_tpu_torch.ops import _build
+
+FAKE_NVCC = """#!/bin/sh
+# Writes its -o target, like nvcc, after logging like ptxas -v.
+out=""
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; fi
+  shift
+done
+echo "ptxas info    : Used 64 registers"
+{fail}
+echo lib > "$out"
+"""
+
+
+@pytest.fixture()
+def fake_cuda(tmp_path, monkeypatch):
+    def install(fail: str = "") -> None:
+        nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+        nvcc.parent.mkdir(parents=True, exist_ok=True)
+        nvcc.write_text(FAKE_NVCC.format(fail=fail))
+        nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setenv("DYNOLOG_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    return install
+
+
+def test_build_all_builds_each_library_once(fake_cuda, tmp_path):
+    fake_cuda()
+    first = _build.build_all()
+    assert set(first) == set(_build.LIBRARIES)
+    for name in _build.LIBRARIES:
+        lib = _build._lib_path(name)
+        assert lib.parent == tmp_path / "out" and lib.exists()
+        assert "registers" in lib.with_suffix(".log").read_text()
+    assert _build.build_all() == {name: 0.0 for name in _build.LIBRARIES}
+
+
+def test_build_failure_raises_with_the_compiler_log(fake_cuda, tmp_path):
+    fake_cuda(fail='echo "error: no such intrinsic"; exit 1')
+    with pytest.raises(RuntimeError, match="no such intrinsic"):
+        _build.build_all(["flash_fwd"])
+    assert not _build._lib_path("flash_fwd").exists()
+    assert not [p for p in os.listdir(tmp_path / "out")
+                if p.endswith(".tmp")]
+
+
+def test_library_name_follows_its_sources(fake_cuda):
+    assert _build._lib_path("flash_fwd") != _build._lib_path("flash_bwd")
+    assert _build._lib_path("flash_fwd") == _build._lib_path("flash_fwd")
+
+
+def test_missing_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
+        pytest.skip("a CUDA toolkit is installed")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()

@@ -1,0 +1,231 @@
+"""The PyTorch shim (dynolog_tpu_torch.client) on the CPU: a torch.profiler
+capture opened and closed by step() on the training thread, a capture
+triggered through a real dynologd, and the IPC wire held to the JAX
+package's layout."""
+
+import json
+import os
+import struct
+import threading
+import time
+
+import pytest
+import torch
+
+from daemon_utils import start_daemon, stop_daemon
+from dynolog_tpu import obs as jax_obs
+from dynolog_tpu.client import ipc as jax_ipc
+from dynolog_tpu.client.shim import TraceConfig as JaxTraceConfig
+from dynolog_tpu_torch.client import TorchProfiler, TraceClient, TraceConfig
+from dynolog_tpu_torch import obs
+from dynolog_tpu_torch.client import ipc
+from dynolog_tpu_torch.client.shim import sweep_stale_artifacts
+from dynolog_tpu_torch.models.train import (
+    make_batch, make_train_state, make_train_step)
+from dynolog_tpu_torch.models.transformer import TransformerConfig
+
+TINY = TransformerConfig(vocab_size=64, d_model=32, n_layers=1, n_heads=2,
+                         d_ff=64, dtype="float32", attn_impl="flash")
+
+
+def _events(path):
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _drive(client, cfg_text, work, max_steps=200):
+    """Runs `cfg_text`'s capture as the poll thread would, while this
+    (training) thread does `work` and calls step()."""
+    runner = threading.Thread(
+        target=client._run_trace, args=(TraceConfig.parse(cfg_text),))
+    runner.start()
+    steps = 0
+    while runner.is_alive() and steps < max_steps:
+        work()
+        client.step()
+        steps += 1
+    runner.join(timeout=30)
+    assert not runner.is_alive()
+
+
+@pytest.fixture()
+def offline_client():
+    # No daemon: nothing is registered, captures are driven directly.
+    client = TraceClient(job_id=7, endpoint="dynotpu_torch_nodaemon",
+                         profiler=TorchProfiler(), report_interval_s=0)
+    yield client
+    client.stop()
+
+
+def test_capture_records_training_thread_ops(offline_client, tmp_path):
+    """torch.profiler must start and stop on the thread that runs the
+    model: the trace holds aten::mm cpu_ops from THAT thread."""
+    a = torch.randn(32, 32)
+    log = tmp_path / "trace.json"
+    _drive(offline_client,
+           f"ACTIVITIES_LOG_FILE={log}\nACTIVITIES_ITERATIONS=3",
+           lambda: (a @ a).sum())
+    assert offline_client.traces_completed == 1, offline_client.last_error
+    manifest = json.loads((tmp_path / f"trace_{os.getpid()}.json").read_text())
+    assert manifest["status"] == "ok" and manifest["mode"] == "iterations"
+    assert manifest["timing"]["profiler_start_ms"] >= 0
+    assert manifest["timing"]["profiler_stop_ms"] >= 0
+    events = _events(manifest["trace_file"])
+    me = threading.get_native_id()
+    mms = [e for e in events
+           if e.get("cat") == "cpu_op" and e.get("name") == "aten::mm"]
+    assert mms and all(e["tid"] == me for e in mms), mms[:2]
+    steps = {e["name"] for e in events
+             if e.get("name", "").startswith("ProfilerStep#")}
+    assert len(steps) >= 3, steps
+
+
+def test_duration_capture_of_train_steps(offline_client, tmp_path):
+    gen = torch.Generator().manual_seed(0)
+    params, opt = make_train_state(TINY, "cpu", gen)
+    step = make_train_step(TINY)
+    batch = make_batch(gen, TINY, 2, 16, "cpu")
+    log = tmp_path / "dur.json"
+    _drive(offline_client,
+           f"ACTIVITIES_LOG_FILE={log}\nACTIVITIES_DURATION_MSECS=50",
+           lambda: step(params, opt, batch))
+    assert offline_client.traces_completed == 1, offline_client.last_error
+    manifest = offline_client.last_manifest
+    assert manifest["mode"] == "duration" and manifest["status"] == "ok"
+    names = {e.get("name") for e in _events(manifest["trace_file"])}
+    assert "aten::mm" in names
+
+
+def test_capture_aborts_when_app_never_steps(tmp_path):
+    client = TraceClient(job_id=7, endpoint="dynotpu_torch_nodaemon",
+                         step_start_timeout_s=0.2, report_interval_s=0)
+    try:
+        client._run_trace(TraceConfig.parse(
+            f"ACTIVITIES_LOG_FILE={tmp_path / 't.json'}"))
+        assert client.traces_completed == 0
+        manifest = client.last_manifest
+        assert manifest["status"] == "error"
+        assert "did not reach step" in manifest["error"]
+    finally:
+        client.stop()
+
+
+def test_window_left_open_is_dropped_by_the_next_step(tmp_path):
+    """The app stops stepping inside a window: the capture times out with
+    an error manifest, the training thread's next step() closes the
+    profiler it opened, and the next capture works again."""
+    client = TraceClient(job_id=7, endpoint="dynotpu_torch_nodaemon",
+                         step_trace_timeout_s=0.3, report_interval_s=0)
+    a = torch.randn(16, 16)
+    try:
+        runner = threading.Thread(target=client._run_trace, args=(
+            TraceConfig.parse(f"ACTIVITIES_LOG_FILE={tmp_path / 'a.json'}\n"
+                              "ACTIVITIES_ITERATIONS=50"),))
+        runner.start()
+        while client._window is None or client._window.state == "armed":
+            (a @ a).sum()
+            client.step()
+        runner.join(timeout=30)
+        assert not runner.is_alive()
+        assert "timed out" in client.last_manifest["error"]
+        client.step()  # closes and drops the abandoned capture
+        assert client._window is None
+        _drive(client, f"ACTIVITIES_LOG_FILE={tmp_path / 'b.json'}\n"
+               "ACTIVITIES_ITERATIONS=2", lambda: (a @ a).sum())
+        assert client.traces_completed == 1, client.last_error
+    finally:
+        client.stop()
+
+
+def test_trace_config_parses_like_the_jax_shim():
+    text = ("PROFILE_START_TIME=1234\\nACTIVITIES_LOG_FILE=/tmp/trace.json\n"
+            "ACTIVITIES_ITERATIONS=5\nPROFILE_START_ITERATION_ROUNDUP=4\n"
+            "TRACE_CONTEXT=00000000000000ab/00000000000000cd")
+    ours, ref = TraceConfig.parse(text), JaxTraceConfig.parse(text)
+    for attr in ("log_file", "start_time_ms", "duration_ms", "iterations",
+                 "iteration_roundup", "trace_ctx", "raw"):
+        assert getattr(ours, attr) == getattr(ref, attr), attr
+    assert ours.trace_dir(42) == ref.trace_dir(42) == "/tmp/trace_42"
+    assert ours.manifest_path(42) == ref.manifest_path(42)
+
+
+def test_sweep_reclaims_only_dead_uncompleted_sessions(tmp_path):
+    base = tmp_path / "trace"
+    dead = 2 ** 22 + 12345  # above pid_max on Linux: never alive
+    old = time.time() - 3600
+    stale = tmp_path / f"trace_{dead}"
+    done = tmp_path / f"trace_{dead + 1}"
+    foreign = tmp_path / f"other_{dead}"
+    live = tmp_path / f"trace_{os.getpid()}"
+    for d in (stale, done, foreign, live):
+        d.mkdir()
+    (tmp_path / f"trace_{dead + 1}.json").write_text("{}")
+    leftover = live / "x.pt.trace.json.tmp"
+    leftover.write_text("{")
+    for p in (leftover, stale, done, foreign, live):
+        os.utime(p, (old, old))
+    reclaimed = sweep_stale_artifacts(str(base), ttl_s=60)
+    assert sorted(reclaimed) == sorted([str(stale), str(leftover)])
+    assert done.exists() and foreign.exists() and live.exists()
+
+
+@pytest.mark.parametrize("text", [
+    "00000000000000ab/00000000000000cd", "0000000000000000/00000000000000cd",
+    "00000000000000ab-00000000000000cd", "ab/cd", "zz000000000000ab/0000000000000001"])
+def test_trace_context_parses_like_jax_package(text):
+    ours, ref = obs.TraceContext.parse(text), jax_obs.TraceContext.parse(text)
+    assert (ours is None) == (ref is None)
+    if ours is not None:
+        assert ours.header() == ref.header() == text
+    assert obs.CONFIG_KEY == jax_obs.CONFIG_KEY
+
+
+@pytest.mark.parametrize("name", [
+    "METADATA", "CONTEXT", "REQUEST_HEADER", "PERF_STATS", "SUBSCRIBE",
+    "SPAN", "INT32"])
+def test_wire_struct_matches_jax_package(name):
+    ours, ref = getattr(ipc, name), getattr(jax_ipc, name)
+    assert isinstance(ours, struct.Struct)
+    assert (ours.format, ours.size) == (ref.format, ref.size)
+
+
+def test_wire_constants_match_jax_package():
+    for name in dir(jax_ipc):
+        if name.startswith(("MSG_TYPE_", "CONFIG_TYPE_")) or name in (
+                "DAEMON_ENDPOINT", "SPAN_VERSION", "_MAX_DGRAM"):
+            assert getattr(ipc, name) == getattr(jax_ipc, name), name
+
+
+def test_daemon_triggered_capture_of_train_loop(bin_dir, tmp_path):
+    """setKinetOnDemandRequest through a real dynologd reaches the port's
+    shim, which captures the running CPU train loop."""
+    daemon = start_daemon(bin_dir)
+    client = TraceClient(job_id=4321, endpoint=daemon.endpoint,
+                         poll_interval_s=0.2, report_interval_s=0.5)
+    try:
+        assert client.start(), "shim could not register with the daemon"
+        gen = torch.Generator().manual_seed(1)
+        params, opt = make_train_state(TINY, "cpu", gen)
+        step = make_train_step(TINY)
+        batch = make_batch(gen, TINY, 2, 16, "cpu")
+        trace_base = str(tmp_path / "trace.json")
+        resp = daemon.rpc({
+            "fn": "setKinetOnDemandRequest",
+            "config": (f"ACTIVITIES_LOG_FILE={trace_base}\n"
+                       "ACTIVITIES_ITERATIONS=2"),
+            "job_id": 4321, "pids": [0], "process_limit": 3,
+        })
+        assert resp and resp.get("processesMatched"), resp
+        deadline = time.time() + 30
+        while client.traces_completed == 0 and time.time() < deadline:
+            step(params, opt, batch)
+            client.step()
+        assert client.traces_completed == 1, client.last_error
+        manifest = json.loads(
+            (tmp_path / f"trace_{os.getpid()}.json").read_text())
+        assert manifest["status"] == "ok", manifest
+        names = {e.get("name") for e in _events(manifest["trace_file"])}
+        assert "aten::mm" in names
+    finally:
+        client.stop()
+        stop_daemon(daemon)
