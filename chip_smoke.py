@@ -14,9 +14,13 @@ if any phase fails:
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the tests' shapes and at the main path's attention shape
    (B=1, S=2048, H=32, D=128, bf16, causal), element by element (see
-   `agreement`), with its time, the plain version's, a PyTorch library
-   call's as a yardstick, and its bound; at the main path's shape the
-   agreement rule must also reject planted faults (a dropped tile);
+   `agreement`), with its time (median and range of timed batches), the
+   plain version's, a PyTorch library call's as a yardstick, and its
+   bound; the bf16 backward kernels are held to the plain versions that
+   carry P and dS as they do (round_like_kernel=True) and, by relative L2
+   error, to the f32 plain versions (the JAX package's numerics); at the
+   main path's shape the agreement rule must also reject planted faults
+   (a dropped tile);
 4. trainer: the flagship transformer at full llama-8B width, cut to
    2 layers, bf16, flash attention, B=1, S=2048, trained with AdamW;
 5. capture: while it trains, dynologd triggers an on-demand capture
@@ -69,11 +73,17 @@ REPLACES = {
     "flash_dq": "dynolog_tpu/ops/flash_attention.py:143",
     "flash_dkv": "dynolog_tpu/ops/flash_attention.py:184",
 }
+# The main path's (bf16) sources; f32 backward cases run flash_bwd.cu.
 SOURCES = {
     "flash_fwd": "dynolog_tpu_torch/ops/csrc/flash_fwd.cu",
-    "flash_dq": "dynolog_tpu_torch/ops/csrc/flash_bwd.cu",
-    "flash_dkv": "dynolog_tpu_torch/ops/csrc/flash_bwd.cu",
+    "flash_dq": "dynolog_tpu_torch/ops/csrc/flash_bwd_sm90.cu",
+    "flash_dkv": "dynolog_tpu_torch/ops/csrc/flash_bwd_sm90.cu",
 }
+# Largest relative L2 error of a bf16 backward kernel's output against the
+# f32 plain version (the JAX package's numerics). P and dS enter the
+# tensor-core products as bf16 pairs (16 significant bits), so what remains
+# is the output's own bf16 rounding and the order of the f32 sums.
+BWD_F32_REL_L2 = 5e-3
 SLICE = dict(b=1, s=2048, h=32, d=128)
 N_LAYERS = 2
 STEPS = 5  # uncaptured, timed train steps before the capture
@@ -218,18 +228,30 @@ class Daemon:
 # ------------------------------------------------------------ measuring
 
 
-def time_ms(fn, reps: int = 10) -> float:
-    """Mean device time of fn() over `reps` calls, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
+def time_ms(fn, reps: int = 10, batches: int = 5,
+            warmup: int = 3) -> tuple[float, float, float]:
+    """Device time of one fn() call: (median, min, max) over `batches`
+    timed batches of `reps` calls each (CUDA events around each batch),
+    after `warmup` untimed calls."""
+    for _ in range(warmup):
         fn()
-    t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    per_call = []
+    for _ in range(batches):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        per_call.append(t0.elapsed_time(t1) / reps)
+    per_call.sort()
+    return per_call[len(per_call) // 2], per_call[0], per_call[-1]
+
+
+def fmt_time(t: tuple[float, float, float]) -> str:
+    return f"{t[0]:.4f} ms (range {t[1]:.4f}-{t[2]:.4f})"
 
 
 def bound_ms(name: str, b: int, s: int, h: int, d: int, dtype: str,
@@ -249,6 +271,29 @@ def bound_ms(name: str, b: int, s: int, h: int, d: int, dtype: str,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def ptxas_summary(log_text: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers, spills) per entry function of an nvcc
+    `-Xptxas -v` log; the kernel is its mangled name cut to the name and
+    the head dimension, with the element type where the name carries it."""
+    rows, kernel, spills = [], None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next(k for k in ("flash_fwd_kernel", "flash_dq_kernel",
+                                    "flash_dkv_kernel", "") if k in mangled)
+            head_dim = mangled.split("ILi", 1)[-1].split("E", 1)[0]
+            dtype = ("f32" if "ILi" + head_dim + "EfE" in mangled else
+                     "bf16")
+            kernel = f"{name or mangled}<{head_dim}, {dtype}>"
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and kernel:
+            regs = line.split("Used", 1)[1].split("registers")[0].strip()
+            rows.append((kernel, regs, spills))
+            kernel = None
+    return rows
+
+
 def device_breakdown(events, top: int = 8) -> str:
     """Where the captured steps' device time went: kernel time by name,
     and the busy share of the window from the first kernel's start to the
@@ -261,9 +306,13 @@ def device_breakdown(events, top: int = 8) -> str:
               - min(e["ts"] for e in kernels))
     busy = sum(by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    ours = sorted((name.split("(")[0], us) for name, us in by_name.items()
+                  if "flash_" in name and "_kernel" in name)
     return (f"captured window {window / 1e3:.2f} ms, kernels busy "
             f"{busy / 1e3:.2f} ms ({busy / window:.1%}); top: " + "; ".join(
-                f"{name[:60]} {us / 1e3:.2f} ms" for name, us in rows))
+                f"{name[:60]} {us / 1e3:.2f} ms" for name, us in rows)
+            + "; hand-written: " + "; ".join(
+                f"{name} {us / 1e3:.2f} ms" for name, us in ours))
 
 
 # bf16 keeps 8 significant bits: one ulp is at most 2^-7 of the value.
@@ -308,10 +357,19 @@ def agreement(a, r) -> tuple[float, float, float]:
             (diff.norm() / rf.norm()).item())
 
 
+def rel_l2(a, r) -> float:
+    return ((a.float() - r.float()).norm() / r.float().norm()).item()
+
+
 def compare_case(F, case, gen):
     """Runs the kernels and their plain versions on one case's inputs;
-    returns the inputs, the plain outputs, and per kernel the agreement
-    of each of its outputs."""
+    returns the inputs, the plain outputs that decide, per kernel the
+    agreement of each of its outputs with them, and for bf16 the relative
+    L2 error of each backward output against the f32 plain versions.
+
+    The backward kernels are held to the plain versions that carry P and
+    dS as they do (round_like_kernel=True; for f32 inputs the same as the
+    default)."""
     b, s, h, d, dtype, causal, blk = case
     q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda")
                   .to(dtype) for _ in range(4))
@@ -320,16 +378,25 @@ def compare_case(F, case, gen):
     delta = F._delta(p_out, g)
     dq = F.flash_dq(q, k, v, g, p_lse, delta, causal)
     dk, dv = F.flash_dkv(q, k, v, g, p_lse, delta, causal)
-    p_dq = F.flash_dq_plain(q, k, v, g, p_lse, delta, causal, blk, blk)
+    p_dq = F.flash_dq_plain(q, k, v, g, p_lse, delta, causal, blk, blk,
+                            round_like_kernel=True)
     p_dk, p_dv = F.flash_dkv_plain(q, k, v, g, p_lse, delta, causal, blk,
-                                   blk)
+                                   blk, round_like_kernel=True)
+    f32 = {}
+    if dtype == torch.bfloat16:
+        f32["flash_dq"] = [F.flash_dq_plain(q, k, v, g, p_lse, delta, causal,
+                                            blk, blk)]
+        f32["flash_dkv"] = list(F.flash_dkv_plain(q, k, v, g, p_lse, delta,
+                                                  causal, blk, blk))
     torch.cuda.synchronize()
     plain = {"flash_fwd": [p_out, p_lse], "flash_dq": [p_dq],
              "flash_dkv": [p_dk, p_dv]}
     got = {"flash_fwd": [out, lse], "flash_dq": [dq], "flash_dkv": [dk, dv]}
     agree = {name: [agreement(a, r) for a, r in zip(got[name], plain[name])]
              for name in plain}
-    return (q, k, v, g, p_lse, delta), plain, agree
+    vs_f32 = {name: [rel_l2(a, r) for a, r in zip(got[name], refs)]
+              for name, refs in f32.items()}
+    return (q, k, v, g, p_lse, delta), plain, agree, vs_f32
 
 
 def planted_faults(F, inputs, plain, tile: int = 64) -> list[str]:
@@ -337,15 +404,18 @@ def planted_faults(F, inputs, plain, tile: int = 64) -> list[str]:
     tile: the forward and dQ without the last `tile` keys' V, dK/dV
     without the last `tile` rows of dO. At the causal main-path shape
     that changes only the last rows or keys, a small share of the output.
-    Returns a failure message per fault the rule accepts."""
+    The faults are made from the plain versions that decide. Returns a
+    failure message per fault the rule accepts."""
     q, k, v, g, lse, delta = inputs
     v_cut, g_cut = v.clone(), g.clone()
     v_cut[:, -tile:] = 0
     g_cut[:, -tile:] = 0
     faulty = {
         "flash_fwd": [F.flash_forward_plain(q, k, v_cut)[0]],
-        "flash_dq": [F.flash_dq_plain(q, k, v_cut, g, lse, delta)],
-        "flash_dkv": list(F.flash_dkv_plain(q, k, v, g_cut, lse, delta)),
+        "flash_dq": [F.flash_dq_plain(q, k, v_cut, g, lse, delta,
+                                      round_like_kernel=True)],
+        "flash_dkv": list(F.flash_dkv_plain(q, k, v, g_cut, lse, delta,
+                                            round_like_kernel=True)),
     }
     failures = []
     for name, outs in faulty.items():
@@ -369,18 +439,27 @@ def phase_kernels(F) -> dict:
     results, failures = {}, []
     for case in CASES:
         b, s, h, d, dtype, causal, _ = case
-        inputs, plain, agree = compare_case(F, case, gen)
+        inputs, plain, agree, vs_f32 = compare_case(F, case, gen)
         where = f"B={b} S={s} H={h} D={d} {str(dtype)[6:]} causal={causal}"
         line = []
         for name, found in agree.items():
             ok = all(ratio <= 1 for _, ratio, _ in found)
-            line.append(f"{name} {'ok' if ok else 'DISAGREES'} " + ", ".join(
-                f"err {e:.3g} ({ratio:.3g}x tol, rel L2 {l2:.3g})"
-                for e, ratio, l2 in found))
+            l2_f32 = vs_f32.get(name, [])
+            ok_f32 = all(x <= BWD_F32_REL_L2 for x in l2_f32)
+            line.append(f"{name} {'ok' if ok and ok_f32 else 'DISAGREES'} "
+                        + ", ".join(
+                            f"err {e:.3g} ({ratio:.3g}x tol, rel L2 {l2:.3g})"
+                            for e, ratio, l2 in found)
+                        + (" | rel L2 vs f32 plain " + ", ".join(
+                            f"{x:.3g}" for x in l2_f32) if l2_f32 else ""))
             if not ok:
                 failures.append(f"{name} disagrees with its plain version at "
                                 f"{where}: (max abs err, x tol, rel L2) per "
                                 f"output {found}")
+            if not ok_f32:
+                failures.append(f"{name} is more than {BWD_F32_REL_L2} (rel "
+                                f"L2) from the f32 plain version at {where}:"
+                                f" {l2_f32}")
             if s == SLICE["s"]:
                 results[name] = {"max_abs_err": max(e for e, _, _ in found)}
         log(f"  {where}: " + "; ".join(line))
@@ -401,9 +480,11 @@ def phase_kernels(F) -> dict:
         "flash_fwd": (lambda: F.flash_forward(q, k, v, True),
                       lambda: F.flash_forward_plain(q, k, v, True)),
         "flash_dq": (lambda: F.flash_dq(q, k, v, g, p_lse, delta, True),
-                     lambda: F.flash_dq_plain(q, k, v, g, p_lse, delta)),
+                     lambda: F.flash_dq_plain(q, k, v, g, p_lse, delta,
+                                              round_like_kernel=True)),
         "flash_dkv": (lambda: F.flash_dkv(q, k, v, g, p_lse, delta, True),
-                      lambda: F.flash_dkv_plain(q, k, v, g, p_lse, delta)),
+                      lambda: F.flash_dkv_plain(q, k, v, g, p_lse, delta,
+                                                round_like_kernel=True)),
     }
     # Yardstick only, never called by the port: PyTorch's fused attention,
     # forward, and its backward (which yields dQ, dK and dV in one call).
@@ -415,18 +496,23 @@ def phase_kernels(F) -> dict:
     lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         lib_out, (qt, kt, vt), gt, retain_graph=True))
+    log(f"  library: scaled_dot_product_attention forward {fmt_time(lib_fwd)}"
+        f", backward (dQ, dK and dV in one call) {fmt_time(lib_bwd)}")
     library = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd,
                "flash_dkv": lib_bwd}
+    pairs = s * (s + 1) / 2
     for name, (kernel, plain_fn) in timed.items():
         bound, bound_by = bound_ms(name, b, s, h, d, "bfloat16", True)
+        t = time_ms(kernel)
+        t_plain = time_ms(plain_fn, reps=1, batches=3, warmup=1)
         results[name].update(
-            ms=time_ms(kernel), plain_ms=time_ms(plain_fn, 3),
-            bound_ms=bound, bound_by=bound_by, library_ms=library[name])
-        r = results[name]
+            ms=t[0], plain_ms=t_plain[0], bound_ms=bound, bound_by=bound_by,
+            library_ms=library[name][0])
+        tflops = 2.0 * PRODUCTS[name] * pairs * d * b * h / t[0] / 1e9
         log(f"  {name} at B={b} S={s} H={h} D={d} bf16 causal: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({bound_by}), max abs err {r['max_abs_err']:.3g}")
+            f"{fmt_time(t)}, {tflops:.1f} TFLOP/s; plain {fmt_time(t_plain)};"
+            f" library {fmt_time(library[name])}; bound {bound:.4f} ms "
+            f"({bound_by}); max abs err {results[name]['max_abs_err']:.3g}")
     log("  library_ms: flash_fwd is scaled_dot_product_attention forward; "
         "flash_dq and flash_dkv both carry its whole backward")
     return results
@@ -566,10 +652,9 @@ def main() -> int:
         built = _build.build_all()
         log(f"  CUDA kernels built in {time.time() - t0:.1f} s: {built}")
         for name in _build.LIBRARIES:
-            regs = [ln.strip() for ln in _build._lib_path(name)
-                    .with_suffix(".log").read_text().splitlines()
-                    if "registers" in ln or "spill" in ln]
-            log(f"  {name} ptxas: {' | '.join(regs[:4])} ...")
+            log_text = _build._lib_path(name).with_suffix(".log").read_text()
+            for kernel, regs, spills in ptxas_summary(log_text):
+                log(f"  {name} ptxas: {kernel}: {regs} registers, {spills}")
 
         log("phase 3: kernels against their plain versions")
         results = phase_kernels(F)

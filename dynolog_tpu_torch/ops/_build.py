@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "sm90_common.cuh")
 
 # Library name -> its source, and the C entry points it exports with their
 # ctypes argument types (pointers and the stream as c_void_p, ints as c_int).
@@ -31,7 +31,11 @@ LIBRARIES = {
     "flash_fwd": ("flash_fwd.cu", {
         "flash_fwd": [_P] * 5 + [_I] * 6 + [_P],
     }),
-    "flash_bwd": ("flash_bwd.cu", {
+    "flash_bwd": ("flash_bwd.cu", {  # f32, CUDA cores
+        "flash_dq": [_P] * 7 + [_I] * 6 + [_P],
+        "flash_dkv": [_P] * 8 + [_I] * 6 + [_P],
+    }),
+    "flash_bwd_sm90": ("flash_bwd_sm90.cu", {  # bf16, wgmma + TMA
         "flash_dq": [_P] * 7 + [_I] * 6 + [_P],
         "flash_dkv": [_P] * 8 + [_I] * 6 + [_P],
     }),

@@ -1,4 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): dQ, and fused dK/dV.
+// Flash-attention backward for Hopper (sm_90a), f32 on the CUDA cores: dQ,
+// and fused dK/dV. bf16 inputs take the tensor-core kernels of
+// flash_bwd_sm90.cu instead.
 //
 // Replaces the two Pallas TPU kernels of `_flash_backward`
 // (dynolog_tpu/ops/flash_attention.py:235-290):
@@ -13,17 +15,17 @@
 //
 // What bounds them on the H100: three (dQ) and four (dK/dV) S x S x D
 // products per head against O(S * D) bytes, so both are bound by
-// operations. Like the forward, this first version computes in f32 on the
-// CUDA cores, as the Pallas kernels do after casting their blocks to f32:
-// it runs against the 67 TFLOP/s f32 rate, not the 989 TFLOP/s bf16
-// tensor-core rate its bound is taken against. What the design does about
-// the bound: probabilities are recomputed from lse, so no [S, S] matrix
+// operations. These kernels compute in f32 on the CUDA cores, as the
+// Pallas kernels do after casting their blocks to f32, at the 67 TFLOP/s
+// f32 rate; a tensor-core f32 path would be TF32 and change what f32
+// means. What the design does about the bound: probabilities are
+// recomputed from lse, so no [S, S] matrix
 // reaches device memory; the two S x S x D products that share operands
 // (Q K^T and dO V^T) run in one pass over D; each thread keeps 4 x 4 score
 // micro-tiles and its dQ (or dK and dV) rows in registers; fully masked
 // tiles are skipped; and on Hopper's parallel grid the sequential
 // accumulation over tiles that the TPU grid carried becomes a loop inside
-// one block, so no atomics are needed. wgmma is the next step.
+// one block, so no atomics are needed.
 #include "flash_common.cuh"
 
 namespace flash {
@@ -333,8 +335,9 @@ cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace flash
 
-// q, k, v, dout, dq: [B, S, H, D] contiguous, dtype 0 = f32, 1 = bf16;
-// lse, delta: [B * H, S] f32. Returns the launch's cudaError_t.
+// q, k, v, dout, dq: [B, S, H, D] contiguous, dtype 0 = f32 (bf16 is
+// flash_bwd_sm90.cu's); lse, delta: [B * H, S] f32. Returns the launch's
+// cudaError_t.
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dq, int B, int H, int S, int D, int causal,
@@ -343,9 +346,6 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v,
   if (dtype == flash::kF32)
     return flash::dispatch_dq<float>(q, k, v, dout, lse, delta, dq, B, H, S,
                                      D, causal, st);
-  if (dtype == flash::kBF16)
-    return flash::dispatch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B,
-                                             H, S, D, causal, st);
   return cudaErrorInvalidValue;
 }
 
@@ -358,8 +358,5 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
   if (dtype == flash::kF32)
     return flash::dispatch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, B, H,
                                       S, D, causal, st);
-  if (dtype == flash::kBF16)
-    return flash::dispatch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk,
-                                              dv, B, H, S, D, causal, st);
   return cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 backward, with a plain PyTorch version of each beside it.
 
 The counterpart of ``dynolog_tpu/ops/flash_attention.py``, whose three
-Pallas TPU programs become three CUDA kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``):
+Pallas TPU programs become three CUDA kernels (``csrc/flash_fwd.cu``;
+``csrc/flash_bwd_sm90.cu`` for bf16, on the tensor cores, and
+``csrc/flash_bwd.cu`` for f32, on the CUDA cores):
 
 - ``flash_fwd``: O = softmax(Q K^T / sqrt(D), causal) V by the online
   softmax, plus the per-row logsumexp (lse);
@@ -23,6 +24,14 @@ the order of f32 sums. So the kernel wrappers take no block sizes, and
 ``flash_attention`` refuses other blocks than the default for CUDA
 tensors. The default of 64 matches the CUDA tile; the reference's
 512 x 512 was tuned on a TPU and is not carried over.
+
+Rounding: the bf16 backward kernels run their products on the tensor
+cores, which take bf16 operands, so P and dS enter the products that take
+them (dV += P^T dO, dK += dS^T Q, dQ += dS K) as a pair of bf16 each,
+hi = bf16(x) and lo = bf16(x - hi) (16 significant bits), and the softmax
+scale multiplies f32 accumulators. The plain backward versions do the same
+with ``round_like_kernel=True``; by default they keep the JAX package's
+f32 numerics.
 """
 
 from __future__ import annotations
@@ -132,35 +141,52 @@ def flash_forward_plain(q, k, v, causal=True, block_q=DEFAULT_BLOCK,
     return _from_bh(out.to(q.dtype), b, h), lse
 
 
-def _bwd_setup(q, k, v, g, lse, causal, block_q, block_k):
-    """Shared by the two plain backward kernels: f32 [B*H, S, D] operands
-    (Q pre-scaled) and the probabilities recomputed from lse."""
+def _bwd_setup(q, k, v, g, lse, causal, block_q, block_k, round_like_kernel):
+    """Shared by the two plain backward kernels: f32 [B*H, S, D] operands,
+    the probabilities recomputed from lse, and the rounding of P and dS.
+
+    By default Q is pre-scaled (the reference's numerics). For bf16 inputs
+    with round_like_kernel, Q stays as it is, the scale multiplies the f32
+    scores, and `rnd` carries P and dS as the tensor-core kernels do, as
+    bf16(x) + bf16(x - bf16(x)); otherwise `rnd` is the identity."""
     s, d = q.shape[1], q.shape[3]
     bq, bk = _pick_block(s, block_q), _pick_block(s, block_k)
     dev = q.device
     scale = _scale(d).to(dev)
-    qs = _to_bh(q).float() * scale
+    rounding = round_like_kernel and q.dtype == torch.bfloat16
+    qs = _to_bh(q).float() * (1.0 if rounding else scale)
     kf, vf, do = (_to_bh(x).float() for x in (k, v, g))
+
+    def rnd(x):
+        if not rounding:
+            return x
+        hi = x.to(torch.bfloat16).float()
+        return hi + (x - hi).to(torch.bfloat16).float()
 
     def probs(qb, kb):
         sc = qs[:, qb * bq:(qb + 1) * bq] @ kf[:, kb * bk:(kb + 1) * bk].mT
+        if rounding:
+            sc = sc * scale
         if causal:
             q_pos = torch.arange(qb * bq, (qb + 1) * bq, device=dev)
             k_pos = torch.arange(kb * bk, (kb + 1) * bk, device=dev)
             sc = torch.where(q_pos[:, None] >= k_pos[None, :], sc, _NEG_INF)
         return torch.exp(sc - lse[:, qb * bq:(qb + 1) * bq, None])
 
-    return bq, bk, scale, qs, kf, vf, do, probs
+    return bq, bk, scale, qs, kf, vf, do, probs, rnd, rounding
 
 
 def flash_dq_plain(q, k, v, g, lse, delta, causal=True,
-                   block_q=DEFAULT_BLOCK, block_k=DEFAULT_BLOCK):
+                   block_q=DEFAULT_BLOCK, block_k=DEFAULT_BLOCK,
+                   round_like_kernel=False):
     """The dQ kernel's function in plain PyTorch, scheduled as the Pallas
     `_dq_kernel`: per query block, over the key blocks up to its diagonal.
-    [B, S, H, D] inputs, lse and delta [B*H, S] f32 -> dq."""
+    [B, S, H, D] inputs, lse and delta [B*H, S] f32 -> dq. With
+    round_like_kernel, bf16 inputs carry dS as the kernel does (a pair of
+    bf16) and scale the scores, not Q."""
     b, s, h, d = q.shape
-    bq, bk, scale, qs, kf, vf, do, probs = _bwd_setup(
-        q, k, v, g, lse, causal, block_q, block_k)
+    bq, bk, scale, qs, kf, vf, do, probs, rnd, _ = _bwd_setup(
+        q, k, v, g, lse, causal, block_q, block_k, round_like_kernel)
     dq = torch.empty_like(qs)
     for qb in range(s // bq):
         rows = slice(qb * bq, (qb + 1) * bq)
@@ -170,19 +196,22 @@ def flash_dq_plain(q, k, v, g, lse, delta, causal=True,
             cols = slice(kb * bk, (kb + 1) * bk)
             dp = do[:, rows] @ vf[:, cols].mT
             ds = probs(qb, kb) * (dp - delta[:, rows, None])
-            acc = acc + ds @ kf[:, cols]
+            acc = acc + rnd(ds) @ kf[:, cols]
         dq[:, rows] = acc * scale
     return _from_bh(dq.to(q.dtype), b, h)
 
 
 def flash_dkv_plain(q, k, v, g, lse, delta, causal=True,
-                    block_q=DEFAULT_BLOCK, block_k=DEFAULT_BLOCK):
+                    block_q=DEFAULT_BLOCK, block_k=DEFAULT_BLOCK,
+                    round_like_kernel=False):
     """The dK/dV kernel's function in plain PyTorch, scheduled as the Pallas
     `_dkv_kernel`: per key block, over the query blocks from its diagonal
-    down. [B, S, H, D] inputs, lse and delta [B*H, S] f32 -> (dk, dv)."""
+    down. [B, S, H, D] inputs, lse and delta [B*H, S] f32 -> (dk, dv).
+    With round_like_kernel, bf16 inputs carry P and dS as the kernel does
+    (a pair of bf16 each), scale the scores, and scale dK at the end."""
     b, s, h, d = q.shape
-    bq, bk, _, qs, kf, vf, do, probs = _bwd_setup(
-        q, k, v, g, lse, causal, block_q, block_k)
+    bq, bk, scale, qs, kf, vf, do, probs, rnd, rounding = _bwd_setup(
+        q, k, v, g, lse, causal, block_q, block_k, round_like_kernel)
     dk, dv = torch.empty_like(kf), torch.empty_like(vf)
     for kb in range(s // bk):
         cols = slice(kb * bk, (kb + 1) * bk)
@@ -191,22 +220,25 @@ def flash_dkv_plain(q, k, v, g, lse, delta, causal=True,
         for qb in range((kb * bk) // bq if causal else 0, s // bq):
             rows = slice(qb * bq, (qb + 1) * bq)
             p = probs(qb, kb)
-            acc_v = acc_v + p.mT @ do[:, rows]
+            acc_v = acc_v + rnd(p).mT @ do[:, rows]
             dp = do[:, rows] @ vf[:, cols].mT
             ds = p * (dp - delta[:, rows, None])
-            acc_k = acc_k + ds.mT @ qs[:, rows]
-        dk[:, cols], dv[:, cols] = acc_k, acc_v
+            acc_k = acc_k + rnd(ds).mT @ qs[:, rows]
+        dk[:, cols] = acc_k * scale if rounding else acc_k
+        dv[:, cols] = acc_v
     return _from_bh(dk.to(k.dtype), b, h), _from_bh(dv.to(v.dtype), b, h)
 
 
 def flash_backward_plain(q, k, v, out, lse, g, causal=True,
-                         block_q=DEFAULT_BLOCK, block_k=DEFAULT_BLOCK):
+                         block_q=DEFAULT_BLOCK, block_k=DEFAULT_BLOCK,
+                         round_like_kernel=False):
     """Both backward kernels' function in plain PyTorch: residuals
     (q, k, v, out, lse) and cotangent g -> (dq, dk, dv)."""
     delta = _delta(out, g)
-    dq = flash_dq_plain(q, k, v, g, lse, delta, causal, block_q, block_k)
+    dq = flash_dq_plain(q, k, v, g, lse, delta, causal, block_q, block_k,
+                        round_like_kernel)
     dk, dv = flash_dkv_plain(q, k, v, g, lse, delta, causal, block_q,
-                             block_k)
+                             block_k, round_like_kernel)
     return dq, dk, dv
 
 
@@ -260,18 +292,29 @@ def flash_forward(q, k, v, causal=True):
     return out, lse
 
 
+def _aligned(x):
+    """x contiguous, starting on a 16-byte boundary (the tensor maps of the
+    bf16 kernels need it; a view into a larger tensor may start off it)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _launch_bwd(fn, outs, q, k, v, g, lse, delta, causal) -> None:
-    """Checks the inputs and launches backward kernel `fn` writing `outs`.
-    The contiguous inputs stay referenced here until the launch is
-    enqueued, so their memory cannot be handed to anything else first."""
+    """Checks the inputs and launches backward kernel `fn` writing `outs`:
+    bf16 on the tensor cores (flash_bwd_sm90.cu), f32 on the CUDA cores
+    (flash_bwd.cu). The contiguous inputs stay referenced here until the
+    launch is enqueued, so their memory cannot be handed to anything else
+    first."""
     b, s, h, d = _check_cuda(q, k, v, g)
     for row in (lse, delta):
         if (row.shape != (b * h, s) or row.dtype != torch.float32
                 or row.device != q.device):
             raise ValueError("lse and delta must be [B*H, S] f32 on q's "
                              "device")
-    ins = [x.contiguous() for x in (q, k, v, g, lse, delta)]
-    _build.call("flash_bwd", fn, *(x.data_ptr() for x in ins + outs),
+    ins = [_aligned(x) for x in (q, k, v, g)] + [lse.contiguous(),
+                                                 delta.contiguous()]
+    lib = "flash_bwd_sm90" if q.dtype == torch.bfloat16 else "flash_bwd"
+    _build.call(lib, fn, *(x.data_ptr() for x in ins + outs),
                 b, h, s, d, int(causal), _DTYPE_CODES[q.dtype], _stream(q))
     launches[fn] += 1
 

@@ -69,3 +69,26 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
         pytest.skip("a CUDA toolkit is installed")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+def test_every_source_is_built_and_every_header_hashed():
+    """Every csrc/*.cu is the source of a library and every csrc/*.cuh is
+    in HEADERS, whose bytes name every library: an edited header can never
+    reuse a library built from the old one."""
+    sources = {src for src, _ in _build.LIBRARIES.values()}
+    assert sources == {p.name for p in _build.CSRC.glob("*.cu")}
+    assert set(_build.HEADERS) == {p.name for p in _build.CSRC.glob("*.cuh")}
+
+
+def test_a_header_edit_renames_every_library(fake_cuda, tmp_path,
+                                             monkeypatch):
+    """The library names follow the headers' bytes."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in _build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build._lib_path(name) for name in _build.LIBRARIES}
+    (csrc / "sm90_common.cuh").write_text("// edited\n")
+    for name in _build.LIBRARIES:
+        assert _build._lib_path(name) != before[name]

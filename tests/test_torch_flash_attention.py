@@ -153,3 +153,106 @@ def test_wrapper_refuses_mixed_devices():
     q, k, v = _torch(_qkv(9, s=16))
     with pytest.raises(ValueError):
         tfa.flash_forward(q, k.to("meta"), v)
+
+
+def _bf16_case(seed, s=64, b=2, h=4, d=16):
+    """bf16 q, k, v, g drawn with numpy (the arrays are bf16-exact)."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((b, s, h, d)).astype(ml_dtypes.bfloat16)
+              .astype(np.float32) for _ in range(4)]
+    return arrays, _torch(arrays, torch.bfloat16)
+
+
+def test_round_like_kernel_keeps_f32_numerics():
+    """For f32 inputs the kernels' rounding does not apply: the plain
+    backward with round_like_kernel=True is the default, bit for bit."""
+    q, k, v = _torch(_qkv(12, s=80))
+    g = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        q.shape).astype(np.float32))
+    out, lse = tfa.flash_forward_plain(q, k, v)
+    ref = tfa.flash_backward_plain(q, k, v, out, lse, g)
+    got = tfa.flash_backward_plain(q, k, v, out, lse, g,
+                                   round_like_kernel=True)
+    for t, r in zip(got, ref):
+        assert torch.equal(t, r)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_rounding_plain_matches_jax_vjp(causal):
+    """At bf16 inputs the plain backward that carries P and dS as the
+    tensor-core kernels do (a pair of bf16 each) stays within relative L2
+    5e-3 of the JAX package's flash_attention VJP (Pallas interpret mode).
+    Observed: 1.6e-5 to 2.3e-4 (a bf16 ulp of a few output elements where
+    the pair of bf16 moved the f32 sum across a rounding boundary; the
+    default plain versions: 0 to 1e-6)."""
+    arrays, (q, k, v, g) = _bf16_case(14)
+    qj, kj, vj, gj = _jax(arrays, jnp.bfloat16)
+    _, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, causal,
+                                                         32, 32), qj, kj, vj)
+    ref = vjp(gj)
+    out, lse = tfa.flash_forward_plain(q, k, v, causal, 32, 32)
+    got = tfa.flash_backward_plain(q, k, v, out, lse, g, causal, 32, 32,
+                                   round_like_kernel=True)
+    for t, r in zip(got, ref):
+        assert t.dtype == torch.bfloat16
+        r = np.asarray(r).astype(np.float32)
+        err = np.linalg.norm(t.float().numpy() - r) / np.linalg.norm(r)
+        assert err <= 5e-3, err
+
+
+def test_rounding_plain_dv_is_split_p_times_do():
+    """The rounding plain dV is a dense, unblocked split(P)^T dO, with
+    split(P) = bf16(P) + bf16(P - bf16(P)), within 1e-6: the rounding sits
+    where the kernel puts it. A single bf16 rounding of P gives another
+    dV."""
+    _, (q, k, v, g) = _bf16_case(15)
+    b, s, h, d = q.shape
+    out, lse = tfa.flash_forward_plain(q, k, v, True, s, s)
+    delta = tfa._delta(out, g)
+    _, dv = tfa.flash_dkv_plain(q, k, v, g, lse, delta, True, s, s,
+                                round_like_kernel=True)
+    scale = tfa._scale(d)
+    scores = tfa._to_bh(q).float() @ tfa._to_bh(k).float().mT * scale
+    scores = torch.where(torch.ones(s, s, dtype=torch.bool).tril(), scores,
+                         tfa._NEG_INF)
+    p = torch.exp(scores - lse[..., None])
+    hi = p.to(torch.bfloat16).float()
+    split = hi + (p - hi).to(torch.bfloat16).float()
+    dense = tfa._from_bh((split.mT @ tfa._to_bh(g).float())
+                         .to(torch.bfloat16), b, h)
+    np.testing.assert_allclose(dv.float().numpy(), dense.float().numpy(),
+                               rtol=0, atol=1e-6)
+    once = tfa._from_bh((hi.mT @ tfa._to_bh(g).float()).to(torch.bfloat16),
+                        b, h)
+    assert not torch.equal(once, dv)
+
+
+def test_backward_launch_picks_library_by_dtype(monkeypatch):
+    """bf16 goes to the tensor-core library, f32 to the CUDA-core one; the
+    entry points and their arguments are the same."""
+    calls = []
+    monkeypatch.setattr(tfa._build, "call",
+                        lambda lib, fn, *args: calls.append((lib, fn,
+                                                             len(args))))
+    monkeypatch.setattr(tfa, "_stream", lambda t: 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _torch(_qkv(16, s=8), dtype)
+        rows = torch.zeros(8, 8)
+        tfa._launch_bwd("flash_dq", [q], q, k, v, q, rows, rows, True)
+        tfa._launch_bwd("flash_dkv", [k, v], q, k, v, q, rows, rows, True)
+    assert calls == [("flash_bwd_sm90", "flash_dq", 14),
+                     ("flash_bwd_sm90", "flash_dkv", 15),
+                     ("flash_bwd", "flash_dq", 14),
+                     ("flash_bwd", "flash_dkv", 15)]
+    assert tfa.launches == {"flash_fwd": 0, "flash_dq": 2, "flash_dkv": 2}
+    tfa.reset_launches()
+
+
+def test_aligned_copies_only_an_offset_view():
+    """The tensor maps need a 16-byte aligned start: a view that starts
+    off one is copied, an aligned tensor is passed as it is."""
+    base = torch.zeros(4 * 64, dtype=torch.bfloat16)
+    assert tfa._aligned(base).data_ptr() == base.data_ptr()
+    view = base[1:129]
+    got = tfa._aligned(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
