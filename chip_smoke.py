@@ -16,16 +16,19 @@ if any phase fails:
    (B=1, S=2048, H=32, D=128, bf16, causal), element by element (see
    `agreement`), with its time (median and range of timed batches), the
    plain version's, a PyTorch library call's as a yardstick, and its
-   bound; the bf16 backward kernels are held to the plain versions that
-   carry P and dS as they do (round_like_kernel=True) and, by relative L2
-   error, to the f32 plain versions (the JAX package's numerics); at the
-   main path's shape the agreement rule must also reject planted faults
-   (a dropped tile);
+   bound; bf16 runs the tensor-core kernels (flash_*_sm90.cu), f32 the
+   CUDA-core ones; the forward kernel is held to the f32 plain version
+   (the JAX package's numerics), the bf16 backward kernels to the plain
+   versions that carry P and dS as they do (round_like_kernel=True) and,
+   by relative L2 error, to the f32 plain versions; at the main path's
+   shape the agreement rule must also reject planted faults (a dropped
+   tile);
 4. trainer: the flagship transformer at full llama-8B width, cut to
    2 layers, bf16, flash attention, B=1, S=2048, trained with AdamW;
 5. capture: while it trains, dynologd triggers an on-demand capture
    through the port's TraceClient (torch.profiler), whose Chrome trace
-   must name all three kernels and hold the training thread's CPU ops.
+   must name all three tensor-core kernels and hold the training thread's
+   CPU ops.
 
 The launch counters are zeroed just before the main path (phases 4-5)
 and read just after. The last lines are the card's name and power limit,
@@ -73,9 +76,10 @@ REPLACES = {
     "flash_dq": "dynolog_tpu/ops/flash_attention.py:143",
     "flash_dkv": "dynolog_tpu/ops/flash_attention.py:184",
 }
-# The main path's (bf16) sources; f32 backward cases run flash_bwd.cu.
+# The main path's (bf16) sources; f32 cases run flash_fwd.cu and
+# flash_bwd.cu.
 SOURCES = {
-    "flash_fwd": "dynolog_tpu_torch/ops/csrc/flash_fwd.cu",
+    "flash_fwd": "dynolog_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
     "flash_dq": "dynolog_tpu_torch/ops/csrc/flash_bwd_sm90.cu",
     "flash_dkv": "dynolog_tpu_torch/ops/csrc/flash_bwd_sm90.cu",
 }
@@ -606,9 +610,10 @@ def phase_train_and_capture(F, daemon, cfg, steps_min: int,
         events = json.load(f)["traceEvents"]
     kernel_names = [e.get("name", "") for e in events
                     if e.get("cat") == "kernel"]
-    for name in F.launches:
-        if not any(f"{name}_kernel" in n for n in kernel_names):
-            raise AssertionError(f"no {name} kernel in the captured trace")
+    for name in F.launches:  # bf16: the tensor-core kernels, flash_tc::
+        if not any(f"flash_tc::{name}_kernel" in n for n in kernel_names):
+            raise AssertionError(f"no tensor-core {name} kernel in the "
+                                 f"captured trace")
     cpu_ops = [e for e in events
                if e.get("cat") == "cpu_op" and e.get("tid") == me]
     if not cpu_ops:

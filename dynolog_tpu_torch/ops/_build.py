@@ -28,7 +28,10 @@ HEADERS = ("flash_common.cuh", "sm90_common.cuh")
 # ctypes argument types (pointers and the stream as c_void_p, ints as c_int).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARIES = {
-    "flash_fwd": ("flash_fwd.cu", {
+    "flash_fwd": ("flash_fwd.cu", {  # f32, CUDA cores
+        "flash_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    }),
+    "flash_fwd_sm90": ("flash_fwd_sm90.cu", {  # bf16, wgmma + TMA
         "flash_fwd": [_P] * 5 + [_I] * 6 + [_P],
     }),
     "flash_bwd": ("flash_bwd.cu", {  # f32, CUDA cores

@@ -52,56 +52,6 @@ namespace flash_tc {
 
 using namespace sm90;
 
-constexpr int kTile = 64;       // query rows and key rows per tile
-constexpr int kThreads = 128;   // one warpgroup
-constexpr float kLog2e = 1.4426950408889634f;
-// Added to the CUresult of a tensor map cuTensorMapEncodeTiled refuses, so
-// the caller tells it from a cudaError_t.
-constexpr int kEncodeError = 10000;
-typedef __nv_bfloat16 bf16;
-
-// One [64, D] bf16 tile in shared memory as the TMA lays it out: D / W
-// boxes of 64 rows x W = min(D, 64) columns, rows W * 2 bytes long and
-// swizzled at that width, boxes one after the other.
-template <int D>
-struct Tile {
-  static constexpr int W = D < 64 ? D : 64;
-  static constexpr int kRowBytes = W * 2;
-  static constexpr int kBoxBytes = kTile * kRowBytes;
-  static constexpr int kBoxes = D / W;
-  static constexpr int kBytes = kBoxes * kBoxBytes;
-  static constexpr int kLayout = swizzle_layout(kRowBytes);
-  static constexpr int kSteps = D / 16;  // k-steps of a product over D
-
-  // The tile as a K-major operand over columns [16 kk, 16 kk + 16): its 64
-  // rows are M (or N), the 16 columns K. Rows are kRowBytes apart, groups
-  // of 8 rows 8 kRowBytes apart; the k-step moves the start within a row.
-  static __device__ __forceinline__ uint64_t kmajor(const char* tile,
-                                                    int kk) {
-    const int col = 16 * kk;
-    return make_desc(tile + (col / W) * kBoxBytes + (col % W) * 2, 16,
-                     8 * kRowBytes, kLayout);
-  }
-  // The tile as an MN-major B operand over rows [16 kk, 16 kk + 16): the
-  // rows are K, all D columns N. W columns lie contiguous in a row, the
-  // next W columns one box (LBO) further; groups of 8 rows are 8 kRowBytes
-  // (SBO) apart.
-  static __device__ __forceinline__ uint64_t mnmajor(const char* tile,
-                                                     int kk) {
-    return make_desc(tile + 16 * kk * kRowBytes, kBoxBytes, 8 * kRowBytes,
-                     kLayout);
-  }
-  // Issues the TMA copy of rows [row0, row0 + 64) of head (b, h).
-  static __device__ __forceinline__ void load(char* tile,
-                                              const CUtensorMap* map,
-                                              uint64_t* bar, int row0, int h,
-                                              int b) {
-#pragma unroll
-    for (int i = 0; i < kBoxes; ++i)
-      tma_load_4d(tile + i * kBoxBytes, map, bar, i * W, h, row0, b);
-  }
-};
-
 // Shared memory of both kernels: six tiles (two loaded once, a 2-stage
 // ring of two), lse and delta rows per stage, three mbarriers, and slack to
 // put the tiles on a 1024-byte boundary (the 128-byte swizzle's period).
@@ -109,28 +59,6 @@ template <int D>
 constexpr size_t smem_bytes() {
   return 6 * Tile<D>::kBytes + 4 * kTile * sizeof(float) +
          3 * sizeof(uint64_t) + 1024;
-}
-
-__device__ __forceinline__ char* align_1024(char* p) {
-  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
-}
-
-// Stores rows [row0, row0 + 64) of an m64nD f32 accumulator, times `mul`,
-// into the [B, S, H, D] bf16 tensor `out` at head (b, h); rows at or past
-// S are not written.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
-                                           bf16* out, int b, int h, int H,
-                                           int S, int row0, float mul) {
-#pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
-    const int row = row0 + acc_row(i);
-    if (row < S) {
-      const size_t off = (((size_t)b * S + row) * H + h) * D + acc_col(i);
-      *reinterpret_cast<uint32_t*>(out + off) =
-          pack_bf16(acc[i] * mul, acc[i + 1] * mul);
-    }
-  }
 }
 
 template <int D>
@@ -383,24 +311,13 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<D>(acc, dq, b, h, H, S, q0, scale);
 }
 
-// Encodes the four [B, S, H, D] tensor maps; nonzero on failure.
-inline int encode_maps(CUtensorMap (&maps)[4], const void* q, const void* k,
-                       const void* v, const void* dout, int B, int H, int S,
-                       int D) {
-  const void* ptrs[4] = {q, k, v, dout};
-  for (int i = 0; i < 4; ++i) {
-    const CUresult r = encode_bshd(&maps[i], ptrs[i], B, S, H, D, kTile);
-    if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
-  }
-  return 0;
-}
-
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int H,
               int S, int causal, cudaStream_t stream) {
   CUtensorMap maps[4];
-  if (int err = encode_maps(maps, q, k, v, dout, B, H, S, D)) return err;
+  const void* ptrs[4] = {q, k, v, dout};
+  if (int err = encode_maps(maps, ptrs, B, H, S, D)) return err;
   const size_t smem = smem_bytes<D>();
   static cudaError_t setup = flash::allow_smem(flash_dq_kernel<D>, smem);
   if (setup != cudaSuccess) return setup;
@@ -416,7 +333,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int H, int S, int causal, cudaStream_t stream) {
   CUtensorMap maps[4];
-  if (int err = encode_maps(maps, q, k, v, dout, B, H, S, D)) return err;
+  const void* ptrs[4] = {q, k, v, dout};
+  if (int err = encode_maps(maps, ptrs, B, H, S, D)) return err;
   const size_t smem = smem_bytes<D>();
   static cudaError_t setup = flash::allow_smem(flash_dkv_kernel<D>, smem);
   if (setup != cudaSuccess) return setup;
@@ -427,20 +345,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
-#define FLASH_TC_DISPATCH_D(D_, CALL)        \
-  switch (D_) {                              \
-    case 16: return CALL(16);                \
-    case 32: return CALL(32);                \
-    case 64: return CALL(64);                \
-    case 128: return CALL(128);              \
-    default: return cudaErrorInvalidValue;   \
-  }
-
 }  // namespace flash_tc
 
 // q, k, v, dout, dq: [B, S, H, D] bf16, contiguous, 16-byte aligned;
 // lse, delta: [B * H, S] f32. Returns 0, the launch's cudaError_t, or
-// flash_tc::kEncodeError + the CUresult of a refused tensor map. dtype must be
+// sm90::kEncodeError + the CUresult of a refused tensor map. dtype must be
 // bf16 (1); f32 goes to flash_bwd.cu's kernels.
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
@@ -450,7 +359,7 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
 #define CALL(DD) \
   flash_tc::launch_dq<DD>(q, k, v, dout, lse, delta, dq, B, H, S, causal, st)
-  FLASH_TC_DISPATCH_D(D, CALL)
+  SM90_DISPATCH_D(D, CALL)
 #undef CALL
 }
 
@@ -464,6 +373,6 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
 #define CALL(DD)                                                              \
   flash_tc::launch_dkv<DD>(q, k, v, dout, lse, delta, dk, dv, B, H, S, causal, \
                            st)
-  FLASH_TC_DISPATCH_D(D, CALL)
+  SM90_DISPATCH_D(D, CALL)
 #undef CALL
 }

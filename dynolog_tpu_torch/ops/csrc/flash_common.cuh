@@ -1,5 +1,7 @@
 // Shared pieces of the Hopper flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): tile geometry, dtype conversion and the tile loader.
+// flash_bwd.cu): tile geometry, dtype conversion and the tile loader. The
+// tensor-core kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu) take only the
+// dtype codes, the mask value and allow_smem from here.
 //
 // Layout: q, k, v, o and their gradients are [B, S, H, D] with the last
 // dimension contiguous, read by stride, so the wrapper needs no

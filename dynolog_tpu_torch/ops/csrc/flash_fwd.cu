@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), f32 on the CUDA cores. bf16
+// inputs take the tensor-core kernel of flash_fwd_sm90.cu instead.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel`
 // (dynolog_tpu/ops/flash_attention.py:62-110, launched by `_flash_forward`
@@ -6,19 +7,17 @@
 // recurrence, plus the per-row lse = m + log(l) (l == 0 guarded to 1) that
 // the backward kernels recompute probabilities from.
 //
-// What bounds it on the H100: at the main path's shape (S = 2048, D = 128,
-// bf16, causal) the work is 2 * S^2 * D * B * H / 2 FLOP against O(S * D)
-// bytes, so it is bound by operations, not by memory. This first version
-// computes in f32 on the CUDA cores, exactly as the Pallas kernel casts its
-// blocks to f32 before each dot: it is held to 67 TFLOP/s (f32, non-tensor)
-// rather than the 989 TFLOP/s bf16 tensor-core rate that its bound is taken
-// against. What the design does about the bound: the [S, S] score matrix is
+// What bounds it on the H100: the work is 2 * S^2 * D * B * H / 2 FLOP
+// (causal) against O(S * D) bytes, so it is bound by operations, not by
+// memory. This kernel computes in f32 on the CUDA cores, exactly as the
+// Pallas kernel casts its blocks to f32 before each dot, at the 67 TFLOP/s
+// f32 rate; a tensor-core f32 path would be TF32 and change what f32
+// means. What the design does about the bound: the [S, S] score matrix is
 // never written to device memory (each block keeps a 64 x 64 tile in
 // shared memory), each K/V tile is read from device memory once per query
 // tile, 4 x 4 register micro-tiles give four FMAs per shared-memory load,
 // tiles past the causal diagonal are skipped, and the heaviest query tiles
-// (last ones, under causal masking) are scheduled first. Moving the two
-// products onto wgmma is the next step.
+// (last ones, under causal masking) are scheduled first.
 #include "flash_common.cuh"
 
 namespace flash {
@@ -166,16 +165,14 @@ cudaError_t dispatch_fwd(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace flash
 
-// q, k, v, o: [B, S, H, D] contiguous, dtype 0 = f32, 1 = bf16;
-// lse: [B * H, S] f32. Returns the launch's cudaError_t.
+// q, k, v, o: [B, S, H, D] contiguous, dtype 0 = f32 (bf16 is
+// flash_fwd_sm90.cu's); lse: [B * H, S] f32. Returns the launch's
+// cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int H, int S, int D, int causal,
                          int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == flash::kF32)
     return flash::dispatch_fwd<float>(q, k, v, o, lse, B, H, S, D, causal, st);
-  if (dtype == flash::kBF16)
-    return flash::dispatch_fwd<__nv_bfloat16>(q, k, v, o, lse, B, H, S, D,
-                                              causal, st);
   return cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash kernels
-// (flash_bwd_sm90.cu), as inline PTX:
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu), as inline PTX:
 //
 // - mbarriers: init, arrive with an expected transaction count, wait on a
 //   phase parity;
@@ -9,6 +9,8 @@
 // - wgmma: shared-memory matrix descriptors, and
 //   wgmma.mma_async.m64nNk16.f32.bf16.bf16 with A from shared memory or
 //   from registers, plus its fence, commit and wait;
+// - tiles: a [64, D] bf16 tile as the TMA lays it out in shared memory,
+//   with its wgmma descriptors, and the store of an accumulator's rows;
 // - on the host, tensor maps over a [B, S, H, D] bf16 tensor, encoded by
 //   cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint, so the
 //   library links no -lcuda (cuda.h is included for its types only).
@@ -20,6 +22,14 @@
 #include <stdint.h>
 
 namespace sm90 {
+
+constexpr int kTile = 64;       // query rows and key rows per tile
+constexpr int kThreads = 128;   // one warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+// Added to the CUresult of a tensor map cuTensorMapEncodeTiled refuses, so
+// the caller tells it from a cudaError_t.
+constexpr int kEncodeError = 10000;
+typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -290,6 +300,74 @@ struct Wgmma<128> {
   }
 };
 
+// ----------------------------------------------------------------- tiles
+
+// One [64, D] bf16 tile in shared memory as the TMA lays it out: D / W
+// boxes of 64 rows x W = min(D, 64) columns, rows W * 2 bytes long and
+// swizzled at that width, boxes one after the other.
+template <int D>
+struct Tile {
+  static constexpr int W = D < 64 ? D : 64;
+  static constexpr int kRowBytes = W * 2;
+  static constexpr int kBoxBytes = kTile * kRowBytes;
+  static constexpr int kBoxes = D / W;
+  static constexpr int kBytes = kBoxes * kBoxBytes;
+  static constexpr int kLayout = swizzle_layout(kRowBytes);
+  static constexpr int kSteps = D / 16;  // k-steps of a product over D
+
+  // The tile as a K-major operand over columns [16 kk, 16 kk + 16): its 64
+  // rows are M (or N), the 16 columns K. Rows are kRowBytes apart, groups
+  // of 8 rows 8 kRowBytes apart; the k-step moves the start within a row.
+  static __device__ __forceinline__ uint64_t kmajor(const char* tile,
+                                                    int kk) {
+    const int col = 16 * kk;
+    return make_desc(tile + (col / W) * kBoxBytes + (col % W) * 2, 16,
+                     8 * kRowBytes, kLayout);
+  }
+  // The tile as an MN-major B operand over rows [16 kk, 16 kk + 16): the
+  // rows are K, all D columns N. W columns lie contiguous in a row, the
+  // next W columns one box (LBO) further; groups of 8 rows are 8 kRowBytes
+  // (SBO) apart.
+  static __device__ __forceinline__ uint64_t mnmajor(const char* tile,
+                                                     int kk) {
+    return make_desc(tile + 16 * kk * kRowBytes, kBoxBytes, 8 * kRowBytes,
+                     kLayout);
+  }
+  // Issues the TMA copy of rows [row0, row0 + 64) of head (b, h).
+  static __device__ __forceinline__ void load(char* tile,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int row0, int h,
+                                              int b) {
+#pragma unroll
+    for (int i = 0; i < kBoxes; ++i)
+      tma_load_4d(tile + i * kBoxBytes, map, bar, i * W, h, row0, b);
+  }
+};
+
+// The first 1024-byte boundary at or after `p` (the 128-byte swizzle's
+// period), where the tiles start.
+__device__ __forceinline__ char* align_1024(char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// Stores rows [row0, row0 + 64) of an m64nD f32 accumulator, times `mul`,
+// into the [B, S, H, D] bf16 tensor `out` at head (b, h); rows at or past
+// S are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           bf16* out, int b, int h, int H,
+                                           int S, int row0, float mul) {
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = row0 + acc_row(i);
+    if (row < S) {
+      const size_t off = (((size_t)b * S + row) * H + h) * D + acc_col(i);
+      *reinterpret_cast<uint32_t*>(out + off) =
+          pack_bf16(acc[i] * mul, acc[i + 1] * mul);
+    }
+  }
+}
+
 // ------------------------------------------------------------ host side
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -345,4 +423,26 @@ inline CUresult encode_bshd(CUtensorMap* map, const void* base, int B, int S,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// Encodes one tensor map of 64-row boxes per [B, S, H, D] tensor of
+// `ptrs`; 0, or kEncodeError + the CUresult of the first one refused.
+template <int N>
+inline int encode_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N],
+                       int B, int H, int S, int D) {
+  for (int i = 0; i < N; ++i) {
+    const CUresult r = encode_bshd(&maps[i], ptrs[i], B, S, H, D, kTile);
+    if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
+  }
+  return 0;
+}
+
 }  // namespace sm90
+
+// Returns CALL(D) for a head dimension the kernels are built for.
+#define SM90_DISPATCH_D(D_, CALL)          \
+  switch (D_) {                            \
+    case 16: return CALL(16);              \
+    case 32: return CALL(32);              \
+    case 64: return CALL(64);              \
+    case 128: return CALL(128);            \
+    default: return cudaErrorInvalidValue; \
+  }

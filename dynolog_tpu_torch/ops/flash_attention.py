@@ -2,9 +2,10 @@
 backward, with a plain PyTorch version of each beside it.
 
 The counterpart of ``dynolog_tpu/ops/flash_attention.py``, whose three
-Pallas TPU programs become three CUDA kernels (``csrc/flash_fwd.cu``;
-``csrc/flash_bwd_sm90.cu`` for bf16, on the tensor cores, and
-``csrc/flash_bwd.cu`` for f32, on the CUDA cores):
+Pallas TPU programs become three CUDA kernels, each in two sources: for
+bf16 on the tensor cores (``csrc/flash_fwd_sm90.cu``,
+``csrc/flash_bwd_sm90.cu``), for f32 on the CUDA cores
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``):
 
 - ``flash_fwd``: O = softmax(Q K^T / sqrt(D), causal) V by the online
   softmax, plus the per-row logsumexp (lse);
@@ -25,13 +26,14 @@ the order of f32 sums. So the kernel wrappers take no block sizes, and
 tensors. The default of 64 matches the CUDA tile; the reference's
 512 x 512 was tuned on a TPU and is not carried over.
 
-Rounding: the bf16 backward kernels run their products on the tensor
-cores, which take bf16 operands, so P and dS enter the products that take
-them (dV += P^T dO, dK += dS^T Q, dQ += dS K) as a pair of bf16 each,
+Rounding: the bf16 kernels run their products on the tensor cores, which
+take bf16 operands, so P and dS enter the products that take them
+(O += P V, dV += P^T dO, dK += dS^T Q, dQ += dS K) as a pair of bf16 each,
 hi = bf16(x) and lo = bf16(x - hi) (16 significant bits), and the softmax
-scale multiplies f32 accumulators. The plain backward versions do the same
-with ``round_like_kernel=True``; by default they keep the JAX package's
-f32 numerics.
+scale multiplies f32 accumulators. The forward kernel is held to the f32
+``flash_forward_plain`` as it is; the plain backward versions carry P and
+dS as the kernels do with ``round_like_kernel=True``, and by default keep
+the JAX package's f32 numerics.
 """
 
 from __future__ import annotations
@@ -277,26 +279,39 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_forward(q, k, v, causal=True):
-    """[B, S, H, D] -> (out [B, S, H, D], lse [B*H, S] f32)."""
-    if _on_cpu(q, k, v):
-        return flash_forward_plain(q, k, v, causal)
-    b, s, h, d = _check_cuda(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
-    _build.call("flash_fwd", "flash_fwd", q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, s, d,
-                int(causal), _DTYPE_CODES[q.dtype], _stream(q))
-    launches["flash_fwd"] += 1
-    return out, lse
-
-
 def _aligned(x):
     """x contiguous, starting on a 16-byte boundary (the tensor maps of the
     bf16 kernels need it; a view into a larger tensor may start off it)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _lib(kernel: str, dtype) -> str:
+    """The library of `kernel` for inputs of `dtype`: bf16 on the tensor
+    cores (flash_*_sm90.cu), f32 on the CUDA cores."""
+    return f"{kernel}_sm90" if dtype == torch.bfloat16 else kernel
+
+
+def _launch_fwd(q, k, v, causal):
+    """Checks the inputs and launches the forward kernel; returns (out,
+    lse). The aligned inputs stay referenced here until the launch is
+    enqueued."""
+    b, s, h, d = _check_cuda(q, k, v)
+    ins = [_aligned(x) for x in (q, k, v)]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
+    _build.call(_lib("flash_fwd", q.dtype), "flash_fwd",
+                *(x.data_ptr() for x in ins + [out, lse]), b, h, s, d,
+                int(causal), _DTYPE_CODES[q.dtype], _stream(q))
+    launches["flash_fwd"] += 1
+    return out, lse
+
+
+def flash_forward(q, k, v, causal=True):
+    """[B, S, H, D] -> (out [B, S, H, D], lse [B*H, S] f32)."""
+    if _on_cpu(q, k, v):
+        return flash_forward_plain(q, k, v, causal)
+    return _launch_fwd(q, k, v, causal)
 
 
 def _launch_bwd(fn, outs, q, k, v, g, lse, delta, causal) -> None:
@@ -313,9 +328,9 @@ def _launch_bwd(fn, outs, q, k, v, g, lse, delta, causal) -> None:
                              "device")
     ins = [_aligned(x) for x in (q, k, v, g)] + [lse.contiguous(),
                                                  delta.contiguous()]
-    lib = "flash_bwd_sm90" if q.dtype == torch.bfloat16 else "flash_bwd"
-    _build.call(lib, fn, *(x.data_ptr() for x in ins + outs),
-                b, h, s, d, int(causal), _DTYPE_CODES[q.dtype], _stream(q))
+    _build.call(_lib("flash_bwd", q.dtype), fn,
+                *(x.data_ptr() for x in ins + outs), b, h, s, d,
+                int(causal), _DTYPE_CODES[q.dtype], _stream(q))
     launches[fn] += 1
 
 

@@ -92,3 +92,25 @@ def test_a_header_edit_renames_every_library(fake_cuda, tmp_path,
     (csrc / "sm90_common.cuh").write_text("// edited\n")
     for name in _build.LIBRARIES:
         assert _build._lib_path(name) != before[name]
+
+
+@pytest.mark.parametrize("header", _build.HEADERS)
+def test_tensor_core_forward_is_built_and_named_by_each_header(
+        fake_cuda, tmp_path, monkeypatch, header):
+    """flash_fwd_sm90.cu is built as its own library, exporting flash_fwd,
+    and an edit of either header renames it."""
+    fake_cuda()
+    src, exports = _build.LIBRARIES["flash_fwd_sm90"]
+    assert src == "flash_fwd_sm90.cu" and list(exports) == ["flash_fwd"]
+    assert exports["flash_fwd"] == _build.LIBRARIES["flash_fwd"][1][
+        "flash_fwd"]
+    assert _build.build_all(["flash_fwd_sm90"])["flash_fwd_sm90"] > 0.0
+    assert _build._lib_path("flash_fwd_sm90").exists()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in _build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._lib_path("flash_fwd_sm90")
+    (csrc / header).write_text("// edited\n")
+    assert _build._lib_path("flash_fwd_sm90") != before

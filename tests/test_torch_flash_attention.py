@@ -248,6 +248,53 @@ def test_backward_launch_picks_library_by_dtype(monkeypatch):
     tfa.reset_launches()
 
 
+def test_forward_launch_picks_library_by_dtype(monkeypatch):
+    """bf16 goes to the tensor-core forward (flash_fwd_sm90), f32 to the
+    CUDA-core one; the entry point and its arguments are the same, and
+    every pointer handed to the kernel starts on a 16-byte boundary."""
+    calls = []
+    monkeypatch.setattr(tfa._build, "call",
+                        lambda lib, fn, *args: calls.append((lib, fn, args)))
+    monkeypatch.setattr(tfa, "_stream", lambda t: 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _torch(_qkv(17, s=8), dtype)
+        out, lse = tfa._launch_fwd(q, k, v, True)
+        assert out.shape == q.shape and out.dtype == dtype
+        assert lse.shape == (8, 8) and lse.dtype == torch.float32
+    assert [(lib, fn, len(args)) for lib, fn, args in calls] == [
+        ("flash_fwd_sm90", "flash_fwd", 12), ("flash_fwd", "flash_fwd", 12)]
+    for (_, _, args), dtype in zip(calls, (torch.bfloat16, torch.float32)):
+        assert all(ptr % 16 == 0 for ptr in args[:5])
+        assert args[5:11] == (2, 4, 8, 16, 1, tfa._DTYPE_CODES[dtype])
+    assert tfa.launches == {"flash_fwd": 2, "flash_dq": 0, "flash_dkv": 0}
+    tfa.reset_launches()
+
+
+def test_forward_launch_hands_an_offset_view_over_as_an_aligned_copy(
+        monkeypatch):
+    """A bf16 view that starts off a 16-byte boundary reaches the forward
+    kernel as an aligned copy with the same values; aligned inputs are
+    passed as they are."""
+    seen = []
+
+    def call(lib, fn, *args):
+        seen.append(args[:3])
+
+    monkeypatch.setattr(tfa._build, "call", call)
+    monkeypatch.setattr(tfa, "_stream", lambda t: 0)
+    b, s, h, d = 1, 8, 2, 16
+    base = torch.randn(b * s * h * d + 1).to(torch.bfloat16)
+    q = base[1:].view(b, s, h, d)
+    k, v = (torch.randn(b, s, h, d).to(torch.bfloat16) for _ in range(2))
+    assert q.data_ptr() % 16 != 0
+    tfa._launch_fwd(q, k, v, True)
+    q_ptr, k_ptr, v_ptr = seen[0]
+    assert q_ptr % 16 == 0 and q_ptr != q.data_ptr()
+    assert (k_ptr, v_ptr) == (k.data_ptr(), v.data_ptr())
+    assert torch.equal(tfa._aligned(q), q)
+    tfa.reset_launches()
+
+
 def test_aligned_copies_only_an_offset_view():
     """The tensor maps need a 16-byte aligned start: a view that starts
     off one is copied, an aligned tensor is passed as it is."""
