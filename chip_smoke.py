@@ -28,11 +28,26 @@ if any phase fails:
 5. capture: while it trains, dynologd triggers an on-demand capture
    through the port's TraceClient (torch.profiler), whose Chrome trace
    must name all three tensor-core kernels and hold the training thread's
-   CPU ops.
+   CPU ops;
+6. summary: the capture summarized (dynolog_tpu_torch.trace): the device
+   plane, each flash kernel counted once per layer and captured step at
+   about its phase-3 time, two steps of about the uncaptured step's time,
+   and the shim's summary file beside the trace within 60 s of the
+   manifest;
+7. diagnosis: the capture saved as a baseline, a second capture of the
+   same model at B=2, and the diagnosis CLI reading it as regressed with
+   a finding for each flash kernel;
+8. ring: a short run under the capture ring (RingConfig), whose stored
+   profile names the three flash kernels and diagnoses against the
+   baseline;
+9. exporter: NVML's snapshot for the daemon's file backend, read back
+   through a second dynologd with `dyno query`.
 
 The launch counters are zeroed just before the main path (phases 4-5)
-and read just after. The last lines are the card's name and power limit,
-a JSON object with one entry per kernel, and {"ok": true, "device": ...}.
+and read just after; phases 7 and 8 drive the trainer again, each with
+the counters zeroed before it and read after it. The last lines are the
+card's name and power limit, a JSON object with one entry per kernel
+(launches from phases 4-5), and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -91,6 +106,10 @@ BWD_F32_REL_L2 = 5e-3
 SLICE = dict(b=1, s=2048, h=32, d=128)
 N_LAYERS = 2
 STEPS = 5  # uncaptured, timed train steps before the capture
+ITERATIONS = 2  # steps per daemon-triggered capture
+# The capture latency (RPC -> manifest) of earlier runs of this script on
+# an H100 80GB HBM3 at 700 W, logged beside this run's.
+EARLIER_LATENCY_MS = "680-1145"
 
 
 def log(msg: str) -> None:
@@ -182,12 +201,13 @@ def gxx_build(repo: Path, build: Path) -> None:
 
 
 class Daemon:
-    def __init__(self):
+    def __init__(self, extra_flags=()):
         self.endpoint = f"dynotpu_smoke_{uuid.uuid4().hex[:12]}"
         self.proc = subprocess.Popen(
             [str(BIN_DIR / "dynologd"), "--port=0", "--enable_ipc_monitor",
              f"--ipc_endpoint_name={self.endpoint}",
-             "--kernel_monitor_reporting_interval_s=60", "--nouse_JSON"],
+             "--kernel_monitor_reporting_interval_s=60", "--nouse_JSON",
+             *extra_flags],
             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
         self.port = None
         deadline = time.time() + 15
@@ -522,90 +542,117 @@ def phase_kernels(F) -> dict:
     return results
 
 
-def phase_train_and_capture(F, daemon, cfg, steps_min: int,
-                            device: str = "cuda") -> dict:
+class Trainer:
+    """The flagship transformer and its AdamW state on the card, shared by
+    every phase that trains; batches are made from the seed once per
+    batch size."""
+
+    def __init__(self, cfg, device: str = "cuda"):
+        from dynolog_tpu_torch.models.train import (
+            make_batch, make_train_state, make_train_step)
+        from dynolog_tpu_torch.models.transformer import param_leaves
+
+        self.cfg, self.device = cfg, device
+        self.gen = torch.Generator(device=device).manual_seed(0)
+        self.params, self.optimizer = make_train_state(cfg, device, self.gen)
+        self.n_params = sum(p.numel() for p in param_leaves(self.params))
+        self._make_batch = make_batch
+        self.batches = {}
+        self.batch(SLICE["b"])
+        self._step = make_train_step(cfg)
+
+    def batch(self, b: int):
+        if b not in self.batches:
+            self.batches[b] = self._make_batch(self.gen, self.cfg, b,
+                                               SLICE["s"], self.device)
+        return self.batches[b]
+
+    def step(self, b: int = SLICE["b"]):
+        return self._step(self.params, self.optimizer, self.batch(b))
+
+
+def manifest_path(trace_base: str) -> Path:
+    return Path(f"{trace_base[:-5]}_{os.getpid()}.json")
+
+
+def capture(daemon, client, trainer, job_id: int, trace_base: str, b: int,
+            losses: list) -> tuple[dict, float, int]:
+    """Triggers an on-demand capture of ITERATIONS steps through dynologd
+    and trains at batch size `b` until the shim has written its manifest.
+    Returns the manifest, the latency from the RPC to the manifest (ms)
+    and the number of steps run."""
+    done, prev = client.traces_completed, client.last_manifest
+    t_rpc = time.time()
+    resp = daemon.rpc({
+        "fn": "setKinetOnDemandRequest",
+        "config": (f"ACTIVITIES_LOG_FILE={trace_base}\n"
+                   f"ACTIVITIES_ITERATIONS={ITERATIONS}"),
+        "job_id": job_id, "pids": [0], "process_limit": 3,
+    })
+    if not (resp and resp.get("processesMatched")):
+        raise RuntimeError(f"setKinetOnDemandRequest: {resp}")
+    deadline, n = time.time() + 120, 0
+    while client.traces_completed == done and time.time() < deadline:
+        losses.append(trainer.step(b))
+        client.step()
+        n += 1
+        if client.last_manifest is not prev:
+            break
+    torch.cuda.synchronize()
+    if client.traces_completed != done + 1:
+        raise AssertionError(f"capture did not complete: {client.last_error}")
+    manifest = json.loads(manifest_path(trace_base).read_text())
+    if manifest["status"] != "ok":
+        raise AssertionError(f"capture manifest: {manifest}")
+    return manifest, manifest["ended_ms"] - t_rpc * 1000, n
+
+
+def phase_train_and_capture(F, daemon, trainer, client, job_id: int,
+                            tmp: Path, steps_min: int) -> dict:
     """The main path: the trainer under the port's TraceClient, with a
     capture triggered through dynologd."""
-    from dynolog_tpu_torch.client import TraceClient
-    from dynolog_tpu_torch.models.train import (
-        make_batch, make_train_state, make_train_step)
-    from dynolog_tpu_torch.models.transformer import param_leaves
-
-    gen = torch.Generator(device=device).manual_seed(0)
-    params, optimizer = make_train_state(cfg, device, gen)
-    n_params = sum(p.numel() for p in param_leaves(params))
-    batch = make_batch(gen, cfg, SLICE["b"], SLICE["s"], device)
-    step = make_train_step(cfg)
+    cfg = trainer.cfg
     log(f"  d_model={cfg.d_model} heads={cfg.n_heads} d_ff={cfg.d_ff} "
         f"vocab={cfg.vocab_size} n_layers={cfg.n_layers}: "
-        f"{n_params / 1e9:.3f} B parameters, {cfg.dtype}, "
+        f"{trainer.n_params / 1e9:.3f} B parameters, {cfg.dtype}, "
         f"B={SLICE['b']} S={SLICE['s']}")
-
-    job_id = 4300 + os.getpid() % 1000
-    tmp = Path(tempfile.mkdtemp(prefix="dynotpu_smoke_"))
-    client = TraceClient(job_id=job_id, endpoint=daemon.endpoint,
-                         poll_interval_s=0.2, report_interval_s=1.0)
-    if not client.start():
-        raise RuntimeError("the shim could not register with dynologd")
     me = threading.get_native_id()
     losses, step_ms = [], []
-    try:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    F.reset_launches()
+    n_steps = 0
+    # Steps outside the capture window, timed.
+    for _ in range(steps_min):
+        t0 = time.perf_counter()
+        losses.append(trainer.step())
+        client.step()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        F.reset_launches()
-        n_steps = 0
-        # Steps outside the capture window, timed.
-        for _ in range(steps_min):
-            t0 = time.perf_counter()
-            losses.append(step(params, optimizer, batch))
-            client.step()
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            n_steps += 1
-        trace_base = str(tmp / "trace.json")
-        t_rpc = time.time()
-        resp = daemon.rpc({
-            "fn": "setKinetOnDemandRequest",
-            "config": (f"ACTIVITIES_LOG_FILE={trace_base}\n"
-                       "ACTIVITIES_ITERATIONS=2"),
-            "job_id": job_id, "pids": [0], "process_limit": 3,
-        })
-        if not (resp and resp.get("processesMatched")):
-            raise RuntimeError(f"setKinetOnDemandRequest: {resp}")
-        deadline = time.time() + 120
-        while client.traces_completed == 0 and time.time() < deadline:
-            losses.append(step(params, optimizer, batch))
-            client.step()
-            n_steps += 1
-            if client.last_manifest is not None:
-                break
-        torch.cuda.synchronize()
-        counts = dict(F.launches)
-    finally:
-        client.stop()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        n_steps += 1
+    trace_base = str(tmp / "trace.json")
+    manifest, latency, n = capture(daemon, client, trainer, job_id,
+                                   trace_base, SLICE["b"], losses)
+    n_steps += n
+    counts = dict(F.launches)
     peak = torch.cuda.max_memory_allocated()
 
     final_loss = float(losses[-1])
     if not all(math.isfinite(float(x)) for x in losses):
         raise AssertionError(f"non-finite loss: {[float(x) for x in losses]}")
-    for name, n in counts.items():
-        if n < cfg.n_layers * n_steps:
-            raise AssertionError(f"{name} launched {n} times in {n_steps} "
-                                 f"steps of {cfg.n_layers} layers")
+    for name, count in counts.items():
+        if count < cfg.n_layers * n_steps:
+            raise AssertionError(f"{name} launched {count} times in {n_steps}"
+                                 f" steps of {cfg.n_layers} layers")
     warm = step_ms[1:] or step_ms
+    median_ms = sorted(warm)[len(warm) // 2]
     log(f"  trained {n_steps} steps: loss {float(losses[0]):.4f} -> "
-        f"{final_loss:.4f}; step {sorted(warm)[len(warm) // 2]:.1f} ms "
+        f"{final_loss:.4f}; step {median_ms:.1f} ms "
         f"(median of {len(warm)} uncaptured steps after the first, "
         f"{[round(x, 1) for x in step_ms]}); peak memory "
         f"{peak / 2**30:.2f} GiB; launches {counts}")
 
     # Phase 5 checks: the capture.
-    if client.traces_completed != 1:
-        raise AssertionError(f"capture did not complete: {client.last_error}")
-    manifest = json.loads(Path(f"{trace_base[:-5]}_{os.getpid()}.json")
-                          .read_text())
-    if manifest["status"] != "ok":
-        raise AssertionError(f"capture manifest: {manifest}")
     with open(manifest["trace_file"]) as f:
         events = json.load(f)["traceEvents"]
     kernel_names = [e.get("name", "") for e in events
@@ -618,15 +665,253 @@ def phase_train_and_capture(F, daemon, cfg, steps_min: int,
                if e.get("cat") == "cpu_op" and e.get("tid") == me]
     if not cpu_ops:
         raise AssertionError("no cpu_op events from the training thread")
-    latency = manifest["ended_ms"] - t_rpc * 1000
     log("  " + device_breakdown(events))
     log(f"  capture: status ok, {len(kernel_names)} kernel events, "
         f"{len(cpu_ops)} training-thread cpu_ops, "
         f"{manifest['timing'].get('trace_bytes', 0) / 1e6:.1f} MB trace; "
         f"latency RPC->manifest {latency:.0f} ms; timing "
         f"{manifest['timing']}")
-    shutil.rmtree(tmp, ignore_errors=True)
-    return counts
+    return {"counts": counts, "manifest": manifest, "latency_ms": latency,
+            "manifest_path": manifest_path(trace_base), "step_ms": median_ms}
+
+
+def flash_rows(summary: dict) -> dict:
+    """The summary's rows of the three tensor-core kernels (D=128)."""
+    rows = {o["op"]: o for o in summary["top_ops"]}
+    return {name: rows.get(f"flash_tc::{name}_kernel<128>")
+            for name in PRODUCTS}
+
+
+def wait_for(path: Path, deadline: float) -> bool:
+    while not path.exists() and time.time() < deadline:
+        time.sleep(0.1)
+    return path.exists()
+
+
+def phase_summary(cap: dict, results: dict, n_layers: int) -> None:
+    """The phase-5 capture through the port's summarizer, and the summary
+    the shim's child wrote beside it."""
+    from dynolog_tpu_torch import diagnose, trace
+
+    manifest = cap["manifest"]
+    t0 = time.time()
+    summary = trace.summarize(str(cap["manifest_path"]), group=False)
+    took = time.time() - t0
+    planes = [p["name"] for p in summary["planes"]]
+    if "/device:GPU:0" not in planes:
+        raise AssertionError(f"no device plane in the summary: {planes}")
+    want = n_layers * ITERATIONS
+    for name, row in flash_rows(summary).items():
+        if row is None:
+            raise AssertionError(f"flash_tc::{name}_kernel<128> is not in "
+                                 "the summary")
+        per_call = row["total_ms"] / row["count"]
+        ratio = per_call / results[name]["ms"]
+        log(f"  {name}: {row['count']} calls, {per_call:.4f} ms a call in "
+            f"the trace, {ratio:.2f}x its phase-3 median "
+            f"{results[name]['ms']:.4f} ms")
+        if row["count"] != want or not 0.5 <= ratio <= 2.0:
+            raise AssertionError(
+                f"{name}: {row['count']} calls (want {want}), {per_call:.4f}"
+                f" ms a call against {results[name]['ms']:.4f} ms")
+    # The steps are the device's: about the uncaptured step's time.
+    steps = summary.get("steps", {})
+    if (steps.get("count") != ITERATIONS
+            or not 0.5 <= steps["p50_ms"] / cap["step_ms"] <= 2.0):
+        raise AssertionError(f"steps in the summary: {steps}, against a "
+                             f"{cap['step_ms']:.1f} ms step")
+    with open(manifest["trace_file"]) as f:
+        events = json.load(f)["traceEvents"]
+    cats: dict = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    spans = [(e["cat"], e["name"], round(e.get("dur", 0) / 1e3, 3))
+             for e in events if e.get("name", "").startswith("ProfilerStep#")]
+    log(f"  steps: {steps} (uncaptured step {cap['step_ms']:.1f} ms); "
+        f"ProfilerStep spans (category, name, ms): "
+        f"{spans}; events by category: {cats}")
+    for row in summary["top_ops"][:8]:
+        log(f"  top: {row['op'][:70]} {row['total_ms']:.3f} ms x "
+            f"{row['count']} ({row['pct']}%) -> "
+            f"{diagnose.classify_op(row['op'])}")
+    gemms = [o["op"] for o in summary["top_ops"] if "nvjet" in o["op"]]
+    wrong = [op for op in gemms if diagnose.classify_op(op) != "matmul"]
+    if wrong:
+        raise AssertionError(f"cuBLAS GEMMs not read as matmul: {wrong}")
+    log(f"  {len(gemms)} nvjet GEMM rows, all matmul; "
+        f"{len(summary['top_ops'])} rows in all")
+    # The shim's child writes <run>.summary.json after the manifest.
+    trace_file = manifest["trace_file"]
+    summary_path = Path(trace_file[: -len(trace.TRACE_SUFFIX)]
+                        + trace.SUMMARY_SUFFIX)
+    if not wait_for(summary_path, manifest["ended_ms"] / 1000 + 60):
+        raise AssertionError(f"no {summary_path.name} within 60 s of the "
+                             "manifest")
+    after = summary_path.stat().st_mtime - cap["manifest_path"].stat().st_mtime
+    if after < 0:
+        raise AssertionError("the summary was written before the manifest")
+    written = json.loads(summary_path.read_text())
+    if written != trace.summarize(trace_file):
+        raise AssertionError("the shim's summary differs from summarize()")
+    log(f"  trace {manifest['timing'].get('trace_bytes', 0) / 1e6:.1f} MB "
+        f"summarized in {took:.2f} s; the shim's summary landed "
+        f"{after:.2f} s after the manifest; capture latency RPC->manifest "
+        f"{cap['latency_ms']:.0f} ms (earlier runs: {EARLIER_LATENCY_MS} "
+        "ms)")
+
+
+def run_cli(args: list[str], timeout: float = 300):
+    """Runs `python args...` from the repository root."""
+    return subprocess.run([sys.executable, *args], capture_output=True,
+                          text=True, timeout=timeout, cwd=REPO)
+
+
+def phase_diagnosis(F, daemon, trainer, client, job_id: int, tmp: Path,
+                    cap: dict) -> Path:
+    """Baseline from the phase-5 capture; a second capture at B=2 must be
+    diagnosed as regressed, naming each flash kernel. Returns the
+    baseline's path."""
+    base = tmp / "baseline.json"
+    out = run_cli(["-m", "dynolog_tpu_torch.diagnose",
+                   str(cap["manifest_path"]), "--save-baseline", str(base)])
+    if out.returncode != 0:
+        raise AssertionError(f"--save-baseline: rc {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    b, losses = 2, []
+    torch.cuda.reset_peak_memory_stats()
+    F.reset_launches()
+    for _ in range(2):  # uncaptured steps at the new shape
+        losses.append(trainer.step(b))
+        client.step()
+    trace_base = str(tmp / "trace_b2.json")
+    manifest, latency, n = capture(daemon, client, trainer, job_id,
+                                   trace_base, b, losses)
+    counts = dict(F.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(float(x)) for x in losses):
+        raise AssertionError(f"non-finite loss at B=2: {losses}")
+    for name, count in counts.items():
+        if count < trainer.cfg.n_layers * (2 + n):
+            raise AssertionError(f"{name} launched {count} times at B=2")
+    log(f"  B={b}: {2 + n} steps, launches {counts}, peak memory "
+        f"{peak / 2**30:.2f} GiB, capture latency {latency:.0f} ms")
+    out = run_cli(["-m", "dynolog_tpu_torch.diagnose",
+                   str(manifest_path(trace_base)), "--baseline", str(base),
+                   "--json", "--top", "50"])
+    if out.returncode != 0:
+        raise AssertionError(f"diagnose: rc {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    report = json.loads(out.stdout)
+    log(f"  verdict {report['verdict']}: {report['headline']}")
+    for f in report["findings"][:5]:
+        log(f"  finding: ({f['kind']}) {f['message'][:150]}")
+    if report["verdict"] != "regressed":
+        raise AssertionError(f"B=2 diagnosed as {report['verdict']}")
+    for name in PRODUCTS:
+        op = f"flash_tc::{name}_kernel<128>"
+        found = [(f["kind"], f["severity_pct"]) for f in report["findings"]
+                 if f["op"] == op]
+        kinds = [kind for kind, _ in found]
+        log(f"  {op}: (kind, severity %) {found}")
+        if not {"compute_regression", "fusion_shape_change"} & set(kinds):
+            raise AssertionError(f"no regression finding for {op}: {kinds}")
+    return base
+
+
+def phase_ring(F, daemon, trainer, tmp: Path, base: Path) -> None:
+    """A short run under the capture ring: a stored profile naming the
+    three flash kernels, diagnosable against the baseline."""
+    from dynolog_tpu_torch.client import RingConfig, TraceClient
+
+    ring_dir = tmp / "ring"
+    client = TraceClient(
+        job_id=5300 + os.getpid() % 1000, endpoint=daemon.endpoint,
+        poll_interval_s=0.2, report_interval_s=1.0,
+        ring=RingConfig(every_n_steps=2, window_ms=200, min_interval_s=0,
+                        dir=str(ring_dir)))
+    if not client.start():
+        raise RuntimeError("the ring's shim could not register")
+    F.reset_launches()
+    n, t0 = 0, time.time()
+    try:
+        while client.ring.captures == 0 and time.time() - t0 < 120:
+            trainer.step()
+            client.step()
+            n += 1
+        torch.cuda.synchronize()
+    finally:
+        client.stop()
+    counts = dict(F.launches)
+    if client.ring.captures == 0:
+        raise AssertionError(f"no ring profile: {client.ring.last_error}")
+    for name, count in counts.items():
+        if count < trainer.cfg.n_layers * n:
+            raise AssertionError(f"{name} launched {count} times in {n} "
+                                 "ring-run steps")
+    doc = json.loads(Path(client.ring.last_path).read_text())
+    missing = [name for name, row in flash_rows(doc["summary"]).items()
+               if row is None]
+    if missing:
+        raise AssertionError(f"ring profile lacks {missing}: "
+                             f"{[o['op'] for o in doc['summary']['top_ops']]}")
+    log(f"  {n} steps, launches {counts}; ring profile "
+        f"{Path(client.ring.last_path).name} of step {doc['step']}, "
+        f"window {doc['window_ms']} ms configured, timing "
+        f"{client.ring.last_timing}")
+    out = run_cli(["-m", "dynolog_tpu_torch.diagnose", "--ring",
+                   str(ring_dir), "--baseline", str(base)])
+    if out.returncode != 0:
+        raise AssertionError(f"diagnose --ring: rc {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    log("  " + out.stdout.splitlines()[0])
+
+
+def phase_exporter(tmp: Path) -> None:
+    """NVML's snapshot for the daemon's file backend, read back through a
+    second dynologd with `dyno query`."""
+    from dynolog_tpu_torch._torchinit import probe_backend
+
+    err = probe_backend(timeout_s=120)
+    if err:
+        raise AssertionError(f"CUDA init probe: {err}")
+    snap = tmp / "gpu_metrics.json"
+    out = run_cli(["-m", "dynolog_tpu_torch.exporter", "--once", "--path",
+                   str(snap)], timeout=180)
+    if out.returncode != 0:
+        raise AssertionError(f"exporter: rc {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    devices = json.loads(snap.read_text())["devices"]
+    if not devices:
+        raise AssertionError("the exporter found no device through NVML")
+    dev = devices[0]
+    total = dev["metrics"].get("hbm_total_bytes", 0.0)
+    want = torch.cuda.get_device_properties(0).total_memory
+    log(f"  CUDA init probe ok; device 0: {dev['chip_type']}, "
+        f"{dev['metrics']}; torch total_memory {want}")
+    if abs(total - want) > 0.01 * want:
+        raise AssertionError(f"hbm_total_bytes {total} is not within 1% of "
+                             f"{want}")
+    daemon = Daemon(extra_flags=(
+        "--enable_tpu_monitor", "--tpu_metric_backend=file",
+        f"--tpu_metrics_file={snap}", "--tpu_monitor_reporting_interval_s=1"))
+    try:
+        deadline, values, text = time.time() + 20, None, ""
+        while not values and time.time() < deadline:
+            time.sleep(0.5)
+            q = subprocess.run(
+                [str(BIN_DIR / "dyno"), f"--port={daemon.port}", "query",
+                 "--metrics=tpu0.hbm_total_bytes"],
+                capture_output=True, text=True, timeout=30)
+            text = q.stdout.strip()
+            if q.returncode == 0 and "response = " in text:
+                resp = json.loads(text.split("response = ", 1)[1])
+                values = (resp.get("metrics", {})
+                          .get("tpu0.hbm_total_bytes", {}).get("values"))
+    finally:
+        daemon.stop()
+    if not values or values[-1] != total:
+        raise AssertionError(f"dyno query: {text[-1000:]}")
+    log(f"  dyno query tpu0.hbm_total_bytes -> {values[-1]:.0f}")
 
 
 def main() -> int:
@@ -673,12 +958,37 @@ def main() -> int:
         daemon = Daemon()
 
         log("phase 4+5: trainer under a daemon-triggered capture")
+        from dynolog_tpu_torch.client import TraceClient
         from dynolog_tpu_torch.models.transformer import TransformerConfig
 
         # Full llama-8B widths; depth is the only cut.
         cfg = TransformerConfig.llama_8b_like(
             n_layers=N_LAYERS, dtype="bfloat16", attn_impl="flash")
-        counts = phase_train_and_capture(F, daemon, cfg, STEPS)
+        trainer = Trainer(cfg)
+        job_id = 4300 + os.getpid() % 1000
+        tmp = Path(tempfile.mkdtemp(prefix="dynotpu_smoke_"))
+        client = TraceClient(job_id=job_id, endpoint=daemon.endpoint,
+                             poll_interval_s=0.2, report_interval_s=1.0)
+        if not client.start():
+            raise RuntimeError("the shim could not register with dynologd")
+        try:
+            cap = phase_train_and_capture(F, daemon, trainer, client, job_id,
+                                          tmp, STEPS)
+            counts = cap["counts"]
+            log("phase 6: summary of the capture")
+            phase_summary(cap, results, cfg.n_layers)
+            log("phase 7: diagnosis of a B=2 capture against the baseline")
+            base = phase_diagnosis(F, daemon, trainer, client, job_id, tmp,
+                                   cap)
+        finally:
+            client.stop()
+            for proc in client.summary_procs:
+                proc.wait(timeout=120)
+        log("phase 8: capture ring")
+        phase_ring(F, daemon, trainer, tmp, base)
+        log("phase 9: exporter to the daemon's file backend")
+        phase_exporter(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     except Exception:  # noqa: BLE001 - any phase failing fails the run
         traceback.print_exc()
         return 1

@@ -15,8 +15,15 @@ stop happen on one thread. So the capture cannot run on the poll thread.
 The poll thread receives and parses the config and *arms* a window; the
 training thread's next ``step()`` starts the profiler, and the ``step()``
 at which the window ends (duration or iterations) stops it. The poll
-thread then exports the trace and writes the manifest. An app that never
-calls ``step()`` can register and report, but cannot be traced.
+thread then exports the trace and writes the manifest, and a child process
+at low priority writes the trace's summary (``<run>.summary.json``) beside
+it. An app that never calls ``step()`` can register and report, but cannot
+be traced.
+
+The continuous-capture ring (``CaptureRing``, opted into with
+``DYNO_TPU_RING_EVERY_N`` or ``ring=RingConfig(...)``) samples a short
+window every 1-in-N steps through the same machinery and keeps compact
+profiles the diagnosis engine reads directly.
 
 Config keys understood (the text the dyno CLI emits):
 
@@ -45,19 +52,24 @@ import logging
 import math
 import os
 import shutil
+import subprocess
+import sys
 import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
 
-from dynolog_tpu_torch import failpoints, obs
+import dynolog_tpu_torch
+from dynolog_tpu_torch import failpoints, obs, trace
 from dynolog_tpu_torch.client import ipc
 from dynolog_tpu_torch.stream import stream_write
 
 _log = logging.getLogger("dynolog_tpu_torch.shim")
 
-# Chrome-trace files the shim writes into a capture's trace dir.
-TRACE_SUFFIX = ".pt.trace.json"
+# Chrome-trace files the shim writes into a capture's trace dir, and the
+# summaries written beside them.
+TRACE_SUFFIX = trace.TRACE_SUFFIX
+SUMMARY_SUFFIX = trace.SUMMARY_SUFFIX
 
 
 def _ttl_from_env() -> float:
@@ -91,8 +103,8 @@ def _pid_alive(pid: int) -> bool:
 def _trace_session_dir(path: str, prefix: str) -> int | None:
     """The pid of a `<prefix>_<pid>` trace-session dir, or None if `path`
     does not look like one: the shim's own trace base name as the prefix,
-    and only what the shim itself writes there (Chrome traces and their
-    .tmp leftovers)."""
+    and only what the shim itself writes there (Chrome traces, their
+    summaries and .tmp leftovers)."""
     base = os.path.basename(path.rstrip(os.sep))
     head, sep, pid_part = base.rpartition("_")
     if not sep or head != prefix or not pid_part.isdigit():
@@ -101,7 +113,7 @@ def _trace_session_dir(path: str, prefix: str) -> int | None:
         entries = os.listdir(path)
     except OSError:
         return None
-    if any(not (e.endswith(TRACE_SUFFIX) or e.endswith(".tmp"))
+    if any(not e.endswith((TRACE_SUFFIX, SUMMARY_SUFFIX, ".tmp"))
            for e in entries):
         return None
     return int(pid_part)
@@ -171,6 +183,225 @@ def sweep_stale_artifacts(
                     and not _pid_alive(int(pid_part))):
                 _reclaim(path, cutoff, reclaimed)
     return reclaimed
+
+
+@dataclass
+class RingConfig:
+    """Continuous-capture ring knobs (see CaptureRing).
+
+    Env overrides (read by ``from_env``, the same variables as the JAX
+    package's shim), so a training job opts in with environment alone:
+
+        DYNO_TPU_RING_EVERY_N      sample 1-in-N steps (0 = ring off)
+        DYNO_TPU_RING_KEEP         profiles retained per model
+        DYNO_TPU_RING_WINDOW_MS    capture window per sample
+        DYNO_TPU_RING_DIR          ring root directory
+        DYNO_TPU_RING_MODEL        model tag (per-model subdirectory)
+        DYNO_TPU_RING_TTL_S        max profile age
+        DYNO_TPU_RING_MIN_INTERVAL_S  rate cap between samples
+    """
+
+    every_n_steps: int = 0  # 0 = ring off
+    keep: int = 8
+    window_ms: int = 100
+    dir: str = ""  # empty = <tempdir>/dynolog_tpu_ring
+    model: str = "default"
+    ttl_s: float = 24 * 3600
+    # Rate cap independent of step rate: a 5ms-step job with every_n=100
+    # must not profile twice a second.
+    min_interval_s: float = 30.0
+    top_ops: int = 40
+
+    def root(self) -> str:
+        return self.dir or os.path.join(
+            tempfile.gettempdir(), "dynolog_tpu_ring")
+
+    @classmethod
+    def from_env(cls, env=None) -> "RingConfig":
+        env = os.environ if env is None else env
+        cfg = cls()
+        for key, attr, cast in (
+            ("DYNO_TPU_RING_EVERY_N", "every_n_steps", int),
+            ("DYNO_TPU_RING_KEEP", "keep", int),
+            ("DYNO_TPU_RING_WINDOW_MS", "window_ms", int),
+            ("DYNO_TPU_RING_DIR", "dir", str),
+            ("DYNO_TPU_RING_MODEL", "model", str),
+            ("DYNO_TPU_RING_TTL_S", "ttl_s", float),
+            ("DYNO_TPU_RING_MIN_INTERVAL_S", "min_interval_s", float),
+        ):
+            raw = env.get(key)
+            if raw is None:
+                continue
+            try:
+                setattr(cfg, attr, cast(raw))
+            except ValueError:
+                # A typo'd knob must not abort the training job; the
+                # ring simply keeps its default for that field.
+                _log.warning("%s=%r is not a %s; ignored",
+                             key, raw, cast.__name__)
+        return cfg
+
+
+class CaptureRing:
+    """Rolling, sampled profile ring: every 1-in-N training steps
+    (rate-capped), capture a short window and *promote* its Chrome trace
+    to a compact op-level profile (trace.compact_profile), retaining the
+    newest K per model in a TTL'd ring directory. The raw trace and its
+    temp dir are deleted after promotion — the ring stores
+    diagnosis-ready summaries, not traces.
+
+    Profiles are schema-versioned envelopes the diagnosis engine accepts
+    directly: ``python -m dynolog_tpu_torch.diagnose --ring DIR --baseline
+    B`` diagnoses the newest one.
+
+    The first boundary after start arms a sample: the ring starts "never
+    captured", so the rate cap applies between samples only. (The JAX
+    package's ring starts its clock at 0 and compares it with
+    time.monotonic(), so on a host up for less than min_interval_s its
+    first sample is rate-capped.)
+    """
+
+    PROFILE_SUFFIX = ".ringprof.json"
+
+    def __init__(self, config: RingConfig):
+        self.config = config
+        self.captures = 0
+        self.last_path: str | None = None
+        self.last_error: str | None = None
+        # Where the last stored sample's time went (ms): the window's
+        # profiler timing, the whole take (arm, window, export) and the
+        # promotion to a compact profile.
+        self.last_timing: dict = {}
+        self._pending = False
+        self._last_capture_t: float | None = None  # never captured
+        self._last_step_seen = 0
+
+    # -- sampling decision (called from step(), must stay trivial) ------
+
+    def note_step(self, step_count: int) -> None:
+        n = self.config.every_n_steps
+        if n <= 0 or self._pending:
+            return
+        # Boundary crossing, not equality: with every_n=100 a burst of
+        # steps between polls must arm at most once.
+        if step_count // n > self._last_step_seen // n:
+            self._last_step_seen = step_count
+            if (self._last_capture_t is None
+                    or time.monotonic() - self._last_capture_t
+                    >= self.config.min_interval_s):
+                self._pending = True
+            # else: rate-capped; the next boundary re-tests.
+        else:
+            self._last_step_seen = step_count
+
+    def due(self) -> bool:
+        return self._pending
+
+    # -- capture + promotion (poll thread) ------------------------------
+
+    def capture(self, take) -> str | None:
+        """One ring sample: `take(trace_dir)` captures a window of
+        config.window_ms and returns (Chrome trace path, timing dict);
+        the trace is promoted, stored and the ring pruned. Returns the
+        stored profile path (None on failure; last_error says why)."""
+        self._pending = False
+        self._last_capture_t = time.monotonic()
+        tmp = tempfile.mkdtemp(prefix="dynolog_tpu_torch_ring_cap_")
+        try:
+            t0 = time.time()
+            with obs.span("shim.ring_capture"):
+                trace_file, timing = take(tmp)
+            t1 = time.time()
+            with obs.span("shim.ring_promote"):
+                with open(trace_file, "rb") as f:
+                    data = f.read()
+                profile = trace.compact_profile(data, top=self.config.top_ops)
+            path = self._store(profile)
+            self.last_timing = {
+                **timing, "take_ms": int((t1 - t0) * 1000),
+                "promote_ms": int((time.time() - t1) * 1000),
+                "trace_bytes": len(data)}
+            self.captures += 1
+            self.last_path = path
+            self.last_error = None
+            return path
+        except Exception as e:  # noqa: BLE001 - the ring is best-effort
+            # telemetry; a failed sample must never cost the poll loop
+            # (on-demand tracing rides it).
+            self.last_error = f"ring capture failed: {e}"
+            return None
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def _store(self, profile: dict) -> str:
+        model_dir = os.path.join(self.config.root(), self.config.model)
+        os.makedirs(model_dir, exist_ok=True)
+        doc = {
+            # The diagnosis engine's envelope: it refuses mismatched
+            # schemas loudly.
+            "schema": 1,
+            "kind": "dynolog_tpu.ring_profile",
+            "model": self.config.model,
+            "created_ms": int(time.time() * 1000),
+            "step": self._last_step_seen,
+            "window_ms": self.config.window_ms,
+            "pid": os.getpid(),
+            "summary": profile,
+        }
+        path = os.path.join(
+            model_dir,
+            "%d_s%d%s" % (doc["created_ms"], doc["step"],
+                          self.PROFILE_SUFFIX))
+        stream_write(path, [json.dumps(doc, indent=1).encode()])
+        self._prune(model_dir)
+        return path
+
+    def _prune(self, model_dir: str) -> None:
+        entries = self.entries(model_dir)
+        for victim in entries[: max(len(entries) - self.config.keep, 0)]:
+            try:
+                os.unlink(victim)
+            except OSError:
+                pass
+
+    def entries(self, model_dir: str | None = None) -> list[str]:
+        """This model's stored profiles, oldest first."""
+        model_dir = model_dir or os.path.join(
+            self.config.root(), self.config.model)
+        try:
+            names = os.listdir(model_dir)
+        except OSError:
+            return []
+        return sorted(
+            os.path.join(model_dir, n) for n in names
+            if n.endswith(self.PROFILE_SUFFIX))
+
+    def sweep(self, now: float | None = None) -> list[str]:
+        """TTL sweep across EVERY model under the ring root (startup
+        hygiene): expired profiles are reclaimed."""
+        if self.config.ttl_s <= 0:
+            return []
+        cutoff = (now if now is not None else time.time()) - self.config.ttl_s
+        reclaimed: list[str] = []
+        root = self.config.root()
+        try:
+            models = os.listdir(root)
+        except OSError:
+            return []
+        for model in models:
+            model_dir = os.path.join(root, model)
+            if not os.path.isdir(model_dir):
+                continue
+            for path in self.entries(model_dir):
+                try:
+                    if os.path.getmtime(path) >= cutoff:
+                        continue
+                    os.unlink(path)
+                except OSError:
+                    continue
+                _log.info("reclaimed expired ring profile: %s", path)
+                reclaimed.append(path)
+        return reclaimed
 
 
 _run_seq_lock = threading.Lock()
@@ -348,6 +579,7 @@ class TraceClient:
         report_interval_s: float = 10.0,
         stall_grace_s: float = 60.0,
         sweep_ttl_s: float = DEFAULT_SWEEP_TTL_S,
+        ring: RingConfig | None = None,
     ):
         self.job_id = job_id
         self.device = device
@@ -386,6 +618,13 @@ class TraceClient:
         self.stall_grace_s = stall_grace_s
         self.sweep_ttl_s = sweep_ttl_s
         self._swept_dirs: set[str] = set()
+        # Continuous capture ring: explicit config wins, else the
+        # DYNO_TPU_RING_* env opts a job in with no code change.
+        ring_cfg = ring if ring is not None else RingConfig.from_env()
+        self.ring = (
+            CaptureRing(ring_cfg) if ring_cfg.every_n_steps > 0 else None)
+        # Summary children of completed captures (see _spawn_summary).
+        self.summary_procs: list[subprocess.Popen] = []
         self.instance_rank: int | None = None
         self.traces_completed = 0
         self.last_error: str | None = None
@@ -404,6 +643,11 @@ class TraceClient:
     def start(self) -> bool:
         """Registers and spawns the polling thread. False if the daemon is
         unreachable (the app keeps running untraced)."""
+        if self.ring:
+            try:
+                self.ring.sweep()
+            except OSError as e:  # the sweep must never cost start()
+                _log.warning("ring sweep failed: %s", e)
         self.instance_rank = self._client.register_context(
             self.job_id, self.device, dest=self.endpoint)
         if self.instance_rank is not None:
@@ -463,6 +707,11 @@ class TraceClient:
             if self._window is not None:
                 self._drive_window(self._window, self._step_count, now)
             self._step_cv.notify_all()
+            count = self._step_count
+        if self.ring:
+            # Outside the cv (trivial counter arithmetic): arms the poll
+            # thread to take a ring sample at its next tick.
+            self.ring.note_step(count)
 
     # -- capture window (training thread, under _step_cv) ---------------
 
@@ -491,6 +740,7 @@ class TraceClient:
             self._window = None
 
     def _stop_profiler(self, w: _Window, state: str) -> None:
+        w.timing["window_ms"] = int((time.monotonic() - w._t_start) * 1000)
         t0 = time.time()
         try:
             self.profiler.stop()
@@ -542,6 +792,13 @@ class TraceClient:
             except Exception as e:  # noqa: BLE001 - telemetry must never
                 # kill the poll thread
                 self.last_error = f"stats report failed: {e}"
+            if self.ring and self.ring.due() and not text:
+                # Ring sample on an idle tick only: an on-demand capture
+                # that just ran owns this window. CaptureRing.capture
+                # contains its own failures (last_error on the ring).
+                self.ring.capture(self._ring_sample)
+                if self.ring.last_error:
+                    self.last_error = self.ring.last_error
             # Kick-subscription keep-alive (the daemon expires stale ones).
             if time.monotonic() - self._last_subscribe > 30.0:
                 self._client.subscribe_kicks(self.job_id, dest=self.endpoint)
@@ -640,6 +897,16 @@ class TraceClient:
                                      dest=self.endpoint, **kwargs)
 
     # -- one capture (poll thread) ---------------------------------------
+
+    def _ring_sample(self, trace_dir: str) -> tuple[str, dict]:
+        """One ring window: armed here, opened and closed by step() on
+        the training thread, exported into `trace_dir`. Returns the trace
+        path and the window's timing."""
+        error, window = self._capture_window(
+            TraceConfig(duration_ms=self.ring.config.window_ms), trace_dir)
+        if error:
+            raise RuntimeError(error)
+        return self.profiler.export(trace_dir), dict(window.timing)
 
     def _run_trace(self, cfg: TraceConfig) -> None:
         # Fault drill: shim.run_trace=throw proves the poll loop contains
@@ -763,8 +1030,44 @@ class TraceClient:
         self.last_manifest = manifest
         if wrote and not error:
             self.traces_completed += 1
+            self._spawn_summary(trace_file, ctx)
         # Ship this capture's spans to the daemon (fire-and-forget).
         try:
             self._client.send_spans(obs.JOURNAL.drain(), dest=self.endpoint)
         except OSError as e:
             self.last_error = f"span flush failed: {e}"
+
+    def _spawn_summary(self, trace_file: str, ctx) -> None:
+        """Writes <run>.summary.json beside a completed capture's trace
+        in a child process at nice 19: summarizing is seconds of
+        pure-Python work that in-process would take the GIL from the
+        training loop, and a crash there must cost only the summary. It
+        starts after the manifest, so the capture's latency does not
+        include it. The child records a trace.convert span under the
+        capture's context and flushes it to the daemon."""
+        pkg_parent = os.path.dirname(os.path.dirname(
+            os.path.abspath(dynolog_tpu_torch.__file__)))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = pkg_parent + (
+            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        env[obs.ENV_TRACE_CTX] = ctx.header()
+        env[obs.ENV_FLUSH_ENDPOINT] = self.endpoint
+        code = ("import os; os.nice(19); "
+                "from dynolog_tpu_torch.trace import write_derived_artifacts; "
+                f"write_derived_artifacts({trace_file!r})")
+        try:
+            if failpoints.fire("shim.export_spawn"):
+                raise OSError("failpoint shim.export_spawn")
+            proc = subprocess.Popen(
+                [sys.executable, "-c", code], env=env,
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                start_new_session=True)
+        except OSError as e:  # the capture is complete without it
+            _log.warning("summary child not started for %s: %s",
+                         trace_file, e)
+            return
+        self.summary_procs = [
+            p for p in self.summary_procs if p.poll() is None] + [proc]
+        # Reap without blocking anything (wait() releases the GIL).
+        threading.Thread(target=proc.wait, daemon=True,
+                         name="dynolog_tpu_torch_summary_reaper").start()

@@ -1,0 +1,461 @@
+"""Automated trace-diff regression diagnosis for PyTorch captures.
+
+The counterpart of ``dynolog_tpu/diagnose.py``: turns two op-level trace
+summaries — a stored per-model baseline and a fresh capture — into a
+*ranked diagnosis*: which kernels regressed per call, which changed their
+input shapes, whether collective wait grew, whether step-time skew
+widened. The summaries come from ``dynolog_tpu_torch.trace`` (kineto
+Chrome traces); the findings, baselines, ring profiles and reports keep
+the JAX package's envelopes and ``kind`` strings, so either engine's JSON
+reads the same way.
+
+``classify_op`` keeps the JAX package's five categories and their order
+of tests, and adds the tokens of CUDA kernel and ATen op names: NCCL and
+c10d collectives, Triton's fused kernels, cuBLAS/CUTLASS GEMMs and the
+ATen matmuls, and memcpy/memset/contiguous copies.
+
+Self-tracing: an engine run records ``diagnose.engine`` (and the
+``diagnose.load`` / ``diagnose.diff`` spans) under the trace context
+handed down via $DYNO_TRACE_CTX and flushes them to the daemon named by
+$DYNO_OBS_ENDPOINT.
+
+CLI::
+
+    python -m dynolog_tpu_torch.diagnose TARGET --baseline BASE [--json]
+        [--out REPORT.json] [--top N]
+    python -m dynolog_tpu_torch.diagnose TARGET --save-baseline BASE.json
+        [--model NAME]
+    python -m dynolog_tpu_torch.diagnose --ring DIR --baseline BASE
+        [--model M]
+
+TARGET/BASE accept a trace dir, a shim manifest, a *.pt.trace.json, a
+saved baseline JSON, or a ring profile JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import sys
+import time
+
+from dynolog_tpu_torch import obs, trace
+from dynolog_tpu_torch.stream import stream_write
+
+# Persisted-artifact schema (baselines, ring profiles, diagnosis
+# reports). Bump on any incompatible change to the summary/report shape;
+# load_baseline refuses mismatched majors loudly.
+SCHEMA_VERSION = 1
+
+# Finding thresholds: a per-call regression below NOISE_PCT, or with
+# estimated impact below NOISE_IMPACT_MS, is measurement noise on the
+# scale this engine works at (millisecond device windows).
+NOISE_PCT = 5.0
+NOISE_IMPACT_MS = 0.05
+
+# Op-name fragments identifying collective-communication ops: XLA HLO
+# names, NCCL kernels and c10d ops. Growth here means the job is waiting
+# on a peer, not computing.
+_COLLECTIVE_TOKENS = (
+    "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+    "collective", "send", "recv", "nccl", "c10d::",
+)
+# Fused kernels: XLA fusions and Triton's generated kernels.
+_FUSION_TOKENS = ("fusion", "triton_")
+# Matrix products: XLA's, cuBLAS (gemm, nvjet, xmma), CUTLASS, and ATen's.
+_MATMUL_TOKENS = (
+    "dot", "conv", "matmul", "einsum", "gemm", "nvjet", "xmma", "cutlass",
+    "aten::mm", "addmm", "bmm", "linear",
+)
+_DATA_MOVEMENT_TOKENS = (
+    "copy", "transpose", "reshape", "memcpy", "memset", "contiguous",
+)
+
+
+def classify_op(name: str) -> str:
+    low = name.lower()
+    if any(tok in low for tok in _COLLECTIVE_TOKENS):
+        return "collective"
+    if any(tok in low for tok in _FUSION_TOKENS):
+        return "fusion"
+    if any(tok in low for tok in _MATMUL_TOKENS):
+        return "matmul"
+    if any(tok in low for tok in _DATA_MOVEMENT_TOKENS):
+        return "data-movement"
+    return "compute"
+
+
+# -- baseline persistence ---------------------------------------------------
+
+
+def save_baseline(path: str, summary: dict, model: str = "",
+                  source: str = "") -> dict:
+    """Persist a per-model baseline (schema-versioned) atomically;
+    returns the written document."""
+    doc = {
+        "schema": SCHEMA_VERSION,
+        "kind": "dynolog_tpu.baseline",
+        "model": model,
+        "source": source,
+        "created_ms": int(time.time() * 1000),
+        "summary": summary,
+    }
+    stream_write(path, [json.dumps(doc, indent=1).encode()])
+    return doc
+
+
+def load_baseline(path: str) -> dict:
+    """Load a saved baseline, refusing schema mismatches loudly (a
+    baseline written by a future engine must never be silently
+    mis-diagnosed against)."""
+    with open(path) as f:
+        doc = json.load(f)
+    if not isinstance(doc, dict) or "summary" not in doc:
+        raise ValueError(f"{path}: not a dynolog_tpu baseline "
+                         "(no 'summary' field)")
+    schema = doc.get("schema")
+    if schema != SCHEMA_VERSION:
+        raise ValueError(
+            f"{path}: baseline schema {schema!r} != engine schema "
+            f"{SCHEMA_VERSION}; re-save the baseline with this engine")
+    return doc
+
+
+# -- summary resolution -----------------------------------------------------
+
+
+def _latest_manifest(path: str) -> str | None:
+    """`<base>.json` may be a pre-pid-suffix path the auto-trigger or
+    `--with_baseline` predicted: resolve to the newest real
+    `<base>_<pid>.json` manifest next to it."""
+    base = path[:-5] if path.endswith(".json") else path
+    # glob.escape: the base is a user/rule-supplied path and may contain
+    # glob metacharacters ([, ], *, ?) — '/traces/run[3]/t' must match
+    # literally, not as a character class.
+    hits = [p for p in glob.glob(glob.escape(base) + "_*.json")
+            if p[len(base) + 1:-5].isdigit()]
+    return max(hits, key=os.path.getmtime) if hits else None
+
+
+def resolve_summary(target: str) -> tuple[dict, dict]:
+    """Resolve any supported artifact to (summary, meta). Accepts a
+    saved baseline / ring-profile JSON, a shim manifest, a trace dir, or
+    a *.pt.trace.json; meta carries provenance (kind, trace_ctx when the
+    manifest recorded one)."""
+    meta: dict = {"target": target}
+    if target.endswith(".json") and not os.path.exists(target):
+        # A predicted manifest path (no pid suffix yet): adopt the newest
+        # matching per-pid manifest, the way operators name captures.
+        resolved = _latest_manifest(target)
+        if resolved:
+            meta["resolved_from"] = target
+            target = resolved
+            meta["target"] = target
+    if target.endswith(".json") and not target.endswith(trace.TRACE_SUFFIX):
+        with open(target) as f:
+            doc = json.load(f)
+        if isinstance(doc, dict) and "summary" in doc:
+            # Saved baseline or ring profile (same envelope).
+            schema = doc.get("schema")
+            if schema != SCHEMA_VERSION:
+                raise ValueError(
+                    f"{target}: schema {schema!r} != engine schema "
+                    f"{SCHEMA_VERSION}")
+            meta["kind"] = doc.get("kind", "baseline")
+            meta["model"] = doc.get("model", "")
+            return doc["summary"], meta
+        if isinstance(doc, dict) and "trace_dir" in doc:
+            # Shim capture manifest: summarize the trace it points at.
+            # group=False everywhere in diagnose-land: the per-kernel row
+            # (template arguments kept) is the diagnosable unit, and
+            # baseline and current must share one granularity or the diff
+            # is nonsense.
+            meta["kind"] = "manifest"
+            if doc.get("trace_ctx"):
+                meta["trace_ctx"] = doc["trace_ctx"]
+            return trace.summarize(target, group=False), meta
+        raise ValueError(f"{target}: unrecognized JSON artifact")
+    meta["kind"] = "trace"
+    return trace.summarize(target, group=False), meta
+
+
+# -- the diagnosis pass -----------------------------------------------------
+
+
+def _step_findings(diff: dict, findings: list) -> None:
+    steps = diff.get("steps")
+    if not steps:
+        return
+    base_p50, p50 = steps["base_p50_ms"], steps["p50_ms"]
+    if base_p50 > 0 and steps["delta_p50_ms"] / base_p50 * 100 > NOISE_PCT:
+        pct = steps["delta_p50_ms"] / base_p50 * 100
+        findings.append({
+            "kind": "step_time_regression",
+            "op": None,
+            "severity_pct": round(pct, 1),
+            "impact_ms": steps["delta_p50_ms"],
+            "message": (
+                f"step time p50 regressed {pct:.0f}% "
+                f"({base_p50:.3f} -> {p50:.3f} ms)"),
+        })
+    # Skew: the p95/p50 ratio widening means straggling steps, the
+    # classic one-slow-rank signature, even when the median holds.
+    base_skew = steps["base_p95_ms"] / base_p50 if base_p50 > 0 else 0
+    cur_skew = steps["p95_ms"] / p50 if p50 > 0 else 0
+    if base_skew > 0 and cur_skew > base_skew * 1.25:
+        findings.append({
+            "kind": "step_skew_growth",
+            "op": None,
+            "severity_pct": round((cur_skew / base_skew - 1) * 100, 1),
+            "impact_ms": round(steps["p95_ms"] - steps["p50_ms"], 3),
+            "message": (
+                f"step-time skew widened: p95/p50 "
+                f"{base_skew:.2f} -> {cur_skew:.2f} "
+                "(straggler / slow-rank signature)"),
+        })
+
+
+def _op_findings(diff: dict, base_shapes: dict, cur_shapes: dict,
+                 findings: list) -> None:
+    collective_growth_ms = 0.0
+    for row in diff["ops"]:
+        name = row["op"]
+        category = classify_op(name)
+        bpc, cpc = row["base_ms_per_call"], row["ms_per_call"]
+        impact = row["impact_ms"]
+        if category == "collective" and impact > 0:
+            collective_growth_ms += impact
+        bs, cs = base_shapes.get(name), cur_shapes.get(name)
+        if bs and cs and bs != cs:
+            findings.append({
+                "kind": "fusion_shape_change",
+                "op": name,
+                "severity_pct": None,
+                "impact_ms": impact,
+                "message": (
+                    f"{name} changed shape: {'/'.join(bs)} -> "
+                    f"{'/'.join(cs)}"
+                    + (f" ({impact:+.3f} ms impact)" if impact else "")),
+            })
+        if bpc is None and cpc is not None and impact > NOISE_IMPACT_MS:
+            findings.append({
+                "kind": "new_op",
+                "op": name,
+                "severity_pct": None,
+                "impact_ms": impact,
+                "message": (
+                    f"{name} is new since the baseline "
+                    f"(+{impact:.3f} ms of device time)"),
+            })
+            continue
+        if cpc is None and bpc is not None and -impact > NOISE_IMPACT_MS:
+            findings.append({
+                "kind": "vanished_op",
+                "op": name,
+                "severity_pct": None,
+                "impact_ms": impact,
+                "message": (
+                    f"{name} vanished since the baseline "
+                    f"({impact:.3f} ms came off the profile)"),
+            })
+            continue
+        if bpc is None or cpc is None or bpc <= 0:
+            continue
+        pct = (cpc - bpc) / bpc * 100.0
+        if pct > NOISE_PCT and impact > NOISE_IMPACT_MS:
+            findings.append({
+                "kind": f"{category}_regression",
+                "op": name,
+                "severity_pct": round(pct, 1),
+                "impact_ms": impact,
+                "message": (
+                    f"{name} regressed {pct:.0f}% per call "
+                    f"({bpc:.4f} -> {cpc:.4f} ms x {row['count']} calls "
+                    f"= {impact:+.3f} ms)"),
+            })
+        elif pct < -NOISE_PCT and -impact > NOISE_IMPACT_MS:
+            findings.append({
+                "kind": f"{category}_improvement",
+                "op": name,
+                "severity_pct": round(pct, 1),
+                "impact_ms": impact,
+                "message": (
+                    f"{name} improved {-pct:.0f}% per call "
+                    f"({impact:.3f} ms)"),
+            })
+    if collective_growth_ms > NOISE_IMPACT_MS:
+        findings.append({
+            "kind": "collective_wait_growth",
+            "op": None,
+            "severity_pct": None,
+            "impact_ms": round(collective_growth_ms, 3),
+            "message": (
+                f"collective/communication time grew "
+                f"{collective_growth_ms:+.3f} ms overall — the job is "
+                "waiting on a peer (check per-pod skew)"),
+        })
+
+
+def diagnose(base_summary: dict, cur_summary: dict, top: int = 10) -> dict:
+    """The diagnosis pass: diff two summaries, mine the op-level
+    patterns, rank findings by estimated total impact. Pure function —
+    the CLI, the ring, the daemon's Diagnoser and the bench all call
+    this one entry point."""
+    with obs.span("diagnose.diff"):
+        diff = trace.diff_summaries(base_summary, cur_summary)
+    base_shapes = {o["op"]: o.get("shapes") for o in
+                   base_summary.get("top_ops", []) if o.get("shapes")}
+    cur_shapes = {o["op"]: o.get("shapes") for o in
+                  cur_summary.get("top_ops", []) if o.get("shapes")}
+    findings: list[dict] = []
+    _step_findings(diff, findings)
+    _op_findings(diff, base_shapes, cur_shapes, findings)
+    findings.sort(key=lambda f: -abs(f["impact_ms"] or 0))
+    regressed = [f for f in findings
+                 if f["kind"].endswith(("_regression", "_growth"))
+                 or f["kind"] == "new_op"]
+    verdict = "regressed" if regressed else "clean"
+    return {
+        "schema": SCHEMA_VERSION,
+        "kind": "dynolog_tpu.diagnosis",
+        "verdict": verdict,
+        "headline": (regressed[0]["message"] if regressed
+                     else "no regression above the noise floor"),
+        "findings": findings[:max(top, 1)],
+        "finding_count": len(findings),
+        "steps": diff.get("steps"),
+        "ops": diff["ops"][:max(top, 1)],
+    }
+
+
+def format_report(report: dict) -> str:
+    """The human rendering of a diagnosis (the machine form IS the
+    report dict)."""
+    lines = [f"diagnosis: {report['verdict']} — {report['headline']}"]
+    steps = report.get("steps")
+    if steps:
+        lines.append(
+            f"  steps: p50 {steps['base_p50_ms']:.3f} -> "
+            f"{steps['p50_ms']:.3f} ms ({steps['delta_p50_ms']:+.3f}), "
+            f"p95 {steps['base_p95_ms']:.3f} -> {steps['p95_ms']:.3f} "
+            f"({steps['delta_p95_ms']:+.3f})")
+    for i, f in enumerate(report["findings"], 1):
+        sev = (f" [{f['severity_pct']:+.1f}%]"
+               if f.get("severity_pct") is not None else "")
+        lines.append(f"  {i}. ({f['kind']}){sev} {f['message']}")
+    if not report["findings"]:
+        lines.append("  (no findings)")
+    return "\n".join(lines)
+
+
+# -- ring integration -------------------------------------------------------
+
+
+def newest_ring_profile(ring_dir: str, model: str = "") -> str | None:
+    """Path of the newest ring profile under `ring_dir` (optionally one
+    model's subdirectory) — what `--ring` diagnoses."""
+    root = os.path.join(ring_dir, model) if model else ring_dir
+    hits = glob.glob(
+        os.path.join(glob.escape(root), "**", "*.ringprof.json"),
+        recursive=True)
+    return max(hits, key=os.path.getmtime) if hits else None
+
+
+# -- CLI --------------------------------------------------------------------
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument(
+        "target", nargs="?", default="",
+        help="capture to diagnose: trace dir, manifest, *.pt.trace.json, "
+             "or ring profile")
+    ap.add_argument(
+        "--baseline", default="",
+        help="baseline: saved baseline JSON (schema-checked), trace "
+             "dir, manifest, or *.pt.trace.json")
+    ap.add_argument(
+        "--save-baseline", default="", metavar="OUT",
+        help="summarize TARGET and persist it as a schema-versioned "
+             "baseline at OUT, then exit")
+    ap.add_argument("--model", default="", help="model tag for baselines "
+                    "and --ring lookup")
+    ap.add_argument(
+        "--ring", default="",
+        help="diagnose the newest profile in this capture-ring directory "
+             "instead of TARGET")
+    ap.add_argument("--top", type=int, default=10)
+    ap.add_argument("--json", action="store_true",
+                    help="print the machine-readable report")
+    ap.add_argument("--out", default="",
+                    help="also write the JSON report here (atomic)")
+    args = ap.parse_args(argv)
+
+    # The whole engine run is one span under the handed-down context,
+    # flushed back to the daemon on exit so `dyno selftrace` shows
+    # capture -> diff -> report under one trace-id.
+    ctx = obs.from_env() or obs.current()
+    try:
+        with obs.span("diagnose.engine", ctx=ctx):
+            return _run(args)
+    finally:
+        obs.maybe_flush_env()
+
+
+def _run(args) -> int:
+    if args.ring:
+        target = newest_ring_profile(args.ring, args.model)
+        if not target:
+            print(f"no ring profiles under {args.ring}", file=sys.stderr)
+            return 1
+        print(f"ring: diagnosing {target}", file=sys.stderr)
+    else:
+        target = args.target
+    if not target:
+        print("target (or --ring) required", file=sys.stderr)
+        return 2
+    try:
+        with obs.span("diagnose.load"):
+            cur_summary, cur_meta = resolve_summary(target)
+    except (OSError, ValueError, json.JSONDecodeError) as e:
+        print(f"cannot load target: {e}", file=sys.stderr)
+        return 1
+    if args.save_baseline:
+        if not cur_summary.get("planes"):
+            print("refusing to save an empty baseline (no planes in "
+                  "target)", file=sys.stderr)
+            return 1
+        save_baseline(
+            args.save_baseline, cur_summary, model=args.model,
+            source=cur_meta.get("target", ""))
+        print(f"baseline saved -> {args.save_baseline}")
+        return 0
+    if not args.baseline:
+        print("--baseline (or --save-baseline) required", file=sys.stderr)
+        return 2
+    try:
+        with obs.span("diagnose.load"):
+            base_summary, base_meta = resolve_summary(args.baseline)
+    except (OSError, ValueError, json.JSONDecodeError) as e:
+        print(f"cannot load baseline: {e}", file=sys.stderr)
+        return 1
+    report = diagnose(base_summary, cur_summary, top=args.top)
+    report["target"] = cur_meta
+    report["baseline"] = base_meta
+    if cur_meta.get("trace_ctx"):
+        report["trace_ctx"] = cur_meta["trace_ctx"]
+    report["created_ms"] = int(time.time() * 1000)
+    if args.out:
+        stream_write(
+            args.out, [json.dumps(report, indent=1).encode()])
+    if args.json:
+        print(json.dumps(report))
+    else:
+        print(format_report(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

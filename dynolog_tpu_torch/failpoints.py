@@ -36,6 +36,10 @@ Instrumented sites (see docs/RELIABILITY.md for the catalog)::
 
     shim.run_trace        TraceClient capture path (poll-loop containment)
     trace.artifact.write  the capture manifest's atomic write
+    shim.export_spawn     starting a capture's summary child (error: the
+                          capture completes without a summary)
+    trace.convert         the summary child's entry (throw: the child dies
+                          the way a crash kills it)
 
 Cost when unarmed: one falsy dict check per site.
 """

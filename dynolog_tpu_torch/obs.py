@@ -12,6 +12,10 @@ port imports nothing of the JAX package:
   context manager that times a section and records it. The shim flushes
   the ring to the daemon over the fire-and-forget ``"span"`` IPC datagram,
   so ``dyno selftrace`` shows the daemon's and the shim's spans together.
+- ``from_env`` / ``flush_spans`` / ``maybe_flush_env``: how a child process
+  (the diagnose CLI, the shim's summary child) joins the request that
+  started it. It reads its parent's context from ``$DYNO_TRACE_CTX`` and
+  flushes its spans to the daemon named by ``$DYNO_OBS_ENDPOINT`` on exit.
 
 Stdlib only, and injectable (``now``), so tests drive time synthetically.
 """
@@ -29,6 +33,10 @@ from dataclasses import dataclass, field
 # The on-demand config key carrying the context daemon -> shim
 # (src/core/SpanJournal.h kTraceContextConfigKey).
 CONFIG_KEY = "TRACE_CONTEXT"
+# Environment hand-off to child processes: the parent's context, and the
+# daemon IPC endpoint the child flushes its spans to.
+ENV_TRACE_CTX = "DYNO_TRACE_CTX"
+ENV_FLUSH_ENDPOINT = "DYNO_OBS_ENDPOINT"
 # Wire limit for span names (src/tracing/IPCMonitor.h ClientSpan.name,
 # NUL terminator included).
 NAME_BYTES = 48
@@ -126,6 +134,12 @@ def current() -> TraceContext | None:
     return _current.get()
 
 
+def from_env(environ=None) -> TraceContext | None:
+    """Context handed to this process via $DYNO_TRACE_CTX (a child
+    process's inheritance path)."""
+    return TraceContext.parse((environ or os.environ).get(ENV_TRACE_CTX, ""))
+
+
 @contextlib.contextmanager
 def span(
     name: str,
@@ -155,3 +169,32 @@ def span(
         _current.reset(token)
         rec.dur_us = max(int(now() * 1e6) - rec.start_us, 0)
         (journal if journal is not None else JOURNAL).record(rec)
+
+
+def flush_spans(
+    endpoint: str, journal: SpanJournal | None = None
+) -> int:
+    """Drains the journal and sends each span to the daemon's IPC
+    endpoint as a fire-and-forget "span" datagram (the daemon merges
+    them into its own ring for `selftrace`). Best-effort: a dead daemon
+    costs nothing but the drained spans. Returns the count sent."""
+    journal = journal if journal is not None else JOURNAL
+    spans = journal.drain()
+    if not spans:
+        return 0
+    from dynolog_tpu_torch.client import ipc  # lazy: obs stays stdlib-only
+
+    try:
+        with ipc.IpcClient() as client:
+            return client.send_spans(spans, dest=endpoint)
+    except OSError:
+        return 0  # no socket dir / bind failure: self-tracing is best-effort
+
+
+def maybe_flush_env(journal: SpanJournal | None = None) -> int:
+    """flush_spans() toward $DYNO_OBS_ENDPOINT when set (a child
+    process's exit path); no-op otherwise."""
+    endpoint = os.environ.get(ENV_FLUSH_ENDPOINT)
+    if not endpoint:
+        return 0
+    return flush_spans(endpoint, journal)

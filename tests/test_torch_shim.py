@@ -17,7 +17,7 @@ from dynolog_tpu import obs as jax_obs
 from dynolog_tpu.client import ipc as jax_ipc
 from dynolog_tpu.client.shim import TraceConfig as JaxTraceConfig
 from dynolog_tpu_torch.client import TorchProfiler, TraceClient, TraceConfig
-from dynolog_tpu_torch import obs
+from dynolog_tpu_torch import failpoints, obs, trace
 from dynolog_tpu_torch.client import ipc
 from dynolog_tpu_torch.client.shim import sweep_stale_artifacts
 from dynolog_tpu_torch.models.train import (
@@ -33,17 +33,19 @@ def _events(path):
         return json.load(f)["traceEvents"]
 
 
-def _drive(client, cfg_text, work, max_steps=200):
+def _drive(client, cfg_text, work, timeout_s=60.0):
     """Runs `cfg_text`'s capture as the poll thread would, while this
-    (training) thread does `work` and calls step()."""
+    (training) thread does `work` and calls step() until the capture
+    ends. Each step yields the GIL, so a fast `work` cannot run its steps
+    out before the capture thread has armed its window."""
     runner = threading.Thread(
         target=client._run_trace, args=(TraceConfig.parse(cfg_text),))
     runner.start()
-    steps = 0
-    while runner.is_alive() and steps < max_steps:
+    deadline = time.time() + timeout_s
+    while runner.is_alive() and time.time() < deadline:
         work()
         client.step()
-        steps += 1
+        time.sleep(0.001)
     runner.join(timeout=30)
     assert not runner.is_alive()
 
@@ -94,6 +96,49 @@ def test_duration_capture_of_train_steps(offline_client, tmp_path):
     assert manifest["mode"] == "duration" and manifest["status"] == "ok"
     names = {e.get("name") for e in _events(manifest["trace_file"])}
     assert "aten::mm" in names
+
+
+def _wait_for(path, timeout_s=60.0):
+    deadline = time.time() + timeout_s
+    while not os.path.exists(path) and time.time() < deadline:
+        time.sleep(0.05)
+    return os.path.exists(path)
+
+
+def test_summary_child_writes_summary_after_manifest(offline_client,
+                                                     tmp_path):
+    """A completed capture gets <run>.summary.json from a child process,
+    after its manifest: the summary is trace.summarize() of the trace."""
+    a = torch.randn(32, 32)
+    _drive(offline_client,
+           f"ACTIVITIES_LOG_FILE={tmp_path / 's.json'}\n"
+           "ACTIVITIES_ITERATIONS=3", lambda: (a @ a).sum())
+    assert offline_client.traces_completed == 1, offline_client.last_error
+    manifest_path = tmp_path / f"s_{os.getpid()}.json"
+    trace_file = offline_client.last_manifest["trace_file"]
+    summary_path = trace_file[: -len(trace.TRACE_SUFFIX)] + (
+        trace.SUMMARY_SUFFIX)
+    assert _wait_for(summary_path), "no summary within 60 s"
+    [proc] = offline_client.summary_procs
+    assert proc.wait(timeout=30) == 0
+    assert os.path.getmtime(manifest_path) <= os.path.getmtime(summary_path)
+    summary = json.loads(open(summary_path).read())
+    assert summary == trace.summarize(trace_file)
+    assert summary["steps"]["count"] == 3
+
+
+def test_capture_completes_without_summary_child(offline_client, tmp_path):
+    failpoints.arm("shim.export_spawn", "error*1")
+    try:
+        a = torch.randn(16, 16)
+        _drive(offline_client,
+               f"ACTIVITIES_LOG_FILE={tmp_path / 'n.json'}\n"
+               "ACTIVITIES_ITERATIONS=2", lambda: (a @ a).sum())
+    finally:
+        failpoints.disarm("shim.export_spawn")
+    assert offline_client.traces_completed == 1, offline_client.last_error
+    assert offline_client.last_manifest["status"] == "ok"
+    assert not offline_client.summary_procs
 
 
 def test_capture_aborts_when_app_never_steps(tmp_path):
