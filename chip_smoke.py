@@ -41,21 +41,38 @@ if any phase fails:
    profile names the three flash kernels and diagnoses against the
    baseline;
 9. exporter: NVML's snapshot for the daemon's file backend, read back
-   through a second dynologd with `dyno query`.
+   through a second dynologd with `dyno query`;
+10. MoE trainer: the dense trainer freed, the MoE family at the same
+   widths with Mixtral-8x7B's 8 experts and top-2 routing (capacity
+   factor 1.25), 2 layers, bf16, flash attention, B=1, S=2048, trained
+   under a second daemon-triggered capture, whose summary must name the
+   three flash kernels at their call counts and read the expert GEMMs as
+   `matmul`;
+11. collectives: the NCCL probe (python -m dynolog_tpu_torch.collectives,
+   one process per card) merged into phase 9's snapshot, and
+   collective_mesh_devices and ici_all_reduce_us read back through
+   `dyno query`;
 
-The launch counters are zeroed just before the main path (phases 4-5)
-and read just after; phases 7 and 8 drive the trainer again, each with
-the counters zeroed before it and read after it. The last lines are the
-card's name and power limit, a JSON object with one entry per kernel
-(launches from phases 4-5), and {"ok": true, "device": ...}.
+then, with two cards or more, one expert-parallel train step over NCCL
+held against the one-process loss (with one card it is logged as not
+run: NCCL cannot place two ranks on one card).
+
+The launch counters are zeroed just before each main path (phases 4-5,
+the dense trainer; phase 10, the MoE trainer) and read just after;
+phases 7 and 8 drive the dense trainer again, each with the counters
+zeroed before it and read after it. The last lines are the card's name
+and power limit, a JSON object with one entry per kernel (launches from
+phases 4-5 and 10), and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
 
+import gc
 import importlib
 import json
 import math
 import os
+import re
 import select
 import shutil
 import socket
@@ -105,6 +122,15 @@ SOURCES = {
 BWD_F32_REL_L2 = 5e-3
 SLICE = dict(b=1, s=2048, h=32, d=128)
 N_LAYERS = 2
+# Phase 10: Mixtral-8x7B's routing (8 experts, top 2) at the same widths.
+MOE = dict(n_experts=8, moe_top_k=2)
+# The expert-parallel check on two cards or more: f32 (the CUDA-core flash
+# kernels, TF32 off) at a width where the one-process step fits beside
+# it; loss tolerance 1e-4 (f32 sums split over ranks, in another order).
+EP_CFG = dict(vocab_size=4096, d_model=512, n_layers=2, n_heads=8, d_ff=1024,
+              max_seq_len=512, attn_impl="flash", dtype="float32",
+              n_experts=8, moe_top_k=2)
+EP_BATCH, EP_SEQ, EP_LOSS_TOL = 4, 256, 1e-4
 STEPS = 5  # uncaptured, timed train steps before the capture
 ITERATIONS = 2  # steps per daemon-triggered capture
 # The capture latency (RPC -> manifest) of earlier runs of this script on
@@ -688,9 +714,10 @@ def wait_for(path: Path, deadline: float) -> bool:
     return path.exists()
 
 
-def phase_summary(cap: dict, results: dict, n_layers: int) -> None:
-    """The phase-5 capture through the port's summarizer, and the summary
-    the shim's child wrote beside it."""
+def phase_summary(cap: dict, results: dict, n_layers: int) -> dict:
+    """A capture (phase 5's, or phase 10's) through the port's
+    summarizer, and the summary the shim's child wrote beside it; returns
+    the summary."""
     from dynolog_tpu_torch import diagnose, trace
 
     manifest = cap["manifest"]
@@ -758,6 +785,7 @@ def phase_summary(cap: dict, results: dict, n_layers: int) -> None:
         f"{after:.2f} s after the manifest; capture latency RPC->manifest "
         f"{cap['latency_ms']:.0f} ms (earlier runs: {EARLIER_LATENCY_MS} "
         "ms)")
+    return summary
 
 
 def run_cli(args: list[str], timeout: float = 300):
@@ -866,9 +894,9 @@ def phase_ring(F, daemon, trainer, tmp: Path, base: Path) -> None:
     log("  " + out.stdout.splitlines()[0])
 
 
-def phase_exporter(tmp: Path) -> None:
+def phase_exporter(tmp: Path) -> Path:
     """NVML's snapshot for the daemon's file backend, read back through a
-    second dynologd with `dyno query`."""
+    second dynologd with `dyno query`; returns the snapshot's path."""
     from dynolog_tpu_torch._torchinit import probe_backend
 
     err = probe_backend(timeout_s=120)
@@ -891,27 +919,180 @@ def phase_exporter(tmp: Path) -> None:
     if abs(total - want) > 0.01 * want:
         raise AssertionError(f"hbm_total_bytes {total} is not within 1% of "
                              f"{want}")
+    got = query_snapshot(snap, ["tpu0.hbm_total_bytes"])
+    if got["tpu0.hbm_total_bytes"] != total:
+        raise AssertionError(f"dyno query: {got}")
+    log(f"  dyno query tpu0.hbm_total_bytes -> {got['tpu0.hbm_total_bytes']:.0f}")
+    return snap
+
+
+def query_snapshot(snap: Path, names: list[str]) -> dict:
+    """The last value of each `names` metric that a dynologd reading
+    `snap` through its file backend returns to `dyno query`."""
     daemon = Daemon(extra_flags=(
         "--enable_tpu_monitor", "--tpu_metric_backend=file",
         f"--tpu_metrics_file={snap}", "--tpu_monitor_reporting_interval_s=1"))
+    got, text = {}, ""
     try:
-        deadline, values, text = time.time() + 20, None, ""
-        while not values and time.time() < deadline:
+        deadline = time.time() + 20
+        while len(got) < len(names) and time.time() < deadline:
             time.sleep(0.5)
             q = subprocess.run(
                 [str(BIN_DIR / "dyno"), f"--port={daemon.port}", "query",
-                 "--metrics=tpu0.hbm_total_bytes"],
+                 "--metrics=" + ",".join(names)],
                 capture_output=True, text=True, timeout=30)
             text = q.stdout.strip()
             if q.returncode == 0 and "response = " in text:
                 resp = json.loads(text.split("response = ", 1)[1])
-                values = (resp.get("metrics", {})
-                          .get("tpu0.hbm_total_bytes", {}).get("values"))
+                for name in names:
+                    values = (resp.get("metrics", {}).get(name, {})
+                              .get("values"))
+                    if values:
+                        got[name] = values[-1]
     finally:
         daemon.stop()
-    if not values or values[-1] != total:
-        raise AssertionError(f"dyno query: {text[-1000:]}")
-    log(f"  dyno query tpu0.hbm_total_bytes -> {values[-1]:.0f}")
+    if len(got) < len(names):
+        raise AssertionError(f"dyno query of {names}: {text[-1000:]}")
+    return got
+
+
+def expert_gemm_rows(summary: dict, n_experts: int) -> list[dict]:
+    """The summary's kernel rows launched by a batched product over the
+    experts: two [E, a, b] x [E, b, c] operands (the expert SwiGLU's
+    einsums and their gradients). The memsets and copies such an op
+    launches beside its GEMM are not kernels and are left out."""
+    rows = []
+    for row in summary["top_ops"]:
+        if row["op"].startswith(("Memset", "Memcpy")):
+            continue
+        for shape in row.get("shapes", []):
+            dims = [[int(x) for x in d.split(",")]
+                    for d in re.findall(r"\[([\d,]+)\]", shape)]
+            if (len(dims) == 2 and len(dims[0]) == len(dims[1]) == 3
+                    and dims[0][0] == dims[1][0] == n_experts
+                    and dims[0][2] == dims[1][1]):
+                rows.append(row)
+                break
+    return rows
+
+
+def phase_moe(F, daemon, tmp: Path, results: dict) -> dict:
+    """Phase 10: the MoE trainer at Llama-3-8B widths under a
+    daemon-triggered capture, summarized; returns its launch counts."""
+    from dynolog_tpu_torch import diagnose
+    from dynolog_tpu_torch.client import TraceClient
+    from dynolog_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig.llama_8b_like(
+        n_layers=N_LAYERS, attn_impl="flash", dtype="bfloat16", **MOE)
+    log(f"  {cfg.n_experts} experts, top-{cfg.moe_top_k}, capacity factor "
+        f"{cfg.moe_capacity_factor}")
+    trainer = Trainer(cfg)
+    job_id = 4700 + os.getpid() % 1000
+    moe_tmp = tmp / "moe"
+    moe_tmp.mkdir()
+    client = TraceClient(job_id=job_id, endpoint=daemon.endpoint,
+                         poll_interval_s=0.2, report_interval_s=1.0)
+    if not client.start():
+        raise RuntimeError("the MoE trainer's shim could not register")
+    try:
+        cap = phase_train_and_capture(F, daemon, trainer, client, job_id,
+                                      moe_tmp, STEPS)
+        summary = phase_summary(cap, results, cfg.n_layers)
+    finally:
+        client.stop()
+        for proc in client.summary_procs:
+            proc.wait(timeout=120)
+    rows = expert_gemm_rows(summary, cfg.n_experts)
+    if not rows:
+        raise AssertionError("no expert GEMM ([E, a, b] x [E, b, c]) row in "
+                             "the MoE capture's summary")
+    for row in rows:
+        log(f"  expert GEMM: {row['op'][:70]} {row['total_ms']:.3f} ms x "
+            f"{row['count']} {row['shapes']} -> "
+            f"{diagnose.classify_op(row['op'])}")
+    wrong = [r["op"] for r in rows if diagnose.classify_op(r["op"]) != "matmul"]
+    if wrong:
+        raise AssertionError(f"expert GEMMs not read as matmul: {wrong}")
+    return cap["counts"]
+
+
+def phase_collectives(snap: Path) -> None:
+    """Phase 11: the NCCL probe merged into phase 9's snapshot and read
+    back through `dyno query`."""
+    out = run_cli(["-m", "dynolog_tpu_torch.collectives", "--merge-into",
+                   str(snap)], timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"collectives: rc {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    metrics = json.loads(snap.read_text())["devices"][0]["metrics"]
+    probe = {k: v for k, v in metrics.items()
+             if k.startswith("ici_") or k == "collective_mesh_devices"}
+    log(f"  {probe}")
+    n = torch.cuda.device_count()
+    if probe.get("collective_mesh_devices") != n:
+        raise AssertionError(f"collective_mesh_devices is not {n}: {probe}")
+    if (n > 1) != ("ici_all_reduce_gbps" in probe):
+        raise AssertionError(f"bandwidth keys with {n} card(s): {probe}")
+    names = ["tpu0.collective_mesh_devices", "tpu0.ici_all_reduce_us"]
+    got = query_snapshot(snap, names)
+    # Doubles through the daemon's JSON.
+    if not all(math.isclose(got[f"tpu0.{k}"], probe[k], rel_tol=1e-5)
+               for k in ("collective_mesh_devices", "ici_all_reduce_us")):
+        raise AssertionError(f"dyno query returned {got} for {probe}")
+    log(f"  dyno query {got}")
+
+
+def _ep_rank(rank: int, world: int, spec: dict) -> float:
+    """One rank of the multi-card check: one expert-parallel train step
+    from seed 0 on the global batch of seed 1; returns the loss."""
+    from dynolog_tpu_torch.models.train import (
+        make_batch, make_train_state, make_train_step)
+    from dynolog_tpu_torch.models.transformer import TransformerConfig
+    from dynolog_tpu_torch.parallel.sharding import MeshSpec, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(MeshSpec(**spec))
+    cfg = TransformerConfig(**EP_CFG)
+    params, opt = make_train_state(
+        cfg, "cuda", torch.Generator(device="cuda").manual_seed(0), mesh=mesh)
+    tokens = make_batch(torch.Generator(device="cuda").manual_seed(1), cfg,
+                        EP_BATCH, EP_SEQ)
+    return float(make_train_step(cfg, mesh)(params, opt, tokens))
+
+
+def phase_multicard_ep() -> str:
+    """With two cards or more, one expert-parallel step over NCCL held
+    against the one-process step; returns what ran."""
+    from dynolog_tpu_torch.models.train import (
+        make_batch, make_train_state, make_train_step)
+    from dynolog_tpu_torch.models.transformer import TransformerConfig
+    from dynolog_tpu_torch.parallel.launch import spawn
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        msg = ("not run: 1 card (NCCL cannot place two ranks on one card); "
+               "the gloo CPU tests cover expert parallelism")
+        log(f"  multi-card EP: {msg}")
+        return msg
+    world = 4 if n >= 4 else 2
+    spec = {"data": world // 2, "expert": 2}
+    t0 = time.time()
+    losses = spawn(_ep_rank, world, "nccl", (spec,), timeout_s=300)
+    cfg = TransformerConfig(**EP_CFG)
+    params, opt = make_train_state(
+        cfg, "cuda", torch.Generator(device="cuda").manual_seed(0))
+    tokens = make_batch(torch.Generator(device="cuda").manual_seed(1), cfg,
+                        EP_BATCH, EP_SEQ)
+    one = float(make_train_step(cfg)(params, opt, tokens))
+    err = max(abs(x - one) for x in losses)
+    msg = (f"ran on {world} cards, mesh {spec}: losses {losses} against "
+           f"the one-process {one} (max err {err:.3g}, tolerance "
+           f"{EP_LOSS_TOL}) in {time.time() - t0:.1f} s")
+    log(f"  multi-card EP: {msg}")
+    if not err <= EP_LOSS_TOL:
+        raise AssertionError(f"expert-parallel loss disagrees: {msg}")
+    return msg
 
 
 def main() -> int:
@@ -987,7 +1168,18 @@ def main() -> int:
         log("phase 8: capture ring")
         phase_ring(F, daemon, trainer, tmp, base)
         log("phase 9: exporter to the daemon's file backend")
-        phase_exporter(tmp)
+        snap = phase_exporter(tmp)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("phase 10: MoE trainer under a daemon-triggered capture")
+        moe_counts = phase_moe(F, daemon, tmp, results)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("phase 11: NCCL collective probe to the daemon's file backend")
+        phase_collectives(snap)
+        log("multi-card expert parallelism")
+        phase_multicard_ep()
         shutil.rmtree(tmp, ignore_errors=True)
     except Exception:  # noqa: BLE001 - any phase failing fails the run
         traceback.print_exc()
@@ -1002,7 +1194,8 @@ def main() -> int:
     for name, r in results.items():
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": counts[name],
+            "replaces": REPLACES[name],
+            "launches": counts[name] + moe_counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

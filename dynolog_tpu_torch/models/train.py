@@ -1,20 +1,28 @@
 """Training step for the flagship workload: AdamW over the transformer of
-``models.transformer``, the counterpart of ``dynolog_tpu/models/train.py``
-on one device.
+``models.transformer``, the counterpart of ``dynolog_tpu/models/train.py``.
 
 The JAX step is a pure function returning new parameters and optimizer
 state. This one updates the parameters and the optimizer's state in
 place (PyTorch's idiom; it keeps one copy of each in device memory) and
 returns only the loss.
+
+Under a mesh (``parallel.sharding.make_mesh``, axes `data` and `expert`)
+every process calls the same step on the same global batch; each trains
+its data shard of it with its slice of the parameters, and the step
+computes the JAX package's global function: the loss of the whole batch
+and, for each leaf, the gradient of that loss.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from dynolog_tpu_torch import resolve_device
 from dynolog_tpu_torch.models.transformer import (
     TransformerConfig, init_params, loss_fn, param_leaves)
+from dynolog_tpu_torch.parallel.sharding import (
+    axis, check_mesh, local_batch, shard_params)
 
 
 def make_optimizer(params: dict, lr: float = 3e-4) -> torch.optim.AdamW:
@@ -27,24 +35,51 @@ def make_optimizer(params: dict, lr: float = 3e-4) -> torch.optim.AdamW:
 
 def make_train_state(cfg: TransformerConfig, device="cuda",
                      generator: torch.Generator | None = None,
-                     lr: float = 3e-4):
-    """(params, optimizer) on `device`, parameters drawn with `generator`."""
+                     lr: float = 3e-4, mesh=None):
+    """(params, optimizer) on `device`, parameters drawn with `generator`.
+    With a mesh, every process draws the whole tree from the same seed and
+    keeps its slice (``shard_params``)."""
     params = init_params(cfg, device, generator)
+    if mesh is not None:
+        params = shard_params(params, mesh)
     return params, make_optimizer(params, lr)
 
 
-def make_train_step(cfg: TransformerConfig):
+def _mean_over_data(tensors: list, mesh) -> None:
+    """Each tensor replaced in place by its mean over `data`."""
+    size, _, group = axis(mesh, "data")
+    if group is None:
+        return
+    for t in tensors:
+        dist.all_reduce(t, group=group)
+        t.div_(size)
+
+
+def make_train_step(cfg: TransformerConfig, mesh=None):
     """Returns step(params, optimizer, tokens) -> loss. The step updates
     `params` and the optimizer state IN PLACE (unlike the JAX package's
     pure step) and returns the loss as a 0-dim tensor on the device, not
-    synchronised."""
+    synchronised.
+
+    With a mesh, `tokens` is the global batch (the same on every process)
+    and the loss returned is the global batch's. Each rank's loss is its
+    data row's, so the gradients and the loss are averaged over `data`:
+    expert leaves among the ranks that hold the same experts, and the
+    replicated leaves come out equal over `expert`."""
+    check_mesh(mesh)
 
     def step(params, optimizer, tokens):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, tokens, cfg)
+        if mesh is not None:
+            tokens = local_batch(tokens, mesh)
+        loss = loss_fn(params, tokens, cfg, mesh)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            _mean_over_data([p.grad for p in param_leaves(params)] + [loss],
+                            mesh)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 

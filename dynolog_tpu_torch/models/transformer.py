@@ -6,10 +6,12 @@ order, so the JAX package's weights convert without transposes
 
 Parameters are a plain dict of leaf tensors mirroring the reference's
 pytree: {embedding, w_out, final_scale, layers: [{attn_scale, wq, wk, wv,
-wo, mlp_scale, w_gate, w_up, w_down}, ...]}.
+wo, mlp_scale, w_gate, w_up, w_down}, ...]}; with n_experts > 0 the MoE
+leaves {router, experts_gate, experts_up, experts_down} of
+``models.moe`` take the place of w_gate, w_up and w_down.
 
 This is a *workload*, not a modeling library: the monitoring framework
-only observes it. MoE and ring attention are not ported yet.
+only observes it. Ring attention is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from dynolog_tpu_torch import resolve_device
+from dynolog_tpu_torch.models.moe import init_moe_layer, moe_mlp
 from dynolog_tpu_torch.ops.flash_attention import (
     flash_attention, reference_attention)
 
@@ -38,8 +41,9 @@ class TransformerConfig:
     # "reference": plain attention; "flash": the CUDA flash kernels
     # (dynolog_tpu_torch.ops.flash_attention). "ring" is not ported yet.
     attn_impl: str = "reference"
-    # MoE (n_experts > 0) is not ported yet; the fields stay so configs
-    # carry over from the JAX package unchanged.
+    # MoE: n_experts > 0 replaces every dense MLP with a top-k-routed
+    # mixture of SwiGLU experts (models.moe), expert-parallel over the
+    # mesh's `expert` axis.
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -69,8 +73,6 @@ class TransformerConfig:
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE layers are not ported to PyTorch yet")
     if cfg.attn_impl == "ring":
         raise NotImplementedError("ring attention is not ported to PyTorch yet")
     if cfg.attn_impl not in ("reference", "flash"):
@@ -81,7 +83,8 @@ def init_params(cfg: TransformerConfig, device="cuda",
                 generator: torch.Generator | None = None) -> dict:
     """Random parameters in the reference's tree and layout, drawn with
     `generator` (which must live on `device`): normal / sqrt(fan_in) drawn
-    in f32, then cast to cfg.dtype, as the reference draws them. The
+    in f32, then cast to cfg.dtype (the MoE router stays f32), as the
+    reference draws them. The
     numbers differ from the JAX package's (another generator); tests
     convert the JAX package's parameters instead."""
     check_supported(cfg)
@@ -103,17 +106,23 @@ def init_params(cfg: TransformerConfig, device="cuda",
         "layers": [],
     }
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        layer = {
             "attn_scale": ones(d),
             "wq": dense((d, d), d),
             "wk": dense((d, d), d),
             "wv": dense((d, d), d),
             "wo": dense((d, d), d),
             "mlp_scale": ones(d),
-            "w_gate": dense((d, f), d),
-            "w_up": dense((d, f), d),
-            "w_down": dense((f, d), f),
-        })
+        }
+        if cfg.n_experts > 0:
+            layer.update(init_moe_layer(cfg, device, generator))
+        else:
+            layer.update({
+                "w_gate": dense((d, f), d),
+                "w_up": dense((d, f), d),
+                "w_down": dense((f, d), f),
+            })
+        params["layers"].append(layer)
     for p in param_leaves(params):
         p.requires_grad_(True)
     return params
@@ -168,26 +177,49 @@ def _mlp(layer, x):
     return (gate * (x @ layer["w_up"])) @ layer["w_down"]
 
 
-def forward(params, tokens, cfg: TransformerConfig):
-    """tokens [B, S] int -> logits [B, S, vocab] float32."""
+def _forward_with_aux(params, tokens, cfg: TransformerConfig, mesh=None):
+    """tokens [B, S] int -> (logits [B, S, vocab] f32, MoE aux loss summed
+    over the layers, f32 scalar)."""
     check_supported(cfg)
     x = params["embedding"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     positions = positions.expand(tokens.shape)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer in params["layers"]:
         x = x + _attention(layer, _rmsnorm(x, layer["attn_scale"]),
                            positions, cfg)
-        x = x + _mlp(layer, _rmsnorm(x, layer["mlp_scale"]))
+        h = _rmsnorm(x, layer["mlp_scale"])
+        if cfg.n_experts > 0:
+            y, layer_aux = moe_mlp(layer, h, cfg, mesh)
+            aux = aux + layer_aux
+        else:
+            y = _mlp(layer, h)
+        x = x + y
     x = _rmsnorm(x, params["final_scale"])
-    return (x @ params["w_out"]).float()
+    return (x @ params["w_out"]).float(), aux
 
 
-def loss_fn(params, tokens, cfg: TransformerConfig):
+def forward(params, tokens, cfg: TransformerConfig):
+    """tokens [B, S] int -> logits [B, S, vocab] float32."""
+    return _forward_with_aux(params, tokens, cfg)[0]
+
+
+def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None):
     """Next-token cross entropy (tokens serve as their own shifted targets).
     The full [B, S] sequence is forwarded and the last-position logits
-    dropped afterwards, as the reference does."""
-    logits = forward(params, tokens, cfg)[:, :-1]
+    dropped afterwards, as the reference does. With MoE the Switch
+    load-balancing aux loss is added, scaled by cfg.moe_aux_weight / the
+    layer count.
+
+    Under a mesh, `tokens` and `params` are this rank's shards
+    (``parallel.sharding``) and the loss is its data shard's: the global
+    loss is its mean over `data` (``models.train`` takes it)."""
+    logits, aux = _forward_with_aux(params, tokens, cfg, mesh)
+    logits = logits[:, :-1]
     targets = tokens[:, 1:]
     logprobs = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logprobs, -1, targets[..., None])
-    return nll.mean()
+    loss = nll.mean()
+    if cfg.n_experts > 0:
+        loss = loss + cfg.moe_aux_weight * aux / cfg.n_layers
+    return loss

@@ -24,9 +24,11 @@ DIMS = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4, d_ff=64)
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (0.2, 2e-2)}
 
 
-def _setup(dtype, attn_impl):
-    jcfg = jtr.TransformerConfig(**DIMS, dtype=dtype, attn_impl=attn_impl)
-    tcfg = ttr.TransformerConfig(**DIMS, dtype=dtype, attn_impl=attn_impl)
+def _setup(dtype, attn_impl, n_experts=0):
+    jcfg = jtr.TransformerConfig(**DIMS, dtype=dtype, attn_impl=attn_impl,
+                                 n_experts=n_experts)
+    tcfg = ttr.TransformerConfig(**DIMS, dtype=dtype, attn_impl=attn_impl,
+                                 n_experts=n_experts)
     jparams = jtr.init_params(jax.random.PRNGKey(0), jcfg)
     tokens = jax_make_batch(jax.random.PRNGKey(1), jcfg, 2, 32)
     np_params = jax.tree_util.tree_map(np.asarray, jparams)
@@ -34,10 +36,12 @@ def _setup(dtype, attn_impl):
     return jcfg, tcfg, jparams, tparams, tokens
 
 
+@pytest.mark.parametrize("n_experts", [0, 4])
 @pytest.mark.parametrize("attn_impl", ["reference", "flash"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_logits_and_loss_match_jax(dtype, attn_impl):
-    jcfg, tcfg, jparams, tparams, tokens = _setup(dtype, attn_impl)
+def test_logits_and_loss_match_jax(dtype, attn_impl, n_experts):
+    jcfg, tcfg, jparams, tparams, tokens = _setup(dtype, attn_impl,
+                                                  n_experts)
     ttokens = torch.from_numpy(np.array(tokens)).long()
     logits_tol, loss_tol = TOL[dtype]
     with torch.no_grad():
@@ -62,6 +66,21 @@ def test_converted_params_keep_tree_and_values():
                 tl[name].detach().float().numpy(), np.asarray(jl[name], np.float32))
 
 
+def test_converted_router_stays_f32():
+    _, _, jparams, tparams, _ = _setup("bfloat16", "reference", n_experts=4)
+    for jl, tl in zip(jparams["layers"], tparams["layers"]):
+        assert set(tl) == set(jl) and "w_gate" not in tl
+        assert jl["router"].dtype == np.float32
+        assert tl["router"].dtype == torch.float32
+        np.testing.assert_array_equal(tl["router"].detach().numpy(),
+                                      np.asarray(jl["router"]))
+        for name in ("experts_gate", "experts_up", "experts_down"):
+            assert tl[name].dtype == torch.bfloat16 and tl[name].requires_grad
+    leaves = ttr.param_leaves(tparams)
+    assert len(leaves) == 3 + DIMS["n_layers"] * 10
+    assert sum(p.dtype == torch.float32 for p in leaves) == DIMS["n_layers"]
+
+
 def test_init_params_shapes_match_jax():
     cfg = ttr.TransformerConfig(**DIMS)
     params = ttr.init_params(cfg, "cpu", torch.Generator().manual_seed(0))
@@ -83,8 +102,7 @@ def test_llama_8b_like_matches_jax_widths():
     assert ttr.TransformerConfig.llama_8b_like(n_layers=2).d_model == 4096
 
 
-@pytest.mark.parametrize("overrides", [{"n_experts": 4},
-                                       {"attn_impl": "ring"}])
+@pytest.mark.parametrize("overrides", [{"attn_impl": "ring"}])
 def test_unported_features_raise(overrides):
     cfg = ttr.TransformerConfig(**DIMS, **overrides)
     with pytest.raises(NotImplementedError):

@@ -2,7 +2,9 @@
 the JAX package's make_train_step on the CPU, after 1 and 3 steps.
 
 Both start from the JAX package's init_params output (converted with
-params_from_jax) and train on the same token batch. Two checks per leaf:
+params_from_jax) and train on the same token batch, dense and MoE
+(n_experts=4, top-2; its router is f32 in both trees). Two checks per
+leaf:
 
 - its value, against an absolute tolerance;
 - its change from the initial value, against the JAX step's change:
@@ -49,11 +51,14 @@ def _leaves(tree):
     return out
 
 
+@pytest.mark.parametrize("n_experts", [0, 4])
 @pytest.mark.parametrize("n_steps", [1, 3])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_train_steps_match_jax(dtype, n_steps):
-    jcfg = jtr.TransformerConfig(**DIMS, dtype=dtype, attn_impl="flash")
-    tcfg = ttr.TransformerConfig(**DIMS, dtype=dtype, attn_impl="flash")
+def test_train_steps_match_jax(dtype, n_steps, n_experts):
+    jcfg = jtr.TransformerConfig(**DIMS, dtype=dtype, attn_impl="flash",
+                                 n_experts=n_experts)
+    tcfg = ttr.TransformerConfig(**DIMS, dtype=dtype, attn_impl="flash",
+                                 n_experts=n_experts)
     jparams, jopt = jtrain.make_train_state(jax.random.PRNGKey(0), jcfg)
     tokens = jtrain.make_batch(jax.random.PRNGKey(1), jcfg, 2, 16)
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
@@ -70,7 +75,9 @@ def test_train_steps_match_jax(dtype, n_steps):
     moved = 0.0
     for (name, ref), (_, got), p0 in zip(_leaves(jparams), _leaves(tparams),
                                          init):
-        assert got.dtype == tcfg.torch_dtype, name
+        # The MoE router is f32 in both trees, whatever the model's dtype.
+        assert got.dtype == (torch.float32 if name.endswith("router")
+                             else tcfg.torch_dtype), name
         got, ref = got.detach().float().numpy(), np.asarray(ref, np.float32)
         np.testing.assert_allclose(got, ref, rtol=0, atol=leaf_tol,
                                    err_msg=name)
