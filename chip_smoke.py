@@ -53,16 +53,22 @@ if any phase fails:
    collective_mesh_devices and ici_all_reduce_us read back through
    `dyno query`;
 
-then, with two cards or more, one expert-parallel train step over NCCL
-held against the one-process loss (with one card it is logged as not
-run: NCCL cannot place two ranks on one card).
+then, with two cards or more, phase 10's model trained expert-parallel
+over NCCL (data x expert, one process per card) for two steps, whose
+losses and, per leaf, gradient norm and projection after the first step
+are held against the same steps on one process (with one card it is
+logged as not run: NCCL cannot place two ranks on one card).
+`python3 chip_smoke.py --ep` builds the kernels and runs this check
+alone.
 
 The launch counters are zeroed just before each main path (phases 4-5,
-the dense trainer; phase 10, the MoE trainer) and read just after;
-phases 7 and 8 drive the dense trainer again, each with the counters
-zeroed before it and read after it. The last lines are the card's name
-and power limit, a JSON object with one entry per kernel (launches from
-phases 4-5 and 10), and {"ok": true, "device": ...}.
+the dense trainer; phase 10, the MoE trainer; in each expert-parallel
+rank, its steps) and read just after; phases 7 and 8 drive the dense
+trainer again, each with the counters zeroed before it and read after
+it. The last lines are the card's name and power limit, a JSON object
+with one entry per kernel (launches: phases 4-5 and 10 together, and in
+launches_by_path each path's own, with the expert-parallel ranks' total
+or null where it did not run), and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -76,6 +82,7 @@ import re
 import select
 import shutil
 import socket
+import statistics
 import struct
 import subprocess
 import sys
@@ -124,13 +131,15 @@ SLICE = dict(b=1, s=2048, h=32, d=128)
 N_LAYERS = 2
 # Phase 10: Mixtral-8x7B's routing (8 experts, top 2) at the same widths.
 MOE = dict(n_experts=8, moe_top_k=2)
-# The expert-parallel check on two cards or more: f32 (the CUDA-core flash
-# kernels, TF32 off) at a width where the one-process step fits beside
-# it; loss tolerance 1e-4 (f32 sums split over ranks, in another order).
-EP_CFG = dict(vocab_size=4096, d_model=512, n_layers=2, n_heads=8, d_ff=1024,
-              max_seq_len=512, attn_impl="flash", dtype="float32",
-              n_experts=8, moe_top_k=2)
-EP_BATCH, EP_SEQ, EP_LOSS_TOL = 4, 256, 1e-4
+# The expert-parallel check on two cards or more trains phase 10's model,
+# one row of S=2048 per `data` rank, for EP_STEPS steps on each side, and
+# holds the losses (the second follows the first update) and each leaf's
+# gradient after the first step to the one-process run
+# (phase_multicard_ep). EP_TOL is JAX's own tolerance for a sharded bf16
+# loss, relative for a gradient norm: a gradient summed once too often or
+# not averaged over `data` moves a norm by a factor, not by a few bf16
+# roundings.
+EP_STEPS, EP_TOL = 2, 2e-2
 STEPS = 5  # uncaptured, timed train steps before the capture
 ITERATIONS = 2  # steps per daemon-triggered capture
 # The capture latency (RPC -> manifest) of earlier runs of this script on
@@ -727,28 +736,39 @@ def phase_summary(cap: dict, results: dict, n_layers: int) -> dict:
     planes = [p["name"] for p in summary["planes"]]
     if "/device:GPU:0" not in planes:
         raise AssertionError(f"no device plane in the summary: {planes}")
+    with open(manifest["trace_file"]) as f:
+        events = json.load(f)["traceEvents"]
     want = n_layers * ITERATIONS
+    # Each kernel's row holds every call of it in the trace, at the calls'
+    # total time; the median call, robust to one call stretched by the
+    # card, is about the phase-3 median.
     for name, row in flash_rows(summary).items():
         if row is None:
             raise AssertionError(f"flash_tc::{name}_kernel<128> is not in "
                                  "the summary")
-        per_call = row["total_ms"] / row["count"]
-        ratio = per_call / results[name]["ms"]
-        log(f"  {name}: {row['count']} calls, {per_call:.4f} ms a call in "
-            f"the trace, {ratio:.2f}x its phase-3 median "
-            f"{results[name]['ms']:.4f} ms")
-        if row["count"] != want or not 0.5 <= ratio <= 2.0:
+        calls = [e["dur"] / 1e3 for e in events if e.get("cat") == "kernel"
+                 and f"flash_tc::{name}_kernel<128>" in e.get("name", "")]
+        median = statistics.median(calls) if calls else math.nan
+        ratio = median / results[name]["ms"]
+        log(f"  {name}: {row['count']} calls, {row['total_ms']:.4f} ms in "
+            f"the summary; calls in the trace (ms) "
+            f"{[round(c, 4) for c in calls]}, median {ratio:.2f}x its "
+            f"phase-3 median {results[name]['ms']:.4f} ms")
+        if (row["count"] != want or len(calls) != want
+                or not math.isclose(row["total_ms"], sum(calls),
+                                    abs_tol=2e-3)
+                or not 0.5 <= ratio <= 2.0):
             raise AssertionError(
-                f"{name}: {row['count']} calls (want {want}), {per_call:.4f}"
-                f" ms a call against {results[name]['ms']:.4f} ms")
+                f"{name}: {row['count']} calls in the summary, "
+                f"{row['total_ms']:.4f} ms, and {calls} ms in the trace "
+                f"(want {want} calls, median about "
+                f"{results[name]['ms']:.4f} ms)")
     # The steps are the device's: about the uncaptured step's time.
     steps = summary.get("steps", {})
     if (steps.get("count") != ITERATIONS
             or not 0.5 <= steps["p50_ms"] / cap["step_ms"] <= 2.0):
         raise AssertionError(f"steps in the summary: {steps}, against a "
                              f"{cap['step_ms']:.1f} ms step")
-    with open(manifest["trace_file"]) as f:
-        events = json.load(f)["traceEvents"]
     cats: dict = {}
     for e in events:
         cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
@@ -981,10 +1001,8 @@ def phase_moe(F, daemon, tmp: Path, results: dict) -> dict:
     daemon-triggered capture, summarized; returns its launch counts."""
     from dynolog_tpu_torch import diagnose
     from dynolog_tpu_torch.client import TraceClient
-    from dynolog_tpu_torch.models.transformer import TransformerConfig
 
-    cfg = TransformerConfig.llama_8b_like(
-        n_layers=N_LAYERS, attn_impl="flash", dtype="bfloat16", **MOE)
+    cfg = moe_config()
     log(f"  {cfg.n_experts} experts, top-{cfg.moe_top_k}, capacity factor "
         f"{cfg.moe_capacity_factor}")
     trainer = Trainer(cfg)
@@ -1043,56 +1061,182 @@ def phase_collectives(snap: Path) -> None:
     log(f"  dyno query {got}")
 
 
-def _ep_rank(rank: int, world: int, spec: dict) -> float:
-    """One rank of the multi-card check: one expert-parallel train step
-    from seed 0 on the global batch of seed 1; returns the loss."""
+def moe_config():
+    """Phase 10's model: Llama-3-8B widths, 2 layers, Mixtral-8x7B's
+    routing, bf16, flash attention."""
+    from dynolog_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig.llama_8b_like(
+        n_layers=N_LAYERS, attn_impl="flash", dtype="bfloat16", **MOE)
+
+
+def named_leaves(params: dict) -> list:
+    """(path, leaf) in param_leaves' order, paths as PARAM_RULES reads
+    them ("layers/0/router")."""
+    out = [(name, params[name]) for name in ("embedding", "w_out",
+                                             "final_scale")]
+    for i, layer in enumerate(params["layers"]):
+        out += [(f"layers/{i}/{name}", layer[name]) for name in sorted(layer)]
+    return out
+
+
+def leaf_checks(path: str, grad: torch.Tensor, mesh, seed: int) -> tuple:
+    """(norm, projection) of a whole leaf's gradient, from this rank's
+    slice of it: the projection is its dot product with a N(0, 1) tensor
+    drawn from `seed` at the whole leaf's shape (this rank's block of it),
+    so it moves when an element changes sign or place, which the norm
+    does not see."""
+    import torch.distributed as dist
+
+    from dynolog_tpu_torch.parallel.sharding import axis, rule_for
+
+    g = grad.float()
+    sizes = [axis(mesh, name)[:2] if name else (1, 0)
+             for name in rule_for(path)]
+    whole = [n * size for n, (size, _) in zip(g.shape, sizes)]
+    r = torch.randn(whole + list(g.shape[len(whole):]), device=g.device,
+                    generator=torch.Generator(device=g.device).manual_seed(
+                        seed))
+    for dim, (size, rank) in enumerate(sizes):
+        r = r.narrow(dim, rank * g.shape[dim], g.shape[dim])
+    out = torch.stack([g.square().sum(), (g * r).sum()])
+    group = axis(mesh, "expert")[2]
+    if "expert" in rule_for(path) and group is not None:
+        dist.all_reduce(out, group=group)
+    return float(out[0].sqrt()), float(out[1])
+
+
+def ep_train(cfg, rows: int, mesh=None, device: str = "cuda",
+             seq: int = SLICE["s"]) -> dict:
+    """EP_STEPS train steps from seed 0 on the global batch of seed 1
+    (`rows` rows of `seq` tokens), on one process or, with `mesh`, on this
+    rank. Returns the losses, each whole leaf's gradient norm and
+    projection after the first step (``leaf_checks``), the launches
+    (zeroed just before the steps) and the peak memory (None off the
+    card)."""
     from dynolog_tpu_torch.models.train import (
         make_batch, make_train_state, make_train_step)
-    from dynolog_tpu_torch.models.transformer import TransformerConfig
+
+    F = importlib.import_module("dynolog_tpu_torch.ops.flash_attention")
+    cuda = torch.device(device).type == "cuda"
+    params, opt = make_train_state(
+        cfg, device, torch.Generator(device=device).manual_seed(0), mesh=mesh)
+    tokens = make_batch(torch.Generator(device=device).manual_seed(1), cfg,
+                        rows, seq, device)
+    step = make_train_step(cfg, mesh)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    F.reset_launches()
+    losses, leaves = [], {}
+    for i in range(EP_STEPS):
+        losses.append(float(step(params, opt, tokens)))
+        for n, (path, leaf) in enumerate(named_leaves(params) if i == 0
+                                         else ()):
+            leaves[path] = leaf_checks(path, leaf.grad, mesh, 2 + n)
+    return {"losses": losses, "leaves": leaves,
+            "launches": dict(F.launches),
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if cuda else None)}
+
+
+def _ep_rank(rank: int, world: int, spec: dict) -> dict:
+    """One rank of the multi-card check (ep_train under the mesh)."""
     from dynolog_tpu_torch.parallel.sharding import MeshSpec, make_mesh
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    mesh = make_mesh(MeshSpec(**spec))
-    cfg = TransformerConfig(**EP_CFG)
-    params, opt = make_train_state(
-        cfg, "cuda", torch.Generator(device="cuda").manual_seed(0), mesh=mesh)
-    tokens = make_batch(torch.Generator(device="cuda").manual_seed(1), cfg,
-                        EP_BATCH, EP_SEQ)
-    return float(make_train_step(cfg, mesh)(params, opt, tokens))
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 router
+    return ep_train(moe_config(), spec["data"], make_mesh(MeshSpec(**spec)))
 
 
-def phase_multicard_ep() -> str:
-    """With two cards or more, one expert-parallel step over NCCL held
-    against the one-process step; returns what ran."""
-    from dynolog_tpu_torch.models.train import (
-        make_batch, make_train_state, make_train_step)
-    from dynolog_tpu_torch.models.transformer import TransformerConfig
+def deviation(a: dict, b: dict) -> dict:
+    """How far ep_train's run `a` lies from run `b`: the loss difference
+    of each step and, over the leaves, the largest difference of the
+    gradient norm and of the projection, each over b's norm."""
+    out = {f"loss{i + 1}": abs(x - y)
+           for i, (x, y) in enumerate(zip(a["losses"], b["losses"]))}
+    for j, key in enumerate(("norm", "projection")):
+        out[key] = max(abs(a["leaves"][k][j] - v[j]) / v[0]
+                       for k, v in b["leaves"].items())
+    return out
+
+
+def phase_multicard_ep() -> dict | None:
+    """With two cards or more, EP_STEPS expert-parallel steps over NCCL
+    held against the same steps on one process; returns the ranks' total
+    launches, or None with one card.
+
+    The first loss and the gradient norms are held to EP_TOL. The second
+    loss and the projections are held to twice the distance between two
+    equivalent one-process runs that round differently (plain attention in
+    place of the kernels), measured in the same run, and at least EP_TOL:
+    at init the router's probabilities are near-uniform over the experts,
+    so a rounding flips tokens' top-2 choices and moves those numbers by
+    more than EP_TOL (on an H100 at 700 W, 0.087 for the second loss and
+    0.20 for a projection)."""
+    import dataclasses
+
     from dynolog_tpu_torch.parallel.launch import spawn
 
     n = torch.cuda.device_count()
     if n < 2:
-        msg = ("not run: 1 card (NCCL cannot place two ranks on one card); "
-               "the gloo CPU tests cover expert parallelism")
-        log(f"  multi-card EP: {msg}")
-        return msg
+        log("  multi-card EP: not run: 1 card (NCCL cannot place two ranks "
+            "on one card); the gloo CPU tests cover expert parallelism")
+        return None
     world = 4 if n >= 4 else 2
     spec = {"data": world // 2, "expert": 2}
+    cfg = moe_config()
     t0 = time.time()
-    losses = spawn(_ep_rank, world, "nccl", (spec,), timeout_s=300)
-    cfg = TransformerConfig(**EP_CFG)
-    params, opt = make_train_state(
-        cfg, "cuda", torch.Generator(device="cuda").manual_seed(0))
-    tokens = make_batch(torch.Generator(device="cuda").manual_seed(1), cfg,
-                        EP_BATCH, EP_SEQ)
-    one = float(make_train_step(cfg)(params, opt, tokens))
-    err = max(abs(x - one) for x in losses)
-    msg = (f"ran on {world} cards, mesh {spec}: losses {losses} against "
-           f"the one-process {one} (max err {err:.3g}, tolerance "
-           f"{EP_LOSS_TOL}) in {time.time() - t0:.1f} s")
-    log(f"  multi-card EP: {msg}")
-    if not err <= EP_LOSS_TOL:
-        raise AssertionError(f"expert-parallel loss disagrees: {msg}")
-    return msg
+    ranks = spawn(_ep_rank, world, "nccl", (spec,), timeout_s=300)
+    t_ranks = time.time() - t0
+    one = ep_train(cfg, spec["data"])
+    floor = deviation(
+        ep_train(dataclasses.replace(cfg, attn_impl="reference"),
+                 spec["data"]), one)
+    limits = {k: EP_TOL if k in ("loss1", "norm") else max(EP_TOL, 2 * v)
+              for k, v in floor.items()}
+    log(f"  one process: losses {one['losses']}; launches {one['launches']};"
+        f" peak memory {one['peak_gib']:.2f} GiB; {len(one['leaves'])} "
+        f"leaves; with plain attention {floor}; limits {limits}")
+    failures = []
+    for r, got in enumerate([one] + ranks):
+        who = "the one-process run" if r == 0 else f"rank {r - 1}"
+        short = {k: v for k, v in got["launches"].items()
+                 if v < cfg.n_layers * EP_STEPS}
+        if short:
+            failures.append(f"{who} launched {short} in {EP_STEPS} steps of "
+                            f"{cfg.n_layers} layers")
+    for r, got in enumerate(ranks):
+        dev = deviation(got, one)
+        log(f"  rank {r}: losses {got['losses']}; {dev}; launches "
+            f"{got['launches']}; peak memory {got['peak_gib']:.2f} GiB")
+        over = {k: v for k, v in dev.items() if not v <= limits[k]}
+        if over:
+            failures.append(f"rank {r} is further from the one-process run "
+                            f"than {limits}: {over}")
+    log(f"  multi-card EP: {world} cards, mesh {spec}, {EP_STEPS} steps at "
+        f"B={spec['data']} S={SLICE['s']}; ranks {t_ranks:.1f} s")
+    if failures:
+        raise AssertionError("\n".join(failures))
+    return {name: sum(r["launches"][name] for r in ranks)
+            for name in ranks[0]["launches"]}
+
+
+def main_ep(_build) -> int:
+    """`chip_smoke.py --ep`: the kernels built and the multi-card
+    expert-parallel check alone, on two cards or more."""
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke --ep: needs two cards or more", file=sys.stderr)
+        return 2
+    try:
+        smi = nvidia_smi_line()
+        log(f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+        log(f"CUDA kernels built: {_build.build_all()}")
+        phase_multicard_ep()
+    except Exception:  # noqa: BLE001 - the check failing fails the run
+        traceback.print_exc()
+        return 1
+    print(smi)
+    return 0
 
 
 def main() -> int:
@@ -1104,6 +1248,11 @@ def main() -> int:
         from dynolog_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
+        return 2
+    if sys.argv[1:] == ["--ep"]:
+        return main_ep(_build)
+    if sys.argv[1:]:
+        print("usage: chip_smoke.py [--ep]", file=sys.stderr)
         return 2
 
     t_start = time.time()
@@ -1179,7 +1328,7 @@ def main() -> int:
         log("phase 11: NCCL collective probe to the daemon's file backend")
         phase_collectives(snap)
         log("multi-card expert parallelism")
-        phase_multicard_ep()
+        ep_counts = phase_multicard_ep()
         shutil.rmtree(tmp, ignore_errors=True)
     except Exception:  # noqa: BLE001 - any phase failing fails the run
         traceback.print_exc()
@@ -1196,6 +1345,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": counts[name] + moe_counts[name],
+            "launches_by_path": {
+                "dense": counts[name], "moe": moe_counts[name],
+                "moe_ep": ep_counts and ep_counts[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

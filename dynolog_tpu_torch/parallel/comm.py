@@ -15,7 +15,10 @@ and the plain sum):
   rank holds a part of a sum that every rank then uses in the same way:
   each rank's loss already carries the whole gradient.
 - ``sum_over_group``: all-reduce forward and backward. A sum over ranks
-  whose losses differ, each depending on every rank's part.
+  whose losses differ, each depending on every rank's part. This is what
+  ``torch.distributed.nn.functional.all_reduce`` computes, but PyTorch
+  2.13 deprecates that function with a FutureWarning on every call, and
+  the model calls it twice per MoE layer and step.
 
 With `group` None each is the identity.
 """
