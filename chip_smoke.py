@@ -53,26 +53,40 @@ if any phase fails:
    collective_mesh_devices and ici_all_reduce_us read back through
    `dyno query`;
 
+12. ring attention: the dense trainer of phase 4 with ring attention
+   (attn_impl="ring") on a one-rank NCCL mesh, two steps, whose losses
+   and, per leaf, gradient norm and projection after the first step are
+   held against the same steps of the flash trainer on one process: the
+   distance between ring numerics (f32 softmax, plain products) and the
+   flash kernels' at full width;
+
 then, with two cards or more, phase 10's model trained expert-parallel
-over NCCL (data x expert, one process per card) for two steps, whose
-losses and, per leaf, gradient norm and projection after the first step
-are held against the same steps on one process (with one card it is
-logged as not run: NCCL cannot place two ranks on one card).
-`python3 chip_smoke.py --ep` builds the kernels and runs this check
-alone.
+over NCCL (data x expert, one process per card) for two steps, held in
+the same way against the same steps on one process; and with four cards
+or more, (a) the dense trainer with ring attention over
+MeshSpec(seq=2, model=2) against phase 12's one-card ring run and (b)
+phase 10's model over MeshSpec(expert=2, model=2) (flash attention on
+each rank's heads) against one process (with fewer cards each is logged
+as not run: NCCL cannot place two ranks on one card).
+`python3 chip_smoke.py --ep` builds the kernels and runs the
+expert-parallel check alone; `python3 chip_smoke.py --mesh` builds them
+and runs phase 12 and the checks (a) and (b) alone.
 
 The launch counters are zeroed just before each main path (phases 4-5,
-the dense trainer; phase 10, the MoE trainer; in each expert-parallel
-rank, its steps) and read just after; phases 7 and 8 drive the dense
-trainer again, each with the counters zeroed before it and read after
-it. The last lines are the card's name and power limit, a JSON object
-with one entry per kernel (launches: phases 4-5 and 10 together, and in
-launches_by_path each path's own, with the expert-parallel ranks' total
-or null where it did not run), and {"ok": true, "device": ...}.
+the dense trainer; phase 10, the MoE trainer; phase 12's ring run; in
+each rank of a multi-card check, its steps) and read just after; phases 7
+and 8 drive the dense trainer again, each with the counters zeroed before
+it and read after it. The last lines are the card's name and power
+limit, a JSON object with one entry per kernel (launches: phases 4-5 and
+10 together, and in launches_by_path each path's own: ring, whose plain
+products launch no kernel, the expert-parallel ranks' total as moe_ep,
+the ranks' totals of (a) and (b) as tp and moe_tp, or null where a check
+did not run), and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import importlib
 import json
@@ -131,15 +145,32 @@ SLICE = dict(b=1, s=2048, h=32, d=128)
 N_LAYERS = 2
 # Phase 10: Mixtral-8x7B's routing (8 experts, top 2) at the same widths.
 MOE = dict(n_experts=8, moe_top_k=2)
-# The expert-parallel check on two cards or more trains phase 10's model,
-# one row of S=2048 per `data` rank, for EP_STEPS steps on each side, and
-# holds the losses (the second follows the first update) and each leaf's
-# gradient after the first step to the one-process run
-# (phase_multicard_ep). EP_TOL is JAX's own tolerance for a sharded bf16
-# loss, relative for a gradient norm: a gradient summed once too often or
-# not averaged over `data` moves a norm by a factor, not by a few bf16
-# roundings.
+# Phase 12 and the multi-card checks train for EP_STEPS steps on each
+# side, one row of S=2048 per `data` rank, and hold the losses (the second
+# follows the first update) and each leaf's gradient after the first step
+# to the run they compare with (mesh_train, deviation). EP_TOL is JAX's
+# own tolerance for a sharded bf16 loss, relative for a gradient norm: a
+# gradient summed once too often or not averaged over `data` moves a norm
+# by a factor, not by a few bf16 roundings.
 EP_STEPS, EP_TOL = 2, 2e-2
+# The multi-card checks on four cards: (a) the dense trainer with ring
+# attention, the JAX package's dp x sp x tp mesh with `data` dropped (the
+# EP check holds `data`); (b) phase 10's model over its EP x TP mesh,
+# again without `data`.
+MESH_CASES = {"tp": {"seq": 2, "model": 2},
+              "moe_tp": {"expert": 2, "model": 2}}
+# How far each case's mesh run lay from the run it is held to, when
+# scripts/torch_mesh_noise.py measured it (NVIDIA H100 80GB HBM3, 700 W,
+# torch 2.11; every rank alike, a repeat bit-equal). The MoE model's
+# numbers are routing's: in bf16 the `model` cut rounds every layer's
+# partial sums apart, the router of the next layer flips near-tied
+# choices, and the router's own gradient norm moves most (model=2 alone:
+# second loss 0.165, norm 0.030). A check holds each of these at twice
+# its value at least.
+MESH_NOISE = {
+    "tp": {"loss2": 0.0027518, "norm": 0.00047846, "projection": 0.019803},
+    "moe_tp": {"loss2": 0.13079, "norm": 0.026408, "projection": 0.36328},
+}
 STEPS = 5  # uncaptured, timed train steps before the capture
 ITERATIONS = 2  # steps per daemon-triggered capture
 # The capture latency (RPC -> manifest) of earlier runs of this script on
@@ -1061,13 +1092,41 @@ def phase_collectives(snap: Path) -> None:
     log(f"  dyno query {got}")
 
 
-def moe_config():
-    """Phase 10's model: Llama-3-8B widths, 2 layers, Mixtral-8x7B's
-    routing, bf16, flash attention."""
+def dense_config(attn_impl: str = "flash"):
+    """Phase 4's model: Llama-3-8B widths, 2 layers, bf16."""
     from dynolog_tpu_torch.models.transformer import TransformerConfig
 
     return TransformerConfig.llama_8b_like(
-        n_layers=N_LAYERS, attn_impl="flash", dtype="bfloat16", **MOE)
+        n_layers=N_LAYERS, dtype="bfloat16", attn_impl=attn_impl)
+
+
+def moe_config():
+    """Phase 10's model: Llama-3-8B widths, 2 layers, Mixtral-8x7B's
+    routing, bf16, flash attention."""
+    return dataclasses.replace(dense_config(), **MOE)
+
+
+def check_stop_unparsed(trainer, tmp: Path) -> dict:
+    """The shim's profiler stopped after two steps of the trainer: torch
+    must have parsed no event into FunctionEvents on the training thread
+    (ROADMAP C9). Returns torch's profiler stats for the log."""
+    from dynolog_tpu_torch.client import TorchProfiler
+
+    prof = TorchProfiler()
+    prof.start(str(tmp))
+    for _ in range(ITERATIONS):
+        trainer.step()
+        prof.step()
+    t0 = time.perf_counter()
+    prof.stop()
+    stop_ms = (time.perf_counter() - t0) * 1e3
+    profile = prof._stopped.profiler
+    stats = dict(vars(profile._stats), stop_ms=stop_ms)
+    if profile._function_events is not None or stats.get(
+            "parse_kineto_call_duration_us"):
+        raise AssertionError(f"the profiler's stop parsed its events: {stats}")
+    Path(prof.export(str(tmp))).unlink()
+    return stats
 
 
 def named_leaves(params: dict) -> list:
@@ -1085,7 +1144,8 @@ def leaf_checks(path: str, grad: torch.Tensor, mesh, seed: int) -> tuple:
     slice of it: the projection is its dot product with a N(0, 1) tensor
     drawn from `seed` at the whole leaf's shape (this rank's block of it),
     so it moves when an element changes sign or place, which the norm
-    does not see."""
+    does not see. The blocks' sums are added over each axis the leaf is
+    cut over."""
     import torch.distributed as dist
 
     from dynolog_tpu_torch.parallel.sharding import axis, rule_for
@@ -1100,20 +1160,22 @@ def leaf_checks(path: str, grad: torch.Tensor, mesh, seed: int) -> tuple:
     for dim, (size, rank) in enumerate(sizes):
         r = r.narrow(dim, rank * g.shape[dim], g.shape[dim])
     out = torch.stack([g.square().sum(), (g * r).sum()])
-    group = axis(mesh, "expert")[2]
-    if "expert" in rule_for(path) and group is not None:
-        dist.all_reduce(out, group=group)
+    for name in rule_for(path):
+        group = axis(mesh, name)[2] if name else None
+        if group is not None:
+            dist.all_reduce(out, group=group)
     return float(out[0].sqrt()), float(out[1])
 
 
-def ep_train(cfg, rows: int, mesh=None, device: str = "cuda",
-             seq: int = SLICE["s"]) -> dict:
+def mesh_train(cfg, rows: int = 1, mesh=None, device: str = "cuda",
+               seq: int = SLICE["s"]) -> dict:
     """EP_STEPS train steps from seed 0 on the global batch of seed 1
     (`rows` rows of `seq` tokens), on one process or, with `mesh`, on this
     rank. Returns the losses, each whole leaf's gradient norm and
     projection after the first step (``leaf_checks``), the launches
-    (zeroed just before the steps) and the peak memory (None off the
-    card)."""
+    (zeroed just before the steps), and on the card each step's time (host
+    clock to a synchronise) and the steps' peak memory, leaf_checks'
+    temporaries left out (None off the card)."""
     from dynolog_tpu_torch.models.train import (
         make_batch, make_train_state, make_train_step)
 
@@ -1124,32 +1186,43 @@ def ep_train(cfg, rows: int, mesh=None, device: str = "cuda",
     tokens = make_batch(torch.Generator(device=device).manual_seed(1), cfg,
                         rows, seq, device)
     step = make_train_step(cfg, mesh)
-    if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
     F.reset_launches()
-    losses, leaves = [], {}
+    losses, leaves, step_ms, peaks = [], {}, [], []
     for i in range(EP_STEPS):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         losses.append(float(step(params, opt, tokens)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if cuda:
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
         for n, (path, leaf) in enumerate(named_leaves(params) if i == 0
                                          else ()):
             leaves[path] = leaf_checks(path, leaf.grad, mesh, 2 + n)
     return {"losses": losses, "leaves": leaves,
-            "launches": dict(F.launches),
-            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
-                         if cuda else None)}
+            "launches": dict(F.launches), "step_ms": step_ms,
+            "peak_gib": max(peaks) if cuda else None}
 
 
-def _ep_rank(rank: int, world: int, spec: dict) -> dict:
-    """One rank of the multi-card check (ep_train under the mesh)."""
+def free_cache() -> None:
+    """Returns this process's cached device memory to the card, for the
+    rank that shares card 0 with it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _mesh_rank(rank: int, world: int, cfg, spec: dict) -> dict:
+    """One rank of a multi-card check, or of phase 12's one-rank ring run
+    (mesh_train under MeshSpec(**spec))."""
     from dynolog_tpu_torch.parallel.sharding import MeshSpec, make_mesh
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 router
-    return ep_train(moe_config(), spec["data"], make_mesh(MeshSpec(**spec)))
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent's runs
+    return mesh_train(cfg, spec.get("data", 1), make_mesh(MeshSpec(**spec)))
 
 
 def deviation(a: dict, b: dict) -> dict:
-    """How far ep_train's run `a` lies from run `b`: the loss difference
+    """How far mesh_train's run `a` lies from run `b`: the loss difference
     of each step and, over the leaves, the largest difference of the
     gradient norm and of the projection, each over b's norm."""
     out = {f"loss{i + 1}": abs(x - y)
@@ -1160,21 +1233,60 @@ def deviation(a: dict, b: dict) -> dict:
     return out
 
 
+def hold(who: str, got: dict, cfg, ref: dict | None = None,
+         limits: dict | None = None) -> list:
+    """Failure messages for mesh_train's run `got` of `cfg`: a kernel of
+    its path launched fewer times than once per layer and step, or, held
+    against run `ref`, a deviation over its limit."""
+    dev = deviation(got, ref) if ref is not None else {}
+    worst = worst_leaves(got, ref) if ref is not None else {}
+    log(f"  {who}: losses {got['losses']}; {dev} (leaves {worst}); launches "
+        f"{got['launches']}; steps {[round(t, 1) for t in got['step_ms']]} "
+        f"ms; peak memory {got['peak_gib']:.2f} GiB")
+    failures = []
+    if cfg.attn_impl == "flash":
+        short = {k: v for k, v in got["launches"].items()
+                 if v < cfg.n_layers * EP_STEPS}
+        if short:
+            failures.append(f"{who} launched {short} in {EP_STEPS} steps of "
+                            f"{cfg.n_layers} layers")
+    over = {k: v for k, v in dev.items() if not v <= limits[k]}
+    if over:
+        failures.append(f"{who} is further than {limits}: {over}")
+    return failures
+
+
+def limits_for(floor: dict, measured: dict | None = None) -> dict:
+    """EP_TOL for the first loss and the norms; the second loss and the
+    projections at twice `floor`, the distance between two equivalent
+    one-process runs that round differently, and at least EP_TOL; each
+    `measured` key (MESH_NOISE) at twice its value at least."""
+    out = {k: EP_TOL if k in ("loss1", "norm") else max(EP_TOL, 2 * v)
+           for k, v in floor.items()}
+    for k, v in (measured or {}).items():
+        out[k] = max(out[k], 2 * v)
+    return out
+
+
+def worst_leaves(a: dict, b: dict) -> dict:
+    """The leaf of the largest norm and projection difference
+    (``deviation``) of run `a` from run `b`."""
+    return {key: max(b["leaves"], key=lambda k: abs(
+        a["leaves"][k][j] - b["leaves"][k][j]) / b["leaves"][k][0])
+        for j, key in enumerate(("norm", "projection"))}
+
+
 def phase_multicard_ep() -> dict | None:
     """With two cards or more, EP_STEPS expert-parallel steps over NCCL
     held against the same steps on one process; returns the ranks' total
     launches, or None with one card.
 
-    The first loss and the gradient norms are held to EP_TOL. The second
-    loss and the projections are held to twice the distance between two
-    equivalent one-process runs that round differently (plain attention in
-    place of the kernels), measured in the same run, and at least EP_TOL:
-    at init the router's probabilities are near-uniform over the experts,
-    so a rounding flips tokens' top-2 choices and moves those numbers by
-    more than EP_TOL (on an H100 at 700 W, 0.087 for the second loss and
-    0.20 for a projection)."""
-    import dataclasses
-
+    The second loss and the projections are held to limits_for the
+    distance of a plain-attention one-process run: at init the router's
+    probabilities are near-uniform over the experts, so a rounding flips
+    tokens' top-2 choices and moves those numbers by more than EP_TOL (on
+    an H100 at 700 W, 0.087 for the second loss and 0.20 for a
+    projection)."""
     from dynolog_tpu_torch.parallel.launch import spawn
 
     n = torch.cuda.device_count()
@@ -1185,34 +1297,19 @@ def phase_multicard_ep() -> dict | None:
     world = 4 if n >= 4 else 2
     spec = {"data": world // 2, "expert": 2}
     cfg = moe_config()
+    free_cache()
     t0 = time.time()
-    ranks = spawn(_ep_rank, world, "nccl", (spec,), timeout_s=300)
+    ranks = spawn(_mesh_rank, world, "nccl", (cfg, spec), timeout_s=300)
     t_ranks = time.time() - t0
-    one = ep_train(cfg, spec["data"])
+    one = mesh_train(cfg, spec["data"])
     floor = deviation(
-        ep_train(dataclasses.replace(cfg, attn_impl="reference"),
-                 spec["data"]), one)
-    limits = {k: EP_TOL if k in ("loss1", "norm") else max(EP_TOL, 2 * v)
-              for k, v in floor.items()}
-    log(f"  one process: losses {one['losses']}; launches {one['launches']};"
-        f" peak memory {one['peak_gib']:.2f} GiB; {len(one['leaves'])} "
-        f"leaves; with plain attention {floor}; limits {limits}")
-    failures = []
-    for r, got in enumerate([one] + ranks):
-        who = "the one-process run" if r == 0 else f"rank {r - 1}"
-        short = {k: v for k, v in got["launches"].items()
-                 if v < cfg.n_layers * EP_STEPS}
-        if short:
-            failures.append(f"{who} launched {short} in {EP_STEPS} steps of "
-                            f"{cfg.n_layers} layers")
+        mesh_train(dataclasses.replace(cfg, attn_impl="reference"),
+                   spec["data"]), one)
+    limits = limits_for(floor)
+    log(f"  with plain attention {floor}; limits {limits}")
+    failures = hold("the one-process run", one, cfg)
     for r, got in enumerate(ranks):
-        dev = deviation(got, one)
-        log(f"  rank {r}: losses {got['losses']}; {dev}; launches "
-            f"{got['launches']}; peak memory {got['peak_gib']:.2f} GiB")
-        over = {k: v for k, v in dev.items() if not v <= limits[k]}
-        if over:
-            failures.append(f"rank {r} is further from the one-process run "
-                            f"than {limits}: {over}")
+        failures += hold(f"rank {r}", got, cfg, one, limits)
     log(f"  multi-card EP: {world} cards, mesh {spec}, {EP_STEPS} steps at "
         f"B={spec['data']} S={SLICE['s']}; ranks {t_ranks:.1f} s")
     if failures:
@@ -1221,17 +1318,92 @@ def phase_multicard_ep() -> dict | None:
             for name in ranks[0]["launches"]}
 
 
-def main_ep(_build) -> int:
-    """`chip_smoke.py --ep`: the kernels built and the multi-card
-    expert-parallel check alone, on two cards or more."""
-    if torch.cuda.device_count() < 2:
-        print("chip_smoke --ep: needs two cards or more", file=sys.stderr)
+def phase_ring_attention() -> tuple[dict, dict]:
+    """Phase 12: EP_STEPS steps of the dense trainer with ring attention on
+    a one-rank NCCL mesh, held against the same steps of the flash trainer
+    on one process (the first loss and the norms to EP_TOL, the second
+    loss and the projections to EP_TOL too: the dense model routes
+    nothing, so no rounding flips a choice). Returns the ring run and its
+    distance from the flash run, the yardstick of the check (a)."""
+    from dynolog_tpu_torch.parallel.launch import spawn
+
+    cfg = dense_config("ring")
+    free_cache()
+    ring = spawn(_mesh_rank, 1, "nccl", (cfg, {}), timeout_s=300)[0]
+    flash = mesh_train(dense_config())
+    distance = deviation(ring, flash)
+    failures = hold("flash, one process", flash, dense_config()) + hold(
+        "ring attention, one-rank mesh", ring, cfg, flash,
+        {k: EP_TOL for k in distance})
+    if failures:
+        raise AssertionError("\n".join(failures))
+    return ring, distance
+
+
+def phase_multicard_mesh(ring: dict, ring_distance: dict) -> dict | None:
+    """With four cards or more, EP_STEPS steps of each MESH_CASES mesh over
+    NCCL: (a) "tp", the dense trainer with ring attention, against phase
+    12's one-card ring run, its floor phase 12's distance (ring against
+    flash numerics at full width); (b) "moe_tp", phase 10's model, against
+    one process, its floor a plain-attention one-process run's distance,
+    as the EP check's. Each is held to limits_for its floor and its
+    MESH_NOISE. Returns each case's total launches over its ranks, or None
+    with fewer cards."""
+    from dynolog_tpu_torch.parallel.launch import spawn
+
+    if torch.cuda.device_count() < 4:
+        log(f"  multi-card TP: not run: {torch.cuda.device_count()} card(s); "
+            "the gloo CPU tests cover tensor parallelism and ring attention")
+        return None
+    moe = moe_config()
+    one_moe = mesh_train(moe)
+    refs = {
+        "tp": (dense_config("ring"), ring, ring_distance),
+        "moe_tp": (moe, one_moe, deviation(
+            mesh_train(dataclasses.replace(moe, attn_impl="reference")),
+            one_moe)),
+    }
+    failures, counts = hold("MoE, one process", one_moe, moe), {}
+    for name, spec in MESH_CASES.items():
+        cfg, ref, floor = refs[name]
+        limits = limits_for(floor, MESH_NOISE[name])
+        free_cache()
+        t0 = time.time()
+        ranks = spawn(_mesh_rank, 4, "nccl", (cfg, spec), timeout_s=300)
+        log(f"  {name}: mesh {spec}, {cfg.attn_impl} attention, {EP_STEPS} "
+            f"steps at B=1 S={SLICE['s']}, ranks {time.time() - t0:.1f} s; "
+            f"reference losses {ref['losses']}; floor {floor}; limits "
+            f"{limits}")
+        for r, got in enumerate(ranks):
+            failures += hold(f"{name} rank {r}", got, cfg, ref, limits)
+        counts[name] = {k: sum(r["launches"][k] for r in ranks)
+                        for k in ranks[0]["launches"]}
+    if failures:
+        raise AssertionError("\n".join(failures))
+    return counts
+
+
+def main_alone(_build, mode: str) -> int:
+    """`chip_smoke.py --ep` (two cards or more): the kernels built and the
+    expert-parallel check alone. `chip_smoke.py --mesh` (four cards or
+    more): the kernels built, phase 12 and the checks (a) and (b)."""
+    need = {"--ep": 2, "--mesh": 4}[mode]
+    if torch.cuda.device_count() < need:
+        print(f"chip_smoke {mode}: needs {need} cards or more",
+              file=sys.stderr)
         return 2
     try:
         smi = nvidia_smi_line()
         log(f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+        torch.backends.cuda.matmul.allow_tf32 = False
         log(f"CUDA kernels built: {_build.build_all()}")
-        phase_multicard_ep()
+        if mode == "--ep":
+            phase_multicard_ep()
+        else:
+            log("phase 12: ring attention")
+            ring, distance = phase_ring_attention()
+            log("multi-card tensor parallelism and ring attention")
+            phase_multicard_mesh(ring, distance)
     except Exception:  # noqa: BLE001 - the check failing fails the run
         traceback.print_exc()
         return 1
@@ -1249,10 +1421,10 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 2
-    if sys.argv[1:] == ["--ep"]:
-        return main_ep(_build)
+    if sys.argv[1:] in (["--ep"], ["--mesh"]):
+        return main_alone(_build, sys.argv[1])
     if sys.argv[1:]:
-        print("usage: chip_smoke.py [--ep]", file=sys.stderr)
+        print("usage: chip_smoke.py [--ep | --mesh]", file=sys.stderr)
         return 2
 
     t_start = time.time()
@@ -1289,11 +1461,9 @@ def main() -> int:
 
         log("phase 4+5: trainer under a daemon-triggered capture")
         from dynolog_tpu_torch.client import TraceClient
-        from dynolog_tpu_torch.models.transformer import TransformerConfig
 
         # Full llama-8B widths; depth is the only cut.
-        cfg = TransformerConfig.llama_8b_like(
-            n_layers=N_LAYERS, dtype="bfloat16", attn_impl="flash")
+        cfg = dense_config()
         trainer = Trainer(cfg)
         job_id = 4300 + os.getpid() % 1000
         tmp = Path(tempfile.mkdtemp(prefix="dynotpu_smoke_"))
@@ -1305,6 +1475,9 @@ def main() -> int:
             cap = phase_train_and_capture(F, daemon, trainer, client, job_id,
                                           tmp, STEPS)
             counts = cap["counts"]
+            log(f"  profiler stop without the capture, after "
+                f"{ITERATIONS} steps: torch's stats "
+                f"{check_stop_unparsed(trainer, tmp)}")
             log("phase 6: summary of the capture")
             phase_summary(cap, results, cfg.n_layers)
             log("phase 7: diagnosis of a B=2 capture against the baseline")
@@ -1327,8 +1500,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         log("phase 11: NCCL collective probe to the daemon's file backend")
         phase_collectives(snap)
+        log("phase 12: ring attention")
+        ring, ring_distance = phase_ring_attention()
         log("multi-card expert parallelism")
         ep_counts = phase_multicard_ep()
+        log("multi-card tensor parallelism and ring attention")
+        mesh_counts = phase_multicard_mesh(ring, ring_distance) or {}
         shutil.rmtree(tmp, ignore_errors=True)
     except Exception:  # noqa: BLE001 - any phase failing fails the run
         traceback.print_exc()
@@ -1347,7 +1524,10 @@ def main() -> int:
             "launches": counts[name] + moe_counts[name],
             "launches_by_path": {
                 "dense": counts[name], "moe": moe_counts[name],
-                "moe_ep": ep_counts and ep_counts[name]},
+                "ring": ring["launches"][name],
+                "moe_ep": ep_counts and ep_counts[name],
+                **{path: mesh_counts[path][name] if mesh_counts else None
+                   for path in MESH_CASES}},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -6,8 +6,8 @@ It runs beside the JAX package and imports nothing of it (nor JAX):
   job embeds so dynologd can trigger on-demand torch.profiler captures;
 - :mod:`dynolog_tpu_torch.models` — the flagship transformer workload,
   dense or MoE, and its AdamW train step;
-- :mod:`dynolog_tpu_torch.parallel` — the mesh, expert and data
-  parallelism over torch.distributed;
+- :mod:`dynolog_tpu_torch.parallel` — the mesh, data, sequence (ring
+  attention), tensor and expert parallelism over torch.distributed;
 - :mod:`dynolog_tpu_torch.collectives` — the NCCL collective probe for
   the daemon's file backend;
 - :mod:`dynolog_tpu_torch.ops` — flash attention as hand-written CUDA

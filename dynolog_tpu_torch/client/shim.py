@@ -504,13 +504,13 @@ class TorchProfiler:
 
         # A schedule that always records is what makes step() emit the
         # ProfilerStep#N spans; without one, profile.step() records none.
-        # acc_events: the window is one cycle, so nothing is dropped either
-        # way; it only quiets the per-cycle warning a schedule brings.
+        # No acc_events: with it, stop() parses every kineto event into
+        # FunctionEvents on the training thread, which nothing here reads
+        # (export() saves kineto's own results).
         self._prof = profile(
             activities=self._activities(),
             record_shapes=True,
             schedule=lambda _step: ProfilerAction.RECORD,
-            acc_events=True,
         )
         self._prof.start()
 

@@ -16,12 +16,16 @@ The same function as the JAX package's, global over the mesh:
 - the Switch load-balancing aux loss over the global batch.
 
 Under a mesh (``parallel.sharding.make_mesh``) the batch is split over
-`data` and replicated over `expert`; each rank holds E / ep experts.
-Where XLA lowers the sharded dispatch to collectives, this module calls
-them: an all-gather of per-(choice, expert) counts over `data` (the slots
-taken by lower data ranks), a sum of the dispatched slots over `data`, a
-sum of the experts' partial outputs over `expert`, and sums over `data`
-for the aux loss's means (``parallel.comm`` says how each differentiates).
+`data` and replicated over `expert` and `model`; each rank holds E / ep
+experts, each with d_ff / tp of its hidden columns (EP x TP). Where XLA
+lowers the sharded dispatch to collectives, this module calls them: an
+all-gather of per-(choice, expert) counts over `data` (the slots taken by
+lower data ranks), a sum of the dispatched slots over `data`, the slots
+entering the experts' column-cut products through f over `model` and
+their partial outputs summed over `model`, a sum of the experts' outputs
+over `expert`, and sums over `data` for the aux loss's means
+(``parallel.comm`` says how each differentiates). Routing, slot
+positions and the aux loss are replicated over `model`.
 """
 
 from __future__ import annotations
@@ -95,6 +99,7 @@ def moe_mlp(layer, x, cfg, mesh=None):
     e, k = cfg.n_experts, cfg.moe_top_k
     data_size, data_rank, data_group = axis(mesh, "data")
     ep_size, ep_rank, ep_group = axis(mesh, "expert")
+    tp_group = axis(mesh, "model")[2]
     n_tokens = b * s
     n_global = n_tokens * data_size
     cap = _capacity(n_global, cfg)
@@ -129,13 +134,16 @@ def moe_mlp(layer, x, cfg, mesh=None):
     x_e = torch.einsum("tkec,td->ecd", dispatch,
                        comm.copy_to_group(xf, ep_group))  # [E_l, C, D]
     # Each data rank filled the slots of its own tokens.
-    x_e = comm.reduce_from_group(x_e, data_group)
+    x_e = comm.copy_to_group(comm.reduce_from_group(x_e, data_group),
+                             tp_group)
 
-    # Per-expert SwiGLU, batched over this rank's experts.
+    # Per-expert SwiGLU, batched over this rank's experts and hidden
+    # columns; each model rank adds its columns' part.
     gate_p = torch.einsum("ecd,edf->ecf", x_e, layer["experts_gate"])
     up_p = torch.einsum("ecd,edf->ecf", x_e, layer["experts_up"])
-    y_e = torch.einsum("ecf,efd->ecd", F.silu(gate_p) * up_p,
-                       layer["experts_down"])
+    y_e = comm.reduce_from_group(
+        torch.einsum("ecf,efd->ecd", F.silu(gate_p) * up_p,
+                     layer["experts_down"]), tp_group)
 
     y = torch.einsum("tkec,ecd->td", combine.to(x.dtype), y_e)
     # Each expert rank added its experts' outputs.

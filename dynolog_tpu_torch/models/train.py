@@ -6,11 +6,12 @@ state. This one updates the parameters and the optimizer's state in
 place (PyTorch's idiom; it keeps one copy of each in device memory) and
 returns only the loss.
 
-Under a mesh (``parallel.sharding.make_mesh``, axes `data` and `expert`)
-every process calls the same step on the same global batch; each trains
-its data shard of it with its slice of the parameters, and the step
-computes the JAX package's global function: the loss of the whole batch
-and, for each leaf, the gradient of that loss.
+Under a mesh (``parallel.sharding.make_mesh``, axes `data`, `seq`,
+`model` and `expert`) every process calls the same step on the same
+global batch; each trains its block of it (its rows over `data`, its
+chunk over `seq`) with its slice of the parameters, and the step computes
+the JAX package's global function: the loss of the whole batch and, for
+each leaf, the gradient of that loss.
 """
 
 from __future__ import annotations
@@ -20,17 +21,18 @@ import torch.distributed as dist
 
 from dynolog_tpu_torch import resolve_device
 from dynolog_tpu_torch.models.transformer import (
-    TransformerConfig, init_params, loss_fn, param_leaves)
-from dynolog_tpu_torch.parallel.sharding import (
-    axis, check_mesh, local_batch, shard_params)
+    TransformerConfig, check_supported, init_params, loss_fn, param_leaves)
+from dynolog_tpu_torch.parallel.sharding import axis, local_batch, shard_params
 
 
 def make_optimizer(params: dict, lr: float = 3e-4) -> torch.optim.AdamW:
     """The counterpart of ``optax.adamw(lr, weight_decay=0.01)``: both
     decouple the weight decay, decay every leaf, and keep the moments in
-    the parameters' dtype."""
+    the parameters' dtype. Fused: one pass over each group of tensors of
+    one device and dtype reads p, g and both moments and writes p and the
+    moments, as XLA fuses optax's update into the jitted step."""
     return torch.optim.AdamW(param_leaves(params), lr=lr, betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=0.01)
+                             eps=1e-8, weight_decay=0.01, fused=True)
 
 
 def make_train_state(cfg: TransformerConfig, device="cuda",
@@ -43,6 +45,15 @@ def make_train_state(cfg: TransformerConfig, device="cuda",
     if mesh is not None:
         params = shard_params(params, mesh)
     return params, make_optimizer(params, lr)
+
+
+def _sum_over_seq(tensors: list, mesh) -> None:
+    """Each tensor replaced in place by its sum over `seq`."""
+    group = axis(mesh, "seq")[2]
+    if group is None:
+        return
+    for t in tensors:
+        dist.all_reduce(t, group=group)
 
 
 def _mean_over_data(tensors: list, mesh) -> None:
@@ -63,21 +74,24 @@ def make_train_step(cfg: TransformerConfig, mesh=None):
 
     With a mesh, `tokens` is the global batch (the same on every process)
     and the loss returned is the global batch's. Each rank's loss is its
-    data row's, so the gradients and the loss are averaged over `data`:
-    expert leaves among the ranks that hold the same experts, and the
-    replicated leaves come out equal over `expert`."""
-    check_mesh(mesh)
+    chunk's part of its data row's loss, and every leaf is replicated over
+    `seq`, so the gradients and the loss are summed over `seq`, then
+    averaged over `data`: expert leaves among the ranks that hold the
+    same experts. Over `model` and `expert` the collectives' conjugates
+    (``parallel.comm``) already give every rank the whole gradient of its
+    slice, and the replicated leaves come out equal."""
+    check_supported(cfg, mesh)
 
     def step(params, optimizer, tokens):
         optimizer.zero_grad(set_to_none=True)
-        if mesh is not None:
-            tokens = local_batch(tokens, mesh)
-        loss = loss_fn(params, tokens, cfg, mesh)
+        tokens, targets = local_batch(tokens, mesh)
+        loss = loss_fn(params, tokens, cfg, mesh, targets)
         loss.backward()
         loss = loss.detach()
         if mesh is not None:
-            _mean_over_data([p.grad for p in param_leaves(params)] + [loss],
-                            mesh)
+            tensors = [p.grad for p in param_leaves(params)] + [loss]
+            _sum_over_seq(tensors, mesh)
+            _mean_over_data(tensors, mesh)
         optimizer.step()
         return loss
 

@@ -10,8 +10,17 @@ wo, mlp_scale, w_gate, w_up, w_down}, ...]}; with n_experts > 0 the MoE
 leaves {router, experts_gate, experts_up, experts_down} of
 ``models.moe`` take the place of w_gate, w_up and w_down.
 
+Under a mesh (``parallel.sharding.make_mesh``) each process holds its
+slice of the parameters and of the batch, and the model calls the
+collectives that XLA inserts in the JAX package (``parallel.comm``):
+over `model`, activations enter the column-cut products (wq/wk/wv,
+w_gate/w_up, w_out) through f and leave the row-cut ones (wo, w_down)
+through g, each rank attends with its own heads, and the embedding's
+and the logits' cut columns are gathered whole; over `seq`, attention is
+ring attention (``parallel.ring_attention``) and positions are global.
+
 This is a *workload*, not a modeling library: the monitoring framework
-only observes it. Ring attention is not ported yet.
+only observes it.
 """
 
 from __future__ import annotations
@@ -24,6 +33,9 @@ from dynolog_tpu_torch import resolve_device
 from dynolog_tpu_torch.models.moe import init_moe_layer, moe_mlp
 from dynolog_tpu_torch.ops.flash_attention import (
     flash_attention, reference_attention)
+from dynolog_tpu_torch.parallel import comm
+from dynolog_tpu_torch.parallel.ring_attention import ring_attention
+from dynolog_tpu_torch.parallel.sharding import axis, check_mesh
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -39,7 +51,8 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"
     # "reference": plain attention; "flash": the CUDA flash kernels
-    # (dynolog_tpu_torch.ops.flash_attention). "ring" is not ported yet.
+    # (dynolog_tpu_torch.ops.flash_attention); "ring": ring attention over
+    # the mesh's `seq` axis (needs a mesh).
     attn_impl: str = "reference"
     # MoE: n_experts > 0 replaces every dense MLP with a top-k-routed
     # mixture of SwiGLU experts (models.moe), expert-parallel over the
@@ -72,11 +85,27 @@ class TransformerConfig:
         return cls(**fields)
 
 
-def check_supported(cfg: TransformerConfig) -> None:
-    if cfg.attn_impl == "ring":
-        raise NotImplementedError("ring attention is not ported to PyTorch yet")
-    if cfg.attn_impl not in ("reference", "flash"):
+def check_supported(cfg: TransformerConfig, mesh=None) -> None:
+    """Raises for a configuration the port cannot run on `mesh`: an
+    unknown attention, a head count that does not split over `model`
+    (ValueError), and, with `seq` > 1, attention other than "ring" or MoE
+    layers (NotImplementedError: the JAX package lets XLA gather the
+    sequence for them, and MoE slot priority interleaves rows and chunks,
+    which ``models.moe`` does not model)."""
+    if cfg.attn_impl not in ("reference", "flash", "ring"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    check_mesh(mesh)
+    if cfg.n_heads % axis(mesh, "model")[0]:
+        raise ValueError(f"{cfg.n_heads} heads do not split over "
+                         f"model={axis(mesh, 'model')[0]}")
+    if axis(mesh, "seq")[0] > 1:
+        if cfg.attn_impl != "ring":
+            raise NotImplementedError(
+                f"attn_impl={cfg.attn_impl!r} over mesh axis 'seq' is not "
+                "ported to PyTorch; use 'ring'")
+        if cfg.n_experts > 0:
+            raise NotImplementedError(
+                "MoE layers over mesh axis 'seq' are not ported to PyTorch")
 
 
 def init_params(cfg: TransformerConfig, device="cuda",
@@ -156,9 +185,13 @@ def _rope(x, positions, theta):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def _attention(layer, x, positions, cfg: TransformerConfig):
-    b, s, d = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
+def _attention(layer, x, positions, cfg: TransformerConfig, mesh=None):
+    """Attention over this rank's heads (n_heads / model of them); the
+    output projection's partial sums are added over `model`."""
+    b, s, _ = x.shape
+    t, _, group = axis(mesh, "model")
+    h, hd = cfg.n_heads // t, cfg.head_dim
+    x = comm.copy_to_group(x, group)
     q = (x @ layer["wq"]).reshape(b, s, h, hd)
     k = (x @ layer["wk"]).reshape(b, s, h, hd)
     v = (x @ layer["wv"]).reshape(b, s, h, hd)
@@ -166,60 +199,89 @@ def _attention(layer, x, positions, cfg: TransformerConfig):
     k = _rope(k, positions, cfg.rope_theta)
 
     if cfg.attn_impl == "flash":
-        out = flash_attention(q, k, v, True).reshape(b, s, d)
+        out = flash_attention(q, k, v, True)
+    elif cfg.attn_impl == "ring":
+        if mesh is None:
+            raise ValueError("attn_impl='ring' requires a mesh")
+        out = ring_attention(q, k, v, mesh, causal=True)
     else:
-        out = reference_attention(q, k, v, causal=True).reshape(b, s, d)
-    return out @ layer["wo"]
+        out = reference_attention(q, k, v, causal=True)
+    return comm.reduce_from_group(out.reshape(b, s, h * hd) @ layer["wo"],
+                                  group)
 
 
-def _mlp(layer, x):
+def _mlp(layer, x, group):
+    """SwiGLU over this rank's hidden columns, summed over `group`."""
+    x = comm.copy_to_group(x, group)
     gate = torch.nn.functional.silu(x @ layer["w_gate"])
-    return (gate * (x @ layer["w_up"])) @ layer["w_down"]
+    return comm.reduce_from_group(
+        (gate * (x @ layer["w_up"])) @ layer["w_down"], group)
+
+
+def token_positions(tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """[B, S_local] global positions of this rank's tokens: its chunk of
+    the sequence starts at its `seq` coordinate times S_local."""
+    s = tokens.shape[1]
+    first = axis(mesh, "seq")[1] * s
+    return torch.arange(first, first + s,
+                        device=tokens.device).expand(tokens.shape)
 
 
 def _forward_with_aux(params, tokens, cfg: TransformerConfig, mesh=None):
     """tokens [B, S] int -> (logits [B, S, vocab] f32, MoE aux loss summed
-    over the layers, f32 scalar)."""
-    check_supported(cfg)
-    x = params["embedding"][tokens]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    positions = positions.expand(tokens.shape)
+    over the layers, f32 scalar). Under a mesh, tokens are this rank's
+    block and the logits its rows' and chunk's, over the whole
+    vocabulary."""
+    check_supported(cfg, mesh)
+    group = axis(mesh, "model")[2]
+    x = comm.gather_from_group(params["embedding"][tokens], -1, group)
+    positions = token_positions(tokens, mesh)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer in params["layers"]:
         x = x + _attention(layer, _rmsnorm(x, layer["attn_scale"]),
-                           positions, cfg)
+                           positions, cfg, mesh)
         h = _rmsnorm(x, layer["mlp_scale"])
         if cfg.n_experts > 0:
             y, layer_aux = moe_mlp(layer, h, cfg, mesh)
             aux = aux + layer_aux
         else:
-            y = _mlp(layer, h)
+            y = _mlp(layer, h, group)
         x = x + y
     x = _rmsnorm(x, params["final_scale"])
-    return (x @ params["w_out"]).float(), aux
+    logits = comm.copy_to_group(x, group) @ params["w_out"]
+    return comm.gather_from_group(logits, -1, group).float(), aux
 
 
-def forward(params, tokens, cfg: TransformerConfig):
+def forward(params, tokens, cfg: TransformerConfig, mesh=None):
     """tokens [B, S] int -> logits [B, S, vocab] float32."""
-    return _forward_with_aux(params, tokens, cfg)[0]
+    return _forward_with_aux(params, tokens, cfg, mesh)[0]
 
 
-def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None):
+def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None,
+            targets=None):
     """Next-token cross entropy (tokens serve as their own shifted targets).
     The full [B, S] sequence is forwarded and the last-position logits
     dropped afterwards, as the reference does. With MoE the Switch
     load-balancing aux loss is added, scaled by cfg.moe_aux_weight / the
     layer count.
 
-    Under a mesh, `tokens` and `params` are this rank's shards
-    (``parallel.sharding``) and the loss is its data shard's: the global
-    loss is its mean over `data` (``models.train`` takes it)."""
+    Under a mesh, `tokens`, `targets` and `params` are this rank's shards
+    (``parallel.sharding.local_batch``, ``shard_params``; `targets`
+    defaults to ``tokens[:, 1:]``, which is right only for a whole
+    sequence). The sum of the NLL is divided by the count of predicted
+    positions in the whole sequence, so the losses of the `seq` ranks add
+    up to their rows' loss, and the global loss is the mean of that over
+    `data` (``models.train`` takes both)."""
+    n_seq = axis(mesh, "seq")[0]
+    if targets is None:
+        if n_seq > 1:
+            raise ValueError("a loss over a `seq` cut needs the targets of "
+                             "local_batch")
+        targets = tokens[:, 1:]
     logits, aux = _forward_with_aux(params, tokens, cfg, mesh)
-    logits = logits[:, :-1]
-    targets = tokens[:, 1:]
-    logprobs = torch.log_softmax(logits, dim=-1)
+    logprobs = torch.log_softmax(logits[:, :targets.shape[1]], dim=-1)
     nll = -torch.gather(logprobs, -1, targets[..., None])
-    loss = nll.mean()
+    loss = nll.sum() / (tokens.shape[0] * (tokens.shape[1] * n_seq - 1))
     if cfg.n_experts > 0:
         loss = loss + cfg.moe_aux_weight * aux / cfg.n_layers
     return loss

@@ -19,6 +19,16 @@ and the plain sum):
   ``torch.distributed.nn.functional.all_reduce`` computes, but PyTorch
   2.13 deprecates that function with a FutureWarning on every call, and
   the model calls it twice per MoE layer and step.
+- ``gather_from_group``: all-gather along a dimension forward, this
+  rank's slice of the gradient backward. A value cut over the group (the
+  embedding's columns, the logits' vocabulary) that every rank then uses
+  whole in the same way: each rank's gradient of the whole value is
+  already the whole gradient, so its slice is this rank's part.
+- ``ring_shift``: forward, each rank sends its value to the next
+  coordinate of the group and receives the previous one's; backward, the
+  gradient goes the other way. Ring attention rotates each K/V chunk one
+  hop per step with it: a chunk's gradient returns to the rank that
+  computed it.
 
 With `group` None each is the identity.
 """
@@ -67,6 +77,44 @@ class _SumOverGroup(torch.autograd.Function):
         return _all_reduce(grad, ctx.group), None
 
 
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        size = dist.get_world_size(group)
+        ctx.dim, ctx.rank, ctx.part = dim, dist.get_rank(group), x.shape[dim]
+        return torch.cat(all_gather(x, size, group).unbind(0), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.part, ctx.part), None, None
+
+
+def _shift(x: torch.Tensor, group, hops: int) -> torch.Tensor:
+    """x sent `hops` coordinates up the group (mod its size); returns what
+    arrives from `hops` coordinates down. P2POp takes global ranks."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x,
+                      dist.get_global_rank(group, (me + hops) % n), group),
+           dist.P2POp(dist.irecv, out,
+                      dist.get_global_rank(group, (me - hops) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _shift(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.group, -1), None
+
+
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _CopyToGroup.apply(x, group)
 
@@ -77,6 +125,17 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
 
 def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _SumOverGroup.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's `x` concatenated along `dim`, in rank order."""
+    return x if group is None else _GatherFromGroup.apply(x, dim, group)
+
+
+def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
+    """The `x` of the previous coordinate of the group (the last one's on
+    coordinate 0)."""
+    return x if group is None else _RingShift.apply(x, group)
 
 
 def all_gather(x: torch.Tensor, size: int, group) -> torch.Tensor:

@@ -8,10 +8,14 @@ rank order, each process holds its own slice of the parameters
 (``shard_params``) and of the batch (``local_batch``), and the model calls
 the collectives itself (``parallel.comm``).
 
-Ported: ``data`` (the batch's rows) and ``expert`` (the stacked MoE expert
-weights). A mesh whose ``model``, ``seq`` or ``pipe`` axis is larger than 1
-raises NotImplementedError: tensor parallelism, ring attention and the
-pipeline are not ported yet.
+Ported: ``data`` (the batch's rows), ``seq`` (the batch's columns, with
+ring attention), ``model`` (tensor parallelism: the columns of
+wq/wk/wv/w_gate/w_up/w_out/embedding and the rows of wo/w_down) and
+``expert`` (the stacked MoE expert weights, their hidden dimension cut on
+``model`` too). A mesh whose ``pipe`` axis is larger than 1 raises
+NotImplementedError: the GPipe pipeline is not ported yet. Which model
+options a ``seq`` cut supports, ``models.transformer.check_supported``
+says.
 """
 
 from __future__ import annotations
@@ -128,13 +132,9 @@ def axis(mesh, name: str):
 def check_mesh(mesh) -> None:
     """Raises NotImplementedError for an axis whose parallel form is not
     ported."""
-    for name, form in (("model", "tensor parallelism"),
-                       ("seq", "sequence parallelism (ring attention)"),
-                       ("pipe", "the GPipe pipeline")):
-        if axis(mesh, name)[0] > 1:
-            raise NotImplementedError(
-                f"{form} over mesh axis {name!r} is not ported to PyTorch "
-                "yet")
+    if axis(mesh, "pipe")[0] > 1:
+        raise NotImplementedError("the GPipe pipeline over mesh axis 'pipe' "
+                                  "is not ported to PyTorch yet")
 
 
 def shard_params(params: dict, mesh) -> dict:
@@ -169,14 +169,23 @@ def shard_params(params: dict, mesh) -> dict:
     return tree
 
 
-def local_batch(tokens: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's rows of the global batch: the batch is split over
-    `data` and replicated over the other axes (the JAX package's
-    ``batch_sharding`` with seq = 1)."""
+def local_batch(tokens: torch.Tensor, mesh) -> tuple:
+    """(tokens, targets) of this rank from the global batch [B, S]: its
+    rows (the batch split over `data`), its chunk of the columns (split
+    over `seq`), replicated over the other axes, as the JAX package's
+    ``batch_sharding`` places them. The targets are the next tokens: the
+    last position of a chunk predicts the first token of the next chunk,
+    so only the last chunk has no target for its last position (JAX drops
+    ``logits[:, :-1]``'s last column of the whole sequence)."""
     check_mesh(mesh)
-    size, rank, _ = axis(mesh, "data")
-    if tokens.shape[0] % size:
-        raise ValueError(f"batch {tokens.shape[0]} does not split over "
-                         f"data={size}")
-    rows = tokens.shape[0] // size
-    return tokens[rank * rows:(rank + 1) * rows]
+    cut = []
+    for dim, name in enumerate(("data", "seq")):
+        size, rank, _ = axis(mesh, name)
+        if tokens.shape[dim] % size:
+            raise ValueError(f"tokens dim {dim} ({tokens.shape[dim]}) does "
+                             f"not split over {name}={size}")
+        block = tokens.shape[dim] // size
+        cut.append((rank * block, block))
+    (row, rows), (col, cols) = cut
+    tokens = tokens[row:row + rows]
+    return tokens[:, col:col + cols], tokens[:, col + 1:col + cols + 1]

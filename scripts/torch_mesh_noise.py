@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""How far apart equivalent bf16 runs of the port's trainers lie, and which
+mesh axis moves a multi-card run away from the run it is held to.
+
+chip_smoke.py's multi-card checks train for two steps and compare losses,
+gradient norms and gradient projections (chip_smoke.mesh_train,
+deviation). At init the MoE router's probabilities are near-uniform over
+the experts, so a rounding flips tokens' top-2 choices. This script prints
+chip_smoke.deviation for the cases named on its command line:
+
+ep, phase 10's MoE model as the expert-parallel check trains it:
+- a repeat of the one-process run (B=2), which should be bit-equal;
+- the one-process run with plain attention in place of the kernels (an
+  equivalent computation that rounds differently);
+- MeshSpec(data=2, expert=2) against the one-process run (B=2), and
+  MeshSpec(expert=2) (B=1) and MeshSpec(data=2) (B=2) alone;
+
+tp, the tensor-parallel check's cases (chip_smoke.MESH_CASES), B=1:
+- a repeat of phase 12's one-card ring run (the dense model with ring
+  attention on a one-rank mesh), and that run against the flash run on
+  one process (phase 12's distance);
+- MeshSpec(seq=2, model=2) with ring attention against the one-card ring
+  run, and MeshSpec(seq=2) and MeshSpec(model=2) alone;
+- for phase 10's model: a repeat, plain attention against flash, and
+  MeshSpec(expert=2, model=2) and MeshSpec(model=2) against one process.
+
+Run on four cards: python3 scripts/torch_mesh_noise.py [ep] [tp]
+(both without arguments).
+"""
+
+import dataclasses
+import math
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from dynolog_tpu_torch.ops import _build  # noqa: E402
+from dynolog_tpu_torch.parallel.launch import spawn  # noqa: E402
+
+
+def on_mesh(cfg, spec: dict) -> list:
+    """chip_smoke.mesh_train's result of every rank of MeshSpec(**spec)."""
+    cs.free_cache()
+    return spawn(cs._mesh_rank, math.prod(spec.values()), "nccl",
+                 (cfg, spec), timeout_s=300)
+
+
+def ep_rows() -> list:
+    cfg = cs.moe_config()
+    one = {rows: cs.mesh_train(cfg, rows) for rows in (1, 2)}
+    plain = cs.mesh_train(dataclasses.replace(cfg, attn_impl="reference"), 2)
+    rows = [("repeat, B=2", cs.mesh_train(cfg, 2), one[2]),
+            ("plain attention, B=2", plain, one[2])]
+    for spec in ({"data": 2, "expert": 2}, {"expert": 2}, {"data": 2}):
+        rows += [(f"{spec} rank {r}", got, one[spec.get("data", 1)])
+                 for r, got in enumerate(on_mesh(cfg, spec))]
+    return rows
+
+
+def tp_rows() -> list:
+    ring_cfg = cs.dense_config("ring")
+    ring = on_mesh(ring_cfg, {})[0]
+    rows = [("ring repeat", on_mesh(ring_cfg, {})[0], ring),
+            ("ring against flash", ring, cs.mesh_train(cs.dense_config()))]
+    for spec in ({"seq": 2, "model": 2}, {"seq": 2}, {"model": 2}):
+        rows += [(f"ring {spec} rank {r}", got, ring)
+                 for r, got in enumerate(on_mesh(ring_cfg, spec))]
+    moe = cs.moe_config()
+    one = cs.mesh_train(moe)
+    plain = cs.mesh_train(dataclasses.replace(moe, attn_impl="reference"))
+    rows += [("MoE repeat", cs.mesh_train(moe), one),
+             ("MoE plain attention", plain, one)]
+    for spec in ({"expert": 2, "model": 2}, {"model": 2}):
+        rows += [(f"MoE {spec} rank {r}", got, one)
+                 for r, got in enumerate(on_mesh(moe, spec))]
+    return rows
+
+
+def main() -> int:
+    cases = sys.argv[1:] or ["ep", "tp"]
+    if not set(cases) <= {"ep", "tp"}:
+        print("usage: torch_mesh_noise.py [ep] [tp]", file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() < 4:
+        print("torch_mesh_noise: needs four cards", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 router
+    print(cs.nvidia_smi_line(), flush=True)
+    _build.build_all()
+    for case in cases:
+        for name, a, b in {"ep": ep_rows, "tp": tp_rows}[case]():
+            print(f"{name}: losses {a['losses']} against {b['losses']}; "
+                  f"{cs.deviation(a, b)}; steps {a['step_ms']} ms; peak "
+                  f"{a['peak_gib']:.2f} GiB", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

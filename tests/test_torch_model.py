@@ -102,11 +102,15 @@ def test_llama_8b_like_matches_jax_widths():
     assert ttr.TransformerConfig.llama_8b_like(n_layers=2).d_model == 4096
 
 
-@pytest.mark.parametrize("overrides", [{"attn_impl": "ring"}])
-def test_unported_features_raise(overrides):
-    cfg = ttr.TransformerConfig(**DIMS, **overrides)
-    with pytest.raises(NotImplementedError):
-        ttr.init_params(cfg, "cpu")
+@pytest.mark.parametrize("entry", ["forward", "loss_fn"])
+def test_ring_without_a_mesh_raises(entry):
+    """Ring attention needs the mesh's `seq` axis, as the JAX package's
+    _attention says (ValueError); its weights need none."""
+    cfg = ttr.TransformerConfig(**DIMS, attn_impl="ring")
+    params = ttr.init_params(cfg, "cpu", torch.Generator().manual_seed(0))
+    tokens = torch.zeros(1, 8, dtype=torch.int64)
+    with pytest.raises(ValueError, match="requires a mesh"):
+        getattr(ttr, entry)(params, tokens, cfg)
 
 
 def test_cuda_default_raises_without_a_card():

@@ -82,6 +82,28 @@ def test_capture_records_training_thread_ops(offline_client, tmp_path):
     assert len(steps) >= 3, steps
 
 
+def test_stop_leaves_events_unparsed(tmp_path):
+    """stop() on the training thread only ends kineto's collection: it
+    parses no event into FunctionEvents (torch's acc_events would), and
+    the exported trace still holds its ProfilerStep#N spans."""
+    a = torch.randn(32, 32)
+    prof = TorchProfiler()
+    prof.start(str(tmp_path))
+    for _ in range(3):
+        (a @ a).sum()
+        prof.step()
+    prof.stop()
+    profile = prof._stopped.profiler
+    assert profile._function_events is None and profile._needs_processing
+    assert profile._stats.parse_kineto_call_duration_us == 0
+    events = _events(prof.export(str(tmp_path)))
+    assert profile._function_events is None
+    steps = {e["name"] for e in events
+             if e.get("name", "").startswith("ProfilerStep#")}
+    assert len(steps) >= 3, steps
+    assert any(e.get("name") == "aten::mm" for e in events)
+
+
 def test_duration_capture_of_train_steps(offline_client, tmp_path):
     gen = torch.Generator().manual_seed(0)
     params, opt = make_train_state(TINY, "cpu", gen)

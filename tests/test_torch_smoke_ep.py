@@ -1,9 +1,13 @@
-"""The measures of chip_smoke.py's multi-card expert-parallel check
-(ep_train, leaf_checks, deviation) on gloo processes on the CPU, at a
-tiny f32 width: a correct expert-parallel run lies within f32 rounding of
-the one-process run, and one whose gradients are not averaged over
-`data` lies further than the check's tolerance, on the gradient norms
-and on the projections alike."""
+"""The measures of chip_smoke.py's multi-card checks (mesh_train,
+leaf_checks, deviation) on gloo processes on the CPU, at a tiny f32
+width: a correct expert-parallel run lies within f32 rounding of the
+one-process run, and one whose gradients are not averaged over `data`
+lies further than the check's tolerance, on the gradient norms and on
+the projections alike; so do correct runs over the meshes of the
+tensor-parallel check (a) and (b), whose leaves are cut over `model` and
+`seq` too."""
+
+import dataclasses
 
 import pytest
 import torch
@@ -20,6 +24,16 @@ SPEC = {"data": 2, "expert": 2}
 SEQ = 16
 
 
+class OneRank:
+    """A stand-in mesh of one rank, for ring attention on one process:
+    the DeviceMesh methods sharding.axis reads, every axis of size 1."""
+
+    mesh_dim_names = ("data", "seq", "model", "expert", "pipe")
+
+    def size(self, dim):
+        return 1
+
+
 def _rank(rank, world, spec, drop_grad_mean):
     torch.set_num_threads(1)
     if drop_grad_mean:  # the loss is still averaged, the gradients not
@@ -27,7 +41,13 @@ def _rank(rank, world, spec, drop_grad_mean):
         ttrain._mean_over_data = lambda tensors, mesh: mean(tensors[-1:],
                                                             mesh)
     mesh = sharding.make_mesh(sharding.MeshSpec(**spec), "cpu")
-    return chip_smoke.ep_train(CFG, spec["data"], mesh, "cpu", SEQ)
+    return chip_smoke.mesh_train(CFG, spec["data"], mesh, "cpu", SEQ)
+
+
+def _mesh_rank(rank, world, cfg, spec):
+    torch.set_num_threads(1)
+    mesh = sharding.make_mesh(sharding.MeshSpec(**spec), "cpu")
+    return chip_smoke.mesh_train(cfg, 1, mesh, "cpu", SEQ)
 
 
 @pytest.mark.parametrize("drop_grad_mean", [False, True],
@@ -35,7 +55,7 @@ def _rank(rank, world, spec, drop_grad_mean):
 def test_ep_check_measures(drop_grad_mean):
     ranks = launch.spawn(_rank, 4, "gloo", (SPEC, drop_grad_mean),
                          timeout_s=60)
-    one = chip_smoke.ep_train(CFG, SPEC["data"], None, "cpu", SEQ)
+    one = chip_smoke.mesh_train(CFG, SPEC["data"], None, "cpu", SEQ)
     assert len(one["losses"]) == chip_smoke.EP_STEPS
     assert set(one["leaves"]) == {p for p, _ in chip_smoke.named_leaves(
         init_params(CFG, "cpu", torch.Generator().manual_seed(0)))}
@@ -47,3 +67,36 @@ def test_ep_check_measures(drop_grad_mean):
             assert dev["projection"] > chip_smoke.EP_TOL, dev
         else:
             assert max(dev.values()) <= 1e-5, dev
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.MESH_CASES))
+def test_mesh_check_measures(case):
+    """The multi-card checks' meshes, (a) the dense model with ring
+    attention over MeshSpec(seq=2, model=2) against a one-rank ring run
+    and (b) the MoE model over MeshSpec(expert=2, model=2) against one
+    process: the projections of leaves cut over `model` (and `expert`)
+    are summed over the blocks, so a correct run lies within f32
+    rounding."""
+    spec = chip_smoke.MESH_CASES[case]
+    cfg = (dataclasses.replace(CFG, n_experts=0, attn_impl="ring")
+           if case == "tp" else CFG)
+    ranks = launch.spawn(_mesh_rank, 4, "gloo", (cfg, spec), timeout_s=60)
+    one = chip_smoke.mesh_train(cfg, 1, OneRank() if case == "tp" else None,
+                                "cpu", SEQ)
+    for got in ranks:
+        dev = chip_smoke.deviation(got, one)
+        assert max(dev.values()) <= 1e-5, dev
+
+
+def test_limits_hold_the_measured_noise_twice():
+    """The first loss and the norms at EP_TOL, the rest at twice the
+    in-run floor; a mesh's measured noise raises a limit to twice it,
+    never lowers one."""
+    floor = {"loss1": 0.5, "loss2": 0.001, "norm": 0.5, "projection": 0.03}
+    limits = chip_smoke.limits_for(floor)
+    assert limits == {"loss1": chip_smoke.EP_TOL, "loss2": chip_smoke.EP_TOL,
+                      "norm": chip_smoke.EP_TOL, "projection": 0.06}
+    limits = chip_smoke.limits_for(floor, {"loss2": 0.1, "norm": 0.001,
+                                           "projection": 0.02})
+    assert limits == {"loss1": chip_smoke.EP_TOL, "loss2": 0.2,
+                      "norm": chip_smoke.EP_TOL, "projection": 0.06}

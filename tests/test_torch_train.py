@@ -105,6 +105,22 @@ def test_optimizer_keeps_moments_in_param_dtype():
             group["weight_decay"]) == (3e-4, (0.9, 0.999), 1e-8, 0.01)
 
 
+def test_optimizer_is_fused():
+    """One fused AdamW pass per group of one device and dtype: the MoE
+    tree mixes bf16 leaves and the f32 router, and fused=True takes
+    both."""
+    cfg = ttr.TransformerConfig(**DIMS, n_experts=4)
+    params, opt = ttrain.make_train_state(
+        cfg, "cpu", torch.Generator().manual_seed(0))
+    assert {p.dtype for p in ttr.param_leaves(params)} == {
+        torch.bfloat16, torch.float32}
+    assert all(g["fused"] and not g["foreach"] for g in opt.param_groups)
+    ttrain.make_train_step(cfg)(params, opt, ttrain.make_batch(
+        torch.Generator().manual_seed(1), cfg, 2, 16, "cpu"))
+    assert all(int(opt.state[p]["step"]) == 1
+               for p in ttr.param_leaves(params))
+
+
 def test_make_batch_range_and_shape():
     cfg = ttr.TransformerConfig(**DIMS)
     batch = ttrain.make_batch(torch.Generator().manual_seed(2), cfg, 3, 10,

@@ -1,0 +1,108 @@
+"""Rank bodies of the port's multi-process parity tests
+(tests/test_torch_ring_attention.py, tests/test_torch_tensor_parallel.py).
+
+``parallel.launch.spawn`` starts each rank with the 'spawn' method, which
+re-imports the module of the rank's function by name. The test modules
+import JAX; this one imports only torch, numpy and the port, so a rank
+starts in about half the time and the gloo ranks load the CPUs less.
+
+Each body calls ``torch.set_num_threads(1)``: a test spawns up to 8 ranks
+beside the other test workers. A `fault` names a planted fault that the
+test's comparison must reject; the body plants it in its own process.
+"""
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from dynolog_tpu_torch.models import train, transformer
+from dynolog_tpu_torch.models.convert import params_from_jax
+from dynolog_tpu_torch.parallel import comm, sharding
+from dynolog_tpu_torch.parallel import ring_attention as ring
+
+AXES = ("data", "seq", "model", "expert")
+
+
+def named(tree) -> dict:
+    """{path: leaf} with PARAM_RULES' paths ("layers/0/wq")."""
+    out = {n: tree[n] for n in ("embedding", "w_out", "final_scale")}
+    for i, layer in enumerate(tree["layers"]):
+        out.update({f"layers/{i}/{n}": v for n, v in layer.items()})
+    return out
+
+
+def _plant(fault) -> None:
+    if fault is None:
+        return
+    if fault == "mask_without_src_offset":
+        mask = ring._causal_mask
+        ring._causal_mask = lambda q_idx, k_idx, s_loc, device: mask(
+            q_idx, 0, s_loc, device)
+    elif fault == "positions_without_seq_offset":
+        positions = transformer.token_positions
+        transformer.token_positions = lambda tokens, mesh=None: positions(
+            tokens)
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def _coords(mesh) -> dict:
+    return {a: sharding.axis(mesh, a)[1] for a in AXES}
+
+
+def ring_rank(rank, world, spec, q, k, v, g, fault=None):
+    """Ring attention on this rank's block of global q, k, v ([B, S, H, D]
+    numpy), its output's gradient given by `g`: (coordinates, output,
+    dq, dk, dv) of the block."""
+    torch.set_num_threads(1)
+    _plant(fault)
+    mesh = sharding.make_mesh(sharding.MeshSpec(**spec), "cpu")
+    coord = _coords(mesh)
+    rows = q.shape[0] // spec.get("data", 1)
+    cols = q.shape[1] // spec.get("seq", 1)
+
+    def block(x):
+        r, c = coord["data"] * rows, coord["seq"] * cols
+        return torch.from_numpy(x[r:r + rows, c:c + cols].copy())
+
+    qb, kb, vb = (block(x).requires_grad_(True) for x in (q, k, v))
+    out = ring.ring_attention(qb, kb, vb, mesh)
+    out.backward(block(g))
+    return (coord, out.detach().numpy(),
+            *(x.grad.numpy() for x in (qb, kb, vb)))
+
+
+def train_rank(rank, world, spec, dims, np_params, tokens, fault=None):
+    """One train step of the port under MeshSpec(**spec), f32, from the
+    JAX package's parameters (numpy tree, each rank keeps its slice) on
+    the global batch `tokens`: its loss, coordinates and every leaf's
+    gradient after the step."""
+    torch.set_num_threads(1)
+    _plant(fault)
+    mesh = sharding.make_mesh(sharding.MeshSpec(**spec), "cpu")
+    cfg = transformer.TransformerConfig(**dims)
+    params = sharding.shard_params(
+        params_from_jax(np_params, "cpu", torch.float32), mesh)
+    step = train.make_train_step(cfg, mesh)
+    loss = step(params, train.make_optimizer(params), torch.from_numpy(
+        np.asarray(tokens, np.int64)))
+    return {"loss": float(loss), "coord": _coords(mesh),
+            "grads": {n: p.grad.numpy().copy()
+                      for n, p in named(params).items()}}
+
+
+def comm_rank(rank, world):
+    """ring_shift and gather_from_group over the whole group, forward and
+    backward, on values that name their rank: (shifted, its input's
+    gradient, gathered, its input's gradient)."""
+    torch.set_num_threads(1)
+    group = dist.group.WORLD
+    x = torch.full((2, 3), float(rank), requires_grad=True)
+    shifted = comm.ring_shift(x, group)
+    # The gradient of the shifted value is 10 x its receiver's rank.
+    shifted.backward(torch.full_like(shifted, 10.0 * rank))
+    y = (torch.arange(2.0) + 10 * rank).requires_grad_(True)
+    gathered = comm.gather_from_group(y[None], -1, group)
+    gathered.backward(torch.arange(2.0 * world)[None])
+    return (shifted.detach().numpy(), x.grad.numpy(),
+            gathered.detach().numpy(), y.grad.numpy())
