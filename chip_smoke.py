@@ -59,29 +59,44 @@ if any phase fails:
    held against the same steps of the flash trainer on one process: the
    distance between ring numerics (f32 softmax, plain products) and the
    flash kernels' at full width;
+13. pipeline: the GPipe trainer (reference attention, as the JAX
+   package's pipeline) at the same widths, 2 layers, B=2 in 2
+   microbatches, on a one-rank NCCL mesh MeshSpec(pipe=1), trained under a
+   capture that the port's unitrace (python -m
+   dynolog_tpu_torch.cluster.unitrace --hosts localhost:<port>) triggers
+   in duration mode: the capture must begin at or after the
+   PROFILE_START_TIME unitrace printed and within one step of it, and its
+   summary must name the steps; its losses and per-leaf gradient norms
+   and projections are held against the dense trainer with reference
+   attention on one process on the same batch;
 
 then, with two cards or more, phase 10's model trained expert-parallel
 over NCCL (data x expert, one process per card) for two steps, held in
 the same way against the same steps on one process; and with four cards
 or more, (a) the dense trainer with ring attention over
-MeshSpec(seq=2, model=2) against phase 12's one-card ring run and (b)
+MeshSpec(seq=2, model=2) against phase 12's one-card ring run, (b)
 phase 10's model over MeshSpec(expert=2, model=2) (flash attention on
-each rank's heads) against one process (with fewer cards each is logged
-as not run: NCCL cannot place two ranks on one card).
-`python3 chip_smoke.py --ep` builds the kernels and runs the
+each rank's heads) against one process, and (c) the GPipe trainer at 4
+layers (one a stage) over MeshSpec(pipe=4), B=4 in 4 microbatches, each
+rank under a capture of its own daemon that one unitrace run over the
+four daemons triggers (every rank's trace must hold the handoffs' NCCL
+send/recv kernels), against the same model on one process (with fewer
+cards each is logged as not run: NCCL cannot place two ranks on one
+card). `python3 chip_smoke.py --ep` builds the kernels and runs the
 expert-parallel check alone; `python3 chip_smoke.py --mesh` builds them
-and runs phase 12 and the checks (a) and (b) alone.
+and the daemon, and runs phase 12 and the checks (a), (b) and (c).
 
 The launch counters are zeroed just before each main path (phases 4-5,
-the dense trainer; phase 10, the MoE trainer; phase 12's ring run; in
-each rank of a multi-card check, its steps) and read just after; phases 7
-and 8 drive the dense trainer again, each with the counters zeroed before
-it and read after it. The last lines are the card's name and power
-limit, a JSON object with one entry per kernel (launches: phases 4-5 and
-10 together, and in launches_by_path each path's own: ring, whose plain
-products launch no kernel, the expert-parallel ranks' total as moe_ep,
-the ranks' totals of (a) and (b) as tp and moe_tp, or null where a check
-did not run), and {"ok": true, "device": ...}.
+the dense trainer; phase 10, the MoE trainer; phase 12's ring run; phase
+13's pipeline run; in each rank of a multi-card check, its steps) and
+read just after; phases 7 and 8 drive the dense trainer again, each with
+the counters zeroed before it and read after it. The last lines are the
+card's name and power limit, a JSON object with one entry per kernel
+(launches: phases 4-5 and 10 together, and in launches_by_path each
+path's own: ring and pp (phase 13), whose plain products launch no
+kernel, the expert-parallel ranks' total as moe_ep, the ranks' totals of
+(a), (b) and (c) as tp, moe_tp and pp_mesh, or null where a check did
+not run), and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -166,11 +181,25 @@ MESH_CASES = {"tp": {"seq": 2, "model": 2},
 # partial sums apart, the router of the next layer flips near-tied
 # choices, and the router's own gradient norm moves most (model=2 alone:
 # second loss 0.165, norm 0.030). A check holds each of these at twice
-# its value at least.
+# its value at least. The pipeline's numbers are the same for pipe=1, 2
+# and 4: microbatching (B=4 in 4) moves them, the stages do not.
 MESH_NOISE = {
     "tp": {"loss2": 0.0027518, "norm": 0.00047846, "projection": 0.019803},
     "moe_tp": {"loss2": 0.13079, "norm": 0.026408, "projection": 0.36328},
+    "pp": {"loss2": 0.00010872, "norm": 0.00031659, "projection": 0.012172},
 }
+# Phase 13 and the multi-card check (c): the GPipe trainer (reference
+# attention, as the JAX package's pipeline runs) at `rows` rows of S=2048
+# in `n_micro` microbatches, held against the dense trainer with
+# reference attention on one process, on the same batch. Phase 13 is one
+# stage at N_LAYERS layers; (c) is the JAX package's dp x pp mesh
+# {data: 2, pipe: 4} with `data` dropped to fit four cards, one layer a
+# stage.
+PIPE_ONE = dict(spec={"pipe": 1}, n_layers=N_LAYERS, rows=2, n_micro=2)
+PIPE_MESH = dict(spec={"pipe": 4}, n_layers=4, rows=4, n_micro=4)
+# The pipeline trains under one capture that the port's unitrace triggers
+# through every rank's daemon, in duration mode, this long after it runs.
+UNITRACE_DELAY_S, CAPTURE_MS = 2, 400
 STEPS = 5  # uncaptured, timed train steps before the capture
 ITERATIONS = 2  # steps per daemon-triggered capture
 # The capture latency (RPC -> manifest) of earlier runs of this script on
@@ -1129,13 +1158,16 @@ def check_stop_unparsed(trainer, tmp: Path) -> dict:
     return stats
 
 
-def named_leaves(params: dict) -> list:
-    """(path, leaf) in param_leaves' order, paths as PARAM_RULES reads
-    them ("layers/0/router")."""
-    out = [(name, params[name]) for name in ("embedding", "w_out",
-                                             "final_scale")]
-    for i, layer in enumerate(params["layers"]):
-        out += [(f"layers/{i}/{name}", layer[name]) for name in sorted(layer)]
+def named_leaves(params: dict, first_layer: int = 0) -> list:
+    """(index, path, leaf) in param_leaves' order, paths as PARAM_RULES
+    reads them ("layers/0/router"). A pipeline stage's tree holds the
+    layers from `first_layer` on: paths and indices are those of the
+    whole tree, so a leaf's projection seed is the same on every run."""
+    out = [(k, name, params[name])
+           for k, name in enumerate(("embedding", "w_out", "final_scale"))]
+    for i, layer in enumerate(params["layers"], first_layer):
+        out += [(3 + i * len(layer) + j, f"layers/{i}/{name}", layer[name])
+                for j, name in enumerate(sorted(layer))]
     return out
 
 
@@ -1197,8 +1229,7 @@ def mesh_train(cfg, rows: int = 1, mesh=None, device: str = "cuda",
         step_ms.append((time.perf_counter() - t0) * 1e3)
         if cuda:
             peaks.append(torch.cuda.max_memory_allocated() / 2**30)
-        for n, (path, leaf) in enumerate(named_leaves(params) if i == 0
-                                         else ()):
+        for n, path, leaf in named_leaves(params) if i == 0 else ():
             leaves[path] = leaf_checks(path, leaf.grad, mesh, 2 + n)
     return {"losses": losses, "leaves": leaves,
             "launches": dict(F.launches), "step_ms": step_ms,
@@ -1383,19 +1414,308 @@ def phase_multicard_mesh(ring: dict, ring_distance: dict) -> dict | None:
     return counts
 
 
+def pipe_config(n_layers: int):
+    """Llama-3-8B widths, `n_layers` layers, bf16, reference attention."""
+    return dataclasses.replace(dense_config("reference"), n_layers=n_layers)
+
+
+def _pipe_rank(rank: int, world: int, cfg, spec: dict, rows: int,
+               n_micro: int, capture: dict | None = None,
+               device: str = "cuda", seq: int = SLICE["s"]) -> dict:
+    """One rank of phase 13 or of the check (c): EP_STEPS steps of the
+    GPipe trainer on this rank of MeshSpec(**spec) from seed 0 on the
+    global batch of seed 1 (`rows` rows of `seq` tokens), as mesh_train
+    runs the dense trainer. Returns the losses, this rank's leaves'
+    gradient norms and projections after the first step (paths and seeds
+    of the whole tree), the launches, the steps' times and peak.
+
+    Under `capture` ({"endpoints", "ports", "job_id", "log_file"}) every
+    rank's TraceClient registers with its own daemon (endpoints[rank]),
+    rank 0 runs the port's unitrace over every daemon (ports) after the
+    first step, and the ranks train on, in step, until every rank's
+    capture has completed. Each rank then also returns its manifest and
+    the wall-clock ms at which each of its client.step() calls began;
+    rank 0 returns unitrace's exit code and output. Off the card
+    (`device`) the times are the host's and the peak is None."""
+    import torch.distributed as dist
+
+    from dynolog_tpu_torch.client import TraceClient
+    from dynolog_tpu_torch.models.train import make_batch
+    from dynolog_tpu_torch.parallel.pipeline import (
+        make_pipeline_train_state, make_pipeline_train_step, stage_layers)
+    from dynolog_tpu_torch.parallel.sharding import MeshSpec, make_mesh
+
+    F = importlib.import_module("dynolog_tpu_torch.ops.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent's runs
+    cuda = torch.device(device).type == "cuda"
+    mesh = make_mesh(MeshSpec(**spec), device)
+    params, opt = make_pipeline_train_state(
+        cfg, mesh, device, torch.Generator(device=device).manual_seed(0))
+    tokens = make_batch(torch.Generator(device=device).manual_seed(1), cfg,
+                        rows, seq, device)
+    step = make_pipeline_train_step(cfg, mesh, n_micro)
+    first = stage_layers(cfg.n_layers, mesh)[0]
+    client = unitrace = None
+    if capture is not None:
+        client = TraceClient(job_id=capture["job_id"],
+                             endpoint=capture["endpoints"][rank],
+                             poll_interval_s=0.2, report_interval_s=1.0)
+        if not client.start():
+            raise RuntimeError(f"rank {rank}'s shim could not register")
+        dist.barrier()  # every shim registered before the trigger
+    F.reset_launches()
+    losses, leaves, step_ms, peaks, marks = [], {}, [], [], []
+    flag = torch.zeros((), dtype=torch.int32, device=device)
+    deadline = time.time() + 180
+    try:
+        while True:
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses.append(float(step(params, opt, tokens)))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if cuda:
+                peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            for n, path, leaf in (named_leaves(params, first)
+                                  if len(losses) == 1 else ()):
+                leaves[path] = leaf_checks(path, leaf.grad, mesh, 2 + n)
+            if client is not None:
+                marks.append(int(time.time() * 1000))
+                client.step()
+            # Every rank takes the same steps: stop when all are done.
+            flag.fill_(int(time.time() > deadline or (
+                len(losses) >= EP_STEPS
+                and (client is None or client.traces_completed >= 1))))
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+            if flag.item():
+                break
+            if capture is not None and rank == 0 and unitrace is None:
+                # After the first step (NCCL's set-up, seconds), so that
+                # the start time falls among steady steps.
+                unitrace = subprocess.Popen(
+                    [sys.executable, "-m",
+                     "dynolog_tpu_torch.cluster.unitrace",
+                     "--hosts=" + ",".join(f"localhost:{p}"
+                                           for p in capture["ports"]),
+                     f"--job-id={capture['job_id']}",
+                     f"--log-file={capture['log_file']}",
+                     f"--duration-ms={CAPTURE_MS}",
+                     f"--start-time-delay={UNITRACE_DELAY_S}"],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True, cwd=REPO)
+    finally:
+        if client is not None:
+            client.stop()
+            for proc in client.summary_procs:
+                proc.wait(timeout=120)
+        if unitrace is not None:
+            out, _ = unitrace.communicate(timeout=60)
+    got = {"losses": losses[:EP_STEPS], "leaves": leaves,
+           "launches": dict(F.launches), "step_ms": step_ms,
+           "peak_gib": max(peaks) if cuda else None}
+    if client is not None:
+        if client.traces_completed < 1:
+            raise RuntimeError(f"rank {rank}: no capture in {len(losses)} "
+                               f"steps: {client.last_error}")
+        got.update(manifest=client.last_manifest, marks=marks)
+    if unitrace is not None:
+        got["unitrace"] = (unitrace.returncode, out)
+    return got
+
+
+def merged(ranks: list) -> dict:
+    """The pipeline ranks' runs as one run of the whole tree: each rank's
+    leaves, the losses (the same on every rank), the launches summed, the
+    slowest rank's step times and the largest peak. Raises if two ranks
+    disagree on a loss or on a replicated leaf's numbers."""
+    run = {"losses": ranks[0]["losses"], "leaves": {}, "step_ms": [
+        max(t) for t in zip(*(r["step_ms"] for r in ranks))],
+        "peak_gib": max(r["peak_gib"] or 0 for r in ranks),
+        "launches": {k: sum(r["launches"][k] for r in ranks)
+                     for k in ranks[0]["launches"]}}
+    for r, got in enumerate(ranks):
+        if got["losses"] != run["losses"]:
+            raise AssertionError(f"rank {r}'s losses {got['losses']} differ "
+                                 f"from rank 0's {run['losses']}")
+        for path, numbers in got["leaves"].items():
+            if run["leaves"].setdefault(path, numbers) != numbers:
+                raise AssertionError(f"{path} differs on rank {r}: "
+                                     f"{numbers}, {run['leaves'][path]}")
+    return run
+
+
+def trace_split(trace_file: str, n_steps: int) -> dict:
+    """A captured pipeline rank's kernel time per step (ms): compute, the
+    NCCL send/recv kernels of the stage handoffs (which hold a stage that
+    waits on its peer, so they carry the bubble's wait too), and the idle
+    time between the first kernel and the last."""
+    with open(trace_file) as f:
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    handoff = [e for e in kernels
+               if re.search(r"nccl.*(Send|Recv)", e.get("name", ""))]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    total = sum(e["dur"] for e in kernels)
+    nccl = sum(e["dur"] for e in handoff)
+    span = spans[-1][1] - spans[0][0] if spans else 0.0
+    return {"steps": n_steps, "handoff_kernels": len(handoff),
+            **{k: round(v / 1e3 / max(n_steps, 1), 3) for k, v in (
+                ("compute_ms", total - nccl), ("handoff_ms", nccl),
+                ("idle_ms", span - busy))}}
+
+
+def check_pipe_capture(ranks: list, n_hosts: int) -> list:
+    """Failure messages for the capture of a pipeline run: unitrace must
+    have triggered every host, every rank's manifest must carry the start
+    time unitrace printed, its window must open at or after it and within
+    one step of it, its summary must name the steps and, with more than
+    one stage, its trace must hold the handoffs' NCCL send/recv
+    kernels."""
+    from dynolog_tpu_torch import trace
+
+    rc, out = ranks[0]["unitrace"]
+    found = re.search(r"synchronized start: (\d+)", out)
+    if rc != 0 or out.count("[ok]") != n_hosts or not found:
+        return [f"unitrace exited {rc} and printed:\n{out}"]
+    start, failures = int(found.group(1)), []
+    log(f"  unitrace: {' | '.join(out.strip().splitlines())}")
+    for r, got in enumerate(ranks):
+        m, marks = got["manifest"], got["marks"]
+        after = [i for i, b in enumerate(marks) if b >= start]
+        opened = max((i for i, b in enumerate(marks)
+                      if b <= m["started_ms"]), default=-1)
+        summary = trace.summarize(m["trace_file"], group=False)
+        steps = summary.get("steps", {})
+        split = trace_split(m["trace_file"], steps.get("count", 0))
+        log(f"  rank {r}: capture {m['status']}, PROFILE_START_TIME "
+            f"{m['config'].get('PROFILE_START_TIME')}, began "
+            f"{m['started_ms'] - start} ms after it, at step {opened + 1} of "
+            f"{len(marks)} (the first at or after it: step "
+            f"{after[0] + 1 if after else None}); timing {m['timing']}; "
+            f"summary steps {steps}; per step {split}")
+        if (m["status"] != "ok"
+                or m["config"].get("PROFILE_START_TIME") != str(start)
+                or m["started_ms"] < start or not after
+                or opened - after[0] > 1):
+            failures.append(f"rank {r}'s capture did not begin within one "
+                            f"step of {start}: {m}")
+        if not steps.get("count"):
+            failures.append(f"rank {r}'s summary names no step: {steps}")
+        if len(ranks) > 1 and not split["handoff_kernels"]:
+            failures.append(f"rank {r}'s trace holds no NCCL send/recv "
+                            "kernel")
+    return failures
+
+
+def phase_pipeline(daemon) -> dict:
+    """Phase 13: EP_STEPS steps of the GPipe trainer (PIPE_ONE) on a
+    one-rank NCCL mesh, under a capture that the port's unitrace triggers
+    through `daemon`, held against the dense trainer with reference
+    attention on one process on the same batch, its floor the distance of
+    the flash trainer's run from that one. Returns the pipeline's run."""
+    from dynolog_tpu_torch.parallel.launch import spawn
+
+    cfg = pipe_config(PIPE_ONE["n_layers"])
+    tmp = Path(tempfile.mkdtemp(prefix="dynotpu_pipe_"))
+    capture = {"endpoints": [daemon.endpoint], "ports": [daemon.port],
+               "job_id": 5100 + os.getpid() % 1000,
+               "log_file": str(tmp / "pipe.json")}
+    free_cache()
+    ranks = spawn(_pipe_rank, 1, "nccl",
+                  (cfg, PIPE_ONE["spec"], PIPE_ONE["rows"],
+                   PIPE_ONE["n_micro"], capture), timeout_s=300)
+    run = merged(ranks)
+    ref = mesh_train(cfg, PIPE_ONE["rows"])
+    floor = deviation(mesh_train(dense_config(), PIPE_ONE["rows"]), ref)
+    limits = limits_for(floor)
+    log(f"  GPipe {PIPE_ONE}: {len(ranks[0]['step_ms'])} steps; "
+        f"flash against reference attention, one process: {floor}; "
+        f"limits {limits}")
+    failures = hold("dense, reference attention, one process", ref, cfg)
+    failures += hold("GPipe, one-rank mesh", run, cfg, ref, limits)
+    failures += check_pipe_capture(ranks, 1)
+    shutil.rmtree(tmp, ignore_errors=True)
+    free_cache()
+    if failures:
+        raise AssertionError("\n".join(failures))
+    return run
+
+
+def phase_multicard_pipeline() -> dict | None:
+    """The check (c), with four cards or more: EP_STEPS steps of the GPipe
+    trainer over PIPE_MESH's MeshSpec(pipe=4), each rank under a capture
+    of its own daemon that one unitrace run triggers, held against the same
+    model (4 layers, reference attention) on one process, to limits_for
+    the flash run's distance from it and MESH_NOISE["pp"]. Returns the
+    ranks' total launches, or None with fewer cards."""
+    from dynolog_tpu_torch.parallel.launch import spawn
+
+    if torch.cuda.device_count() < 4:
+        log(f"  multi-card pipeline: not run: {torch.cuda.device_count()} "
+            "card(s); the gloo CPU tests cover the pipeline over pipe=2, 4 "
+            "and data=2 x pipe=4")
+        return None
+    cfg = pipe_config(PIPE_MESH["n_layers"])
+    rows = PIPE_MESH["rows"]
+    ref = mesh_train(cfg, rows)
+    floor = deviation(mesh_train(dataclasses.replace(cfg, attn_impl="flash"),
+                                 rows), ref)
+    limits = limits_for(floor, MESH_NOISE["pp"])
+    daemons = [Daemon() for _ in range(4)]
+    tmp = Path(tempfile.mkdtemp(prefix="dynotpu_pipe4_"))
+    try:
+        capture = {"endpoints": [d.endpoint for d in daemons],
+                   "ports": [d.port for d in daemons],
+                   "job_id": 5200 + os.getpid() % 1000,
+                   "log_file": str(tmp / "pipe4.json")}
+        free_cache()
+        t0 = time.time()
+        ranks = spawn(_pipe_rank, 4, "nccl",
+                      (cfg, PIPE_MESH["spec"], rows, PIPE_MESH["n_micro"],
+                       capture), timeout_s=300)
+        log(f"  pp: mesh {PIPE_MESH}, {len(ranks[0]['step_ms'])} steps at "
+            f"S={SLICE['s']}, ranks {time.time() - t0:.1f} s; reference "
+            f"losses {ref['losses']}; floor {floor}; limits {limits}")
+        failures = hold("dense, 4 layers, reference attention, one process",
+                        ref, cfg)
+        for r, got in enumerate(ranks):
+            log(f"  pp rank {r}: steps "
+                f"{[round(t, 1) for t in got['step_ms']]} ms; peak memory "
+                f"{got['peak_gib']:.2f} GiB")
+        failures += hold("pp", merged(ranks), cfg, ref, limits)
+        failures += check_pipe_capture(ranks, len(daemons))
+    finally:
+        for d in daemons:
+            d.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError("\n".join(failures))
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
+
+
 def main_alone(_build, mode: str) -> int:
     """`chip_smoke.py --ep` (two cards or more): the kernels built and the
     expert-parallel check alone. `chip_smoke.py --mesh` (four cards or
-    more): the kernels built, phase 12 and the checks (a) and (b)."""
+    more): the kernels and the daemon built, phase 12 and the checks (a),
+    (b) and (c)."""
     need = {"--ep": 2, "--mesh": 4}[mode]
     if torch.cuda.device_count() < need:
         print(f"chip_smoke {mode}: needs {need} cards or more",
               file=sys.stderr)
         return 2
+    daemon_build = DaemonBuild()
     try:
         smi = nvidia_smi_line()
         log(f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
         torch.backends.cuda.matmul.allow_tf32 = False
+        if mode == "--mesh":
+            daemon_build.start()
         log(f"CUDA kernels built: {_build.build_all()}")
         if mode == "--ep":
             phase_multicard_ep()
@@ -1404,9 +1724,18 @@ def main_alone(_build, mode: str) -> int:
             ring, distance = phase_ring_attention()
             log("multi-card tensor parallelism and ring attention")
             phase_multicard_mesh(ring, distance)
+            daemon_build.join()
+            if daemon_build.error:
+                raise RuntimeError(f"daemon build failed: "
+                                   f"{daemon_build.error}")
+            log("multi-card pipeline")
+            phase_multicard_pipeline()
     except Exception:  # noqa: BLE001 - the check failing fails the run
         traceback.print_exc()
         return 1
+    finally:
+        if daemon_build.is_alive():
+            daemon_build.join()  # leave no compiler running behind us
     print(smi)
     return 0
 
@@ -1502,10 +1831,14 @@ def main() -> int:
         phase_collectives(snap)
         log("phase 12: ring attention")
         ring, ring_distance = phase_ring_attention()
+        log("phase 13: GPipe trainer under a capture triggered by unitrace")
+        pipe = phase_pipeline(daemon)
         log("multi-card expert parallelism")
         ep_counts = phase_multicard_ep()
         log("multi-card tensor parallelism and ring attention")
         mesh_counts = phase_multicard_mesh(ring, ring_distance) or {}
+        log("multi-card pipeline")
+        pipe_counts = phase_multicard_pipeline()
         shutil.rmtree(tmp, ignore_errors=True)
     except Exception:  # noqa: BLE001 - any phase failing fails the run
         traceback.print_exc()
@@ -1525,9 +1858,11 @@ def main() -> int:
             "launches_by_path": {
                 "dense": counts[name], "moe": moe_counts[name],
                 "ring": ring["launches"][name],
+                "pp": pipe["launches"][name],
                 "moe_ep": ep_counts and ep_counts[name],
                 **{path: mesh_counts[path][name] if mesh_counts else None
-                   for path in MESH_CASES}},
+                   for path in MESH_CASES},
+                "pp_mesh": pipe_counts and pipe_counts[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

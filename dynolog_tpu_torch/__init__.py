@@ -7,7 +7,11 @@ It runs beside the JAX package and imports nothing of it (nor JAX):
 - :mod:`dynolog_tpu_torch.models` — the flagship transformer workload,
   dense or MoE, and its AdamW train step;
 - :mod:`dynolog_tpu_torch.parallel` — the mesh, data, sequence (ring
-  attention), tensor and expert parallelism over torch.distributed;
+  attention), tensor and expert parallelism and the GPipe pipeline over
+  torch.distributed;
+- :mod:`dynolog_tpu_torch.cluster` — the cluster fan-out: one synchronized
+  capture across every host of a job (``python -m
+  dynolog_tpu_torch.cluster.unitrace``);
 - :mod:`dynolog_tpu_torch.collectives` — the NCCL collective probe for
   the daemon's file backend;
 - :mod:`dynolog_tpu_torch.ops` — flash attention as hand-written CUDA

@@ -40,6 +40,8 @@ Instrumented sites (see docs/RELIABILITY.md for the catalog)::
                           capture completes without a summary)
     trace.convert         the summary child's entry (throw: the child dies
                           the way a crash kills it)
+    cluster.rpc_connect   FramedRpcClient's connect (error: the host reads
+                          as unreachable)
 
 Cost when unarmed: one falsy dict check per site.
 """

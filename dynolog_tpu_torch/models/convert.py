@@ -29,8 +29,16 @@ def params_from_jax(np_params: dict, device="cuda",
                     dtype: torch.dtype = torch.bfloat16) -> dict:
     """{embedding, w_out, final_scale, layers: [...]} of array-likes ->
     the same tree of `dtype` tensors (F32_LEAVES: f32) on `device`,
-    requiring grad."""
+    requiring grad. The JAX pipeline's tree, whose `layers` is one dict of
+    [n_layers, ...] stacks (``dynolog_tpu/parallel/pipeline.py``
+    ``init_pipeline_params``), comes out as the same list of layers
+    (``parallel.pipeline.stage_params`` keeps a rank's stage of it)."""
     device = resolve_device(device)
+    layers = np_params["layers"]
+    if isinstance(layers, dict):
+        n = len(next(iter(layers.values())))
+        layers = [{name: stack[i] for name, stack in layers.items()}
+                  for i in range(n)]
     params = {
         name: _leaf(np_params[name], device, dtype)
         for name in ("embedding", "w_out", "final_scale")
@@ -39,7 +47,7 @@ def params_from_jax(np_params: dict, device="cuda",
         {name: _leaf(value, device,
                      torch.float32 if name in F32_LEAVES else dtype)
          for name, value in layer.items()}
-        for layer in np_params["layers"]
+        for layer in layers
     ]
     for p in param_leaves(params):
         p.requires_grad_(True)

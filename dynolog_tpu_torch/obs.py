@@ -1,13 +1,15 @@
 """Control-plane self-tracing — the PyTorch shim's half.
 
-A copy of the parts of ``dynolog_tpu/obs.py`` the port's shim uses, so the
-port imports nothing of the JAX package:
+A copy of the parts of ``dynolog_tpu/obs.py`` the port's shim and its
+cluster fan-out (``cluster.unitrace``, ``cluster.rpc``) use, so the port
+imports nothing of the JAX package:
 
 - ``TraceContext``: the 64-bit trace-id/span-id pair naming one
   control-plane request across the daemon and its clients. The daemon
   injects it into the on-demand config as ``TRACE_CONTEXT=...``; the shim
   parses it back out. The header spelling ("%016x/%016x") is pinned by
-  both sides' tests.
+  both sides' tests. unitrace mints one per invocation (``set_current``)
+  and stamps each host's request with a ``child`` of it.
 - ``SpanJournal`` / ``span()``: a bounded ring of completed spans plus a
   context manager that times a section and records it. The shim flushes
   the ring to the daemon over the fire-and-forget ``"span"`` IPC datagram,
@@ -60,6 +62,10 @@ class TraceContext:
 
     def header(self) -> str:
         return f"{self.trace_id:016x}/{self.span_id:016x}"
+
+    def child(self) -> "TraceContext":
+        """Same trace, fresh span-id — what a caller hands downstream."""
+        return TraceContext(self.trace_id, mint_id())
 
     @classmethod
     def mint(cls) -> "TraceContext":
@@ -130,8 +136,12 @@ _current: contextvars.ContextVar[TraceContext | None] = contextvars.ContextVar(
 
 
 def current() -> TraceContext | None:
-    """The ambient trace context, if any (span() manages it)."""
+    """The ambient trace context, if any (set_current/span manage it)."""
     return _current.get()
+
+
+def set_current(ctx: TraceContext | None) -> None:
+    _current.set(ctx)
 
 
 def from_env(environ=None) -> TraceContext | None:

@@ -7,12 +7,14 @@
   differentiate, written as conjugate pairs, and the ring shift;
 - :mod:`~dynolog_tpu_torch.parallel.ring_attention` — exact causal
   attention with the sequence cut over ``seq``;
+- :mod:`~dynolog_tpu_torch.parallel.pipeline` — the GPipe pipeline over
+  ``pipe``;
 - :mod:`~dynolog_tpu_torch.parallel.launch` — one process per rank, joined
   in one process group.
 
 Data parallelism over ``data``, ring attention over ``seq``, tensor
-parallelism over ``model`` and expert parallelism over ``expert`` are
-ported; the GPipe pipeline over ``pipe`` is not yet.
+parallelism over ``model``, expert parallelism over ``expert`` and the
+GPipe pipeline over ``pipe`` are ported.
 """
 
 from dynolog_tpu_torch.parallel.sharding import (
@@ -23,5 +25,27 @@ from dynolog_tpu_torch.parallel.sharding import (
     shard_params,
 )
 
-__all__ = ["MeshSpec", "PARAM_RULES", "make_mesh", "shard_params",
-           "local_batch"]
+__all__ = [
+    "MeshSpec",
+    "PARAM_RULES",
+    "make_mesh",
+    "shard_params",
+    "local_batch",
+    "pipeline_loss",
+    "make_pipeline_train_step",
+    "make_pipeline_train_state",
+    "init_pipeline_params",
+]
+
+_PIPELINE = ("init_pipeline_params", "make_pipeline_train_state",
+             "make_pipeline_train_step", "pipeline_loss")
+
+
+def __getattr__(name: str):
+    # The pipeline's names load on first use: parallel.pipeline imports
+    # models.transformer, which imports this package while it loads.
+    if name in _PIPELINE:
+        from dynolog_tpu_torch.parallel import pipeline
+
+        return getattr(pipeline, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -31,6 +31,10 @@ and the plain sum):
   computed it.
 
 With `group` None each is the identity.
+
+The GPipe pipeline hands activations and their gradients between stages
+with ``send_to`` and ``recv_from`` instead: point to point, not cyclic,
+and outside autograd (``parallel.pipeline`` says why).
 """
 
 from __future__ import annotations
@@ -89,18 +93,29 @@ class _GatherFromGroup(torch.autograd.Function):
         return grad.narrow(ctx.dim, ctx.rank * ctx.part, ctx.part), None, None
 
 
+def _p2p(group, send: torch.Tensor | None = None, dst: int = 0,
+         recv: torch.Tensor | None = None, src: int = 0) -> None:
+    """Sends `send` to coordinate `dst` of the group and receives into
+    `recv` from coordinate `src`, either or both, in one batch; returns
+    when both are done. P2POp takes global ranks."""
+    ops = []
+    if send is not None:
+        ops.append(dist.P2POp(dist.isend, send.contiguous(),
+                              dist.get_global_rank(group, dst), group))
+    if recv is not None:
+        ops.append(dist.P2POp(dist.irecv, recv,
+                              dist.get_global_rank(group, src), group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+
+
 def _shift(x: torch.Tensor, group, hops: int) -> torch.Tensor:
     """x sent `hops` coordinates up the group (mod its size); returns what
-    arrives from `hops` coordinates down. P2POp takes global ranks."""
+    arrives from `hops` coordinates down."""
     n, me = dist.get_world_size(group), dist.get_rank(group)
     x = x.contiguous()
     out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x,
-                      dist.get_global_rank(group, (me + hops) % n), group),
-           dist.P2POp(dist.irecv, out,
-                      dist.get_global_rank(group, (me - hops) % n), group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    _p2p(group, x, (me + hops) % n, out, (me - hops) % n)
     return out
 
 
@@ -136,6 +151,18 @@ def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
     """The `x` of the previous coordinate of the group (the last one's on
     coordinate 0)."""
     return x if group is None else _RingShift.apply(x, group)
+
+
+def send_to(x: torch.Tensor, coord: int, group) -> None:
+    """Sends `x` to coordinate `coord` of the group (no gradient)."""
+    _p2p(group, send=x, dst=coord)
+
+
+def recv_from(out: torch.Tensor, coord: int, group) -> torch.Tensor:
+    """`out`, filled with what coordinate `coord` of the group sends (no
+    gradient)."""
+    _p2p(group, recv=out, src=coord)
+    return out
 
 
 def all_gather(x: torch.Tensor, size: int, group) -> torch.Tensor:

@@ -12,10 +12,13 @@ Ported: ``data`` (the batch's rows), ``seq`` (the batch's columns, with
 ring attention), ``model`` (tensor parallelism: the columns of
 wq/wk/wv/w_gate/w_up/w_out/embedding and the rows of wo/w_down) and
 ``expert`` (the stacked MoE expert weights, their hidden dimension cut on
-``model`` too). A mesh whose ``pipe`` axis is larger than 1 raises
-NotImplementedError: the GPipe pipeline is not ported yet. Which model
-options a ``seq`` cut supports, ``models.transformer.check_supported``
-says.
+``model`` too). Which model options a ``seq`` cut supports,
+``models.transformer.check_supported`` says.
+
+``pipe`` is the GPipe pipeline's axis (``parallel.pipeline``), which
+takes its own stage slice of the tree and of the batch: the dense and MoE
+trainers (``shard_params``, ``local_batch``, ``models.train``) raise
+NotImplementedError for a mesh whose ``pipe`` axis is larger than 1.
 """
 
 from __future__ import annotations
@@ -130,11 +133,12 @@ def axis(mesh, name: str):
 
 
 def check_mesh(mesh) -> None:
-    """Raises NotImplementedError for an axis whose parallel form is not
-    ported."""
+    """Raises NotImplementedError for a mesh the dense and MoE trainers do
+    not run on: one whose `pipe` axis is larger than 1."""
     if axis(mesh, "pipe")[0] > 1:
-        raise NotImplementedError("the GPipe pipeline over mesh axis 'pipe' "
-                                  "is not ported to PyTorch yet")
+        raise NotImplementedError(
+            "the dense and MoE trainers do not run over mesh axis 'pipe'; "
+            "the GPipe pipeline (parallel.pipeline) does")
 
 
 def shard_params(params: dict, mesh) -> dict:

@@ -22,10 +22,18 @@ tp, the tensor-parallel check's cases (chip_smoke.MESH_CASES), B=1:
 - MeshSpec(seq=2, model=2) with ring attention against the one-card ring
   run, and MeshSpec(seq=2) and MeshSpec(model=2) alone;
 - for phase 10's model: a repeat, plain attention against flash, and
-  MeshSpec(expert=2, model=2) and MeshSpec(model=2) against one process.
+  MeshSpec(expert=2, model=2) and MeshSpec(model=2) against one process;
 
-Run on four cards: python3 scripts/torch_mesh_noise.py [ep] [tp]
-(both without arguments).
+pp, the pipeline check's model (chip_smoke.PIPE_MESH: 4 layers,
+reference attention, B=4 in 4 microbatches):
+- a repeat of the dense trainer on one process, and the flash trainer
+  against it (the check's floor);
+- the GPipe trainer over MeshSpec(pipe=1), MeshSpec(pipe=2) and
+  MeshSpec(pipe=4) against the dense trainer on one process, and a
+  repeat of the pipe=4 run.
+
+Run on four cards: python3 scripts/torch_mesh_noise.py [ep] [tp] [pp]
+(all three without arguments).
 """
 
 import dataclasses
@@ -80,10 +88,30 @@ def tp_rows() -> list:
     return rows
 
 
+def pp_rows() -> list:
+    cfg = cs.pipe_config(cs.PIPE_MESH["n_layers"])
+    rows, n_micro = cs.PIPE_MESH["rows"], cs.PIPE_MESH["n_micro"]
+    one = cs.mesh_train(cfg, rows)
+    out = [("dense repeat", cs.mesh_train(cfg, rows), one),
+           ("flash against reference attention", cs.mesh_train(
+               dataclasses.replace(cfg, attn_impl="flash"), rows), one)]
+
+    def pipe(n):
+        cs.free_cache()
+        return cs.merged(spawn(cs._pipe_rank, n, "nccl",
+                               (cfg, {"pipe": n}, rows, n_micro),
+                               timeout_s=300))
+
+    four = pipe(4)
+    out += [(f"GPipe pipe={n}", pipe(n), one) for n in (1, 2)]
+    return out + [("GPipe pipe=4", four, one),
+                  ("GPipe pipe=4 repeat", pipe(4), four)]
+
+
 def main() -> int:
-    cases = sys.argv[1:] or ["ep", "tp"]
-    if not set(cases) <= {"ep", "tp"}:
-        print("usage: torch_mesh_noise.py [ep] [tp]", file=sys.stderr)
+    cases = sys.argv[1:] or ["ep", "tp", "pp"]
+    if not set(cases) <= {"ep", "tp", "pp"}:
+        print("usage: torch_mesh_noise.py [ep] [tp] [pp]", file=sys.stderr)
         return 2
     if torch.cuda.device_count() < 4:
         print("torch_mesh_noise: needs four cards", file=sys.stderr)
@@ -92,7 +120,8 @@ def main() -> int:
     print(cs.nvidia_smi_line(), flush=True)
     _build.build_all()
     for case in cases:
-        for name, a, b in {"ep": ep_rows, "tp": tp_rows}[case]():
+        for name, a, b in {"ep": ep_rows, "tp": tp_rows,
+                           "pp": pp_rows}[case]():
             print(f"{name}: losses {a['losses']} against {b['losses']}; "
                   f"{cs.deviation(a, b)}; steps {a['step_ms']} ms; peak "
                   f"{a['peak_gib']:.2f} GiB", flush=True)

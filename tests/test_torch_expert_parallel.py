@@ -140,8 +140,9 @@ def test_make_train_state_keeps_this_ranks_experts():
      "'flash' over mesh axis 'seq'"),
 ], ids=["pipe", "moe_over_seq", "reference_over_seq", "flash_over_seq"])
 def test_unported_axes_raise(spec, overrides, match):
-    """Still to port: the pipeline over `pipe`, MoE layers over `seq`, and
-    attention other than ring attention over `seq`."""
+    """The dense and MoE trainers refuse a `pipe` axis (the GPipe pipeline
+    trains over it); still to port: MoE layers over `seq`, and attention
+    other than ring attention over `seq`."""
     class Mesh:
         mesh_dim_names = ("data", "seq", "model", "expert", "pipe")
 

@@ -5,7 +5,9 @@ one-process run, and one whose gradients are not averaged over `data`
 lies further than the check's tolerance, on the gradient norms and on
 the projections alike; so do correct runs over the meshes of the
 tensor-parallel check (a) and (b), whose leaves are cut over `model` and
-`seq` too."""
+`seq` too, and the GPipe ranks of phase 13 and the check (c), each
+holding its stage's leaves; and the pipeline's capture check passes a
+capture that the port's unitrace triggers through a live daemon."""
 
 import dataclasses
 
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 import chip_smoke
+from daemon_utils import start_daemon, stop_daemon
 from dynolog_tpu_torch.models import train as ttrain
 from dynolog_tpu_torch.models.transformer import TransformerConfig, init_params
 from dynolog_tpu_torch.parallel import launch, sharding
@@ -57,7 +60,7 @@ def test_ep_check_measures(drop_grad_mean):
                          timeout_s=60)
     one = chip_smoke.mesh_train(CFG, SPEC["data"], None, "cpu", SEQ)
     assert len(one["losses"]) == chip_smoke.EP_STEPS
-    assert set(one["leaves"]) == {p for p, _ in chip_smoke.named_leaves(
+    assert set(one["leaves"]) == {p for _, p, _ in chip_smoke.named_leaves(
         init_params(CFG, "cpu", torch.Generator().manual_seed(0)))}
     for got in ranks:
         dev = chip_smoke.deviation(got, one)
@@ -86,6 +89,48 @@ def test_mesh_check_measures(case):
     for got in ranks:
         dev = chip_smoke.deviation(got, one)
         assert max(dev.values()) <= 1e-5, dev
+
+
+PIPE_CFG = dataclasses.replace(CFG, n_experts=0, n_layers=4,
+                               attn_impl="reference")
+
+
+def _pipe_rank(rank, world, spec, capture):
+    torch.set_num_threads(1)
+    chip_smoke.CAPTURE_MS = 100  # a short window: a short trace
+    return chip_smoke._pipe_rank(rank, world, PIPE_CFG, spec, 4, 2, capture,
+                                 "cpu", SEQ)
+
+
+@pytest.mark.parametrize("pipe", [2, 4])
+def test_pipe_check_measures(pipe):
+    """The GPipe ranks' leaves, each stage's under the whole tree's paths
+    and projection seeds, merged into one run: within f32 rounding of the
+    dense trainer on one process."""
+    ranks = launch.spawn(_pipe_rank, pipe, "gloo", ({"pipe": pipe}, None),
+                         timeout_s=60)
+    run = chip_smoke.merged(ranks)
+    one = chip_smoke.mesh_train(PIPE_CFG, 4, None, "cpu", SEQ)
+    assert set(run["leaves"]) == set(one["leaves"])
+    dev = chip_smoke.deviation(run, one)
+    assert max(dev.values()) <= 1e-5, dev
+
+
+def test_pipe_capture_check(bin_dir, tmp_path):
+    """A one-rank pipeline run under a capture that the port's unitrace
+    triggers through a live daemon passes check_pipe_capture: the start
+    time unitrace printed, a window opened within one step of it, and a
+    summary that names the steps."""
+    daemon = start_daemon(bin_dir)
+    try:
+        capture = {"endpoints": [daemon.endpoint], "ports": [daemon.port],
+                   "job_id": 61, "log_file": str(tmp_path / "pipe.json")}
+        ranks = launch.spawn(_pipe_rank, 1, "gloo", ({"pipe": 1}, capture),
+                             timeout_s=90)
+    finally:
+        stop_daemon(daemon)
+    assert ranks[0]["unitrace"][0] == 0, ranks[0]["unitrace"]
+    assert chip_smoke.check_pipe_capture(ranks, 1) == []
 
 
 def test_limits_hold_the_measured_noise_twice():

@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-process parity tests
-(tests/test_torch_ring_attention.py, tests/test_torch_tensor_parallel.py).
+(tests/test_torch_ring_attention.py, tests/test_torch_tensor_parallel.py,
+tests/test_torch_pipeline.py).
 
 ``parallel.launch.spawn`` starts each rank with the 'spawn' method, which
 re-imports the module of the rank's function by name. The test modules
@@ -17,7 +18,7 @@ import torch.distributed as dist
 
 from dynolog_tpu_torch.models import train, transformer
 from dynolog_tpu_torch.models.convert import params_from_jax
-from dynolog_tpu_torch.parallel import comm, sharding
+from dynolog_tpu_torch.parallel import comm, pipeline, sharding
 from dynolog_tpu_torch.parallel import ring_attention as ring
 
 AXES = ("data", "seq", "model", "expert")
@@ -106,3 +107,81 @@ def comm_rank(rank, world):
     gathered.backward(torch.arange(2.0 * world)[None])
     return (shifted.detach().numpy(), x.grad.numpy(),
             gathered.detach().numpy(), y.grad.numpy())
+
+
+def _plant_in_pipeline(fault, mesh, params) -> None:
+    """Plants a fault of the pipeline in this rank's process:
+    "no_micro_scaling", each microbatch's loss seeded with 1 instead of
+    1 / n_micro; "embedding_not_summed", the embedding's gradient left out
+    of the sum over `pipe`; "handoff_to_wrong_stage", the handoffs
+    follow the stage order 0, 2, 1, 3 (coordinates 1 and 2 swapped), so
+    stage 0's activations go to coordinate 2."""
+    if fault is None:
+        return
+    if fault == "no_micro_scaling":
+        backward = torch.autograd.backward
+
+        def unscaled(tensors, grad_tensors=None, **kwargs):
+            if grad_tensors is not None and grad_tensors.dim() == 0:
+                grad_tensors = torch.ones_like(grad_tensors)
+            return backward(tensors, grad_tensors, **kwargs)
+
+        torch.autograd.backward = unscaled
+    elif fault == "embedding_not_summed":
+        all_reduce = dist.all_reduce
+        pipe_ranks = dist.get_process_group_ranks(mesh.get_group("pipe"))
+
+        def skip_embedding(t, *args, group=None, **kwargs):
+            grad = params["embedding"].grad
+            if (grad is not None and t.data_ptr() == grad.data_ptr()
+                    and group is not None
+                    and dist.get_process_group_ranks(group) == pipe_ranks):
+                return None
+            return all_reduce(t, *args, group=group, **kwargs)
+
+        dist.all_reduce = skip_embedding
+    elif fault == "handoff_to_wrong_stage":
+        swap = {1: 2, 2: 1}
+        axis, send_to, recv_from = pipeline.axis, comm.send_to, comm.recv_from
+
+        def swapped_axis(m, name):
+            size, coord, group = axis(m, name)
+            return size, (swap.get(coord, coord) if name == "pipe"
+                          else coord), group
+
+        pipeline.axis = swapped_axis
+        comm.send_to = lambda x, coord, group: send_to(
+            x, swap.get(coord, coord), group)
+        comm.recv_from = lambda out, coord, group: recv_from(
+            out, swap.get(coord, coord), group)
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def pipe_rank(rank, world, spec, dims, np_params, tokens, n_micro,
+              fault=None):
+    """One step of the port's GPipe trainer under MeshSpec(**spec), f32,
+    from the JAX package's pipeline parameters (numpy tree, each rank
+    keeps its stage) on the global batch `tokens`: its loss, coordinates,
+    each of its leaves' gradient (paths with the global layer index) and
+    the replicated leaves after the step."""
+    torch.set_num_threads(1)
+    mesh = sharding.make_mesh(sharding.MeshSpec(**spec), "cpu")
+    cfg = transformer.TransformerConfig(**dims)
+    params = pipeline.stage_params(
+        params_from_jax(np_params, "cpu", torch.float32), mesh)
+    first = pipeline.stage_layers(cfg.n_layers, mesh)[0]
+    _plant_in_pipeline(fault, mesh, params)
+    step = pipeline.make_pipeline_train_step(cfg, mesh, n_micro)
+    loss = step(params, train.make_optimizer(params), torch.from_numpy(
+        np.asarray(tokens, np.int64)))
+    grads = {n: params[n].grad.numpy().copy()
+             for n in pipeline.REPLICATED}
+    for i, layer in enumerate(params["layers"]):
+        grads.update({f"layers/{first + i}/{n}": v.grad.numpy().copy()
+                      for n, v in layer.items()})
+    return {"loss": float(loss),
+            "coord": {a: sharding.axis(mesh, a)[1] for a in ("data", "pipe")},
+            "grads": grads,
+            "replicated": {n: params[n].detach().numpy().copy()
+                           for n in pipeline.REPLICATED}}
