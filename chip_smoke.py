@@ -76,7 +76,12 @@ the same way against the same steps on one process; and with four cards
 or more, (a) the dense trainer with ring attention over
 MeshSpec(seq=2, model=2) against phase 12's one-card ring run, (b)
 phase 10's model over MeshSpec(expert=2, model=2) (flash attention on
-each rank's heads) against one process, and (c) the GPipe trainer at 4
+each rank's heads) against one process, (d) the dense trainer with flash
+attention over MeshSpec(seq=2, model=2) (each rank attends over the
+gathered sequence with its heads and keeps its chunk) against phase 4's
+trainer on one process, (e) phase 10's model over MeshSpec(seq=2,
+expert=2) at B=2 (each rank holds both rows' chunk) against the same
+model on one process at B=2, and (c) the GPipe trainer at 4
 layers (one a stage) over MeshSpec(pipe=4), B=4 in 4 microbatches, each
 rank under a capture of its own daemon that one unitrace run over the
 four daemons triggers (every rank's trace must hold the handoffs' NCCL
@@ -84,7 +89,8 @@ send/recv kernels), against the same model on one process (with fewer
 cards each is logged as not run: NCCL cannot place two ranks on one
 card). `python3 chip_smoke.py --ep` builds the kernels and runs the
 expert-parallel check alone; `python3 chip_smoke.py --mesh` builds them
-and the daemon, and runs phase 12 and the checks (a), (b) and (c).
+and the daemon, and runs phase 12 and the checks (a), (b), (d), (e) and
+(c).
 
 The launch counters are zeroed just before each main path (phases 4-5,
 the dense trainer; phase 10, the MoE trainer; phase 12's ring run; phase
@@ -95,8 +101,8 @@ card's name and power limit, a JSON object with one entry per kernel
 (launches: phases 4-5 and 10 together, and in launches_by_path each
 path's own: ring and pp (phase 13), whose plain products launch no
 kernel, the expert-parallel ranks' total as moe_ep, the ranks' totals of
-(a), (b) and (c) as tp, moe_tp and pp_mesh, or null where a check did
-not run), and {"ok": true, "device": ...}.
+(a), (b), (d), (e) and (c) as tp, moe_tp, sp, moe_sp and pp_mesh, or null
+where a check did not run), and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -171,9 +177,15 @@ EP_STEPS, EP_TOL = 2, 2e-2
 # The multi-card checks on four cards: (a) the dense trainer with ring
 # attention, the JAX package's dp x sp x tp mesh with `data` dropped (the
 # EP check holds `data`); (b) phase 10's model over its EP x TP mesh,
-# again without `data`.
+# again without `data`; (d) the dense trainer with flash attention over
+# (a)'s mesh, so its step and peak compare with ring attention's; (e)
+# phase 10's model over `seq` and `expert`, at MESH_ROWS rows: with two
+# rows a rank, the MoE slot order (row, chunk) differs from rank order.
 MESH_CASES = {"tp": {"seq": 2, "model": 2},
-              "moe_tp": {"expert": 2, "model": 2}}
+              "moe_tp": {"expert": 2, "model": 2},
+              "sp": {"seq": 2, "model": 2},
+              "moe_sp": {"seq": 2, "expert": 2}}
+MESH_ROWS = {"moe_sp": 2}  # global batch rows; one a `data` rank otherwise
 # How far each case's mesh run lay from the run it is held to, when
 # scripts/torch_mesh_noise.py measured it (NVIDIA H100 80GB HBM3, 700 W,
 # torch 2.11; every rank alike, a repeat bit-equal). The MoE model's
@@ -182,10 +194,16 @@ MESH_CASES = {"tp": {"seq": 2, "model": 2},
 # choices, and the router's own gradient norm moves most (model=2 alone:
 # second loss 0.165, norm 0.030). A check holds each of these at twice
 # its value at least. The pipeline's numbers are the same for pipe=1, 2
-# and 4: microbatching (B=4 in 4) moves them, the stages do not.
+# and 4: microbatching (B=4 in 4) moves them, the stages do not. Over
+# `seq` (same cards, torch 2.11): (d) lies as far as (a), the `model` cut's
+# partial sums (seq=2 alone: second loss 0.00022, projection 0.0078);
+# (e)'s distance is expert=2's alone (0.051, 0.098; seq=2 alone at B=2:
+# 0.00034, 0.0066).
 MESH_NOISE = {
     "tp": {"loss2": 0.0027518, "norm": 0.00047846, "projection": 0.019803},
     "moe_tp": {"loss2": 0.13079, "norm": 0.026408, "projection": 0.36328},
+    "sp": {"loss2": 0.0016875, "norm": 0.00048588, "projection": 0.027423},
+    "moe_sp": {"loss2": 0.047313, "norm": 0.0047357, "projection": 0.095519},
     "pp": {"loss2": 0.00010872, "norm": 0.00031659, "projection": 0.012172},
 }
 # Phase 13 and the multi-card check (c): the GPipe trainer (reference
@@ -1243,13 +1261,16 @@ def free_cache() -> None:
     torch.cuda.empty_cache()
 
 
-def _mesh_rank(rank: int, world: int, cfg, spec: dict) -> dict:
+def _mesh_rank(rank: int, world: int, cfg, spec: dict,
+               rows: int | None = None) -> dict:
     """One rank of a multi-card check, or of phase 12's one-rank ring run
-    (mesh_train under MeshSpec(**spec))."""
+    (mesh_train under MeshSpec(**spec), on `rows` rows, one a `data` rank
+    by default)."""
     from dynolog_tpu_torch.parallel.sharding import MeshSpec, make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False  # as the parent's runs
-    return mesh_train(cfg, spec.get("data", 1), make_mesh(MeshSpec(**spec)))
+    rows = spec.get("data", 1) if rows is None else rows
+    return mesh_train(cfg, rows, make_mesh(MeshSpec(**spec)))
 
 
 def deviation(a: dict, b: dict) -> dict:
@@ -1349,13 +1370,14 @@ def phase_multicard_ep() -> dict | None:
             for name in ranks[0]["launches"]}
 
 
-def phase_ring_attention() -> tuple[dict, dict]:
+def phase_ring_attention() -> tuple[dict, dict, dict]:
     """Phase 12: EP_STEPS steps of the dense trainer with ring attention on
     a one-rank NCCL mesh, held against the same steps of the flash trainer
     on one process (the first loss and the norms to EP_TOL, the second
     loss and the projections to EP_TOL too: the dense model routes
-    nothing, so no rounding flips a choice). Returns the ring run and its
-    distance from the flash run, the yardstick of the check (a)."""
+    nothing, so no rounding flips a choice). Returns the ring run, its
+    distance from the flash run (the yardstick of the check (a)) and the
+    flash run (the reference of the check (d))."""
     from dynolog_tpu_torch.parallel.launch import spawn
 
     cfg = dense_config("ring")
@@ -1368,42 +1390,57 @@ def phase_ring_attention() -> tuple[dict, dict]:
         {k: EP_TOL for k in distance})
     if failures:
         raise AssertionError("\n".join(failures))
-    return ring, distance
+    return ring, distance, flash
 
 
-def phase_multicard_mesh(ring: dict, ring_distance: dict) -> dict | None:
+def phase_multicard_mesh(ring: dict, ring_distance: dict,
+                         flash: dict) -> dict | None:
     """With four cards or more, EP_STEPS steps of each MESH_CASES mesh over
     NCCL: (a) "tp", the dense trainer with ring attention, against phase
     12's one-card ring run, its floor phase 12's distance (ring against
     flash numerics at full width); (b) "moe_tp", phase 10's model, against
     one process, its floor a plain-attention one-process run's distance,
-    as the EP check's. Each is held to limits_for its floor and its
-    MESH_NOISE. Returns each case's total launches over its ranks, or None
-    with fewer cards."""
+    as the EP check's; (d) "sp", the dense flash trainer, against phase
+    12's flash run on one process, its floor a reference-attention
+    one-process run's distance; (e) "moe_sp", phase 10's model at B=2,
+    against one process at B=2, its floor as (b)'s. Each is held to
+    limits_for its floor and its MESH_NOISE; the cache is freed before
+    each. Returns each case's total launches over its ranks, or None with
+    fewer cards."""
     from dynolog_tpu_torch.parallel.launch import spawn
 
     if torch.cuda.device_count() < 4:
-        log(f"  multi-card TP: not run: {torch.cuda.device_count()} card(s); "
-            "the gloo CPU tests cover tensor parallelism and ring attention")
+        log(f"  multi-card TP and SP: not run: {torch.cuda.device_count()} "
+            "card(s); the gloo CPU tests cover tensor, sequence and expert "
+            "parallelism")
         return None
     moe = moe_config()
-    one_moe = mesh_train(moe)
+    plain = {"attn_impl": "reference"}
+    one_moe = {rows: mesh_train(moe, rows)
+               for rows in (1, MESH_ROWS["moe_sp"])}
     refs = {
         "tp": (dense_config("ring"), ring, ring_distance),
-        "moe_tp": (moe, one_moe, deviation(
-            mesh_train(dataclasses.replace(moe, attn_impl="reference")),
-            one_moe)),
+        "moe_tp": (moe, one_moe[1], deviation(
+            mesh_train(dataclasses.replace(moe, **plain)), one_moe[1])),
+        "sp": (dense_config(), flash, deviation(
+            mesh_train(dense_config("reference")), flash)),
+        "moe_sp": (moe, one_moe[2], deviation(
+            mesh_train(dataclasses.replace(moe, **plain), 2), one_moe[2])),
     }
-    failures, counts = hold("MoE, one process", one_moe, moe), {}
+    failures, counts = [], {}
+    for rows, run in one_moe.items():
+        failures += hold(f"MoE, one process, B={rows}", run, moe)
     for name, spec in MESH_CASES.items():
         cfg, ref, floor = refs[name]
+        rows = MESH_ROWS.get(name, 1)
         limits = limits_for(floor, MESH_NOISE[name])
         free_cache()
         t0 = time.time()
-        ranks = spawn(_mesh_rank, 4, "nccl", (cfg, spec), timeout_s=300)
+        ranks = spawn(_mesh_rank, 4, "nccl", (cfg, spec, rows),
+                      timeout_s=300)
         log(f"  {name}: mesh {spec}, {cfg.attn_impl} attention, {EP_STEPS} "
-            f"steps at B=1 S={SLICE['s']}, ranks {time.time() - t0:.1f} s; "
-            f"reference losses {ref['losses']}; floor {floor}; limits "
+            f"steps at B={rows} S={SLICE['s']}, ranks {time.time() - t0:.1f} "
+            f"s; reference losses {ref['losses']}; floor {floor}; limits "
             f"{limits}")
         for r, got in enumerate(ranks):
             failures += hold(f"{name} rank {r}", got, cfg, ref, limits)
@@ -1721,9 +1758,9 @@ def main_alone(_build, mode: str) -> int:
             phase_multicard_ep()
         else:
             log("phase 12: ring attention")
-            ring, distance = phase_ring_attention()
-            log("multi-card tensor parallelism and ring attention")
-            phase_multicard_mesh(ring, distance)
+            ring, distance, flash = phase_ring_attention()
+            log("multi-card tensor, sequence and expert parallelism")
+            phase_multicard_mesh(ring, distance, flash)
             daemon_build.join()
             if daemon_build.error:
                 raise RuntimeError(f"daemon build failed: "
@@ -1830,13 +1867,13 @@ def main() -> int:
         log("phase 11: NCCL collective probe to the daemon's file backend")
         phase_collectives(snap)
         log("phase 12: ring attention")
-        ring, ring_distance = phase_ring_attention()
+        ring, ring_distance, flash = phase_ring_attention()
         log("phase 13: GPipe trainer under a capture triggered by unitrace")
         pipe = phase_pipeline(daemon)
         log("multi-card expert parallelism")
         ep_counts = phase_multicard_ep()
-        log("multi-card tensor parallelism and ring attention")
-        mesh_counts = phase_multicard_mesh(ring, ring_distance) or {}
+        log("multi-card tensor, sequence and expert parallelism")
+        mesh_counts = phase_multicard_mesh(ring, ring_distance, flash) or {}
         log("multi-card pipeline")
         pipe_counts = phase_multicard_pipeline()
         shutil.rmtree(tmp, ignore_errors=True)

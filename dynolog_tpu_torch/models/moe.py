@@ -15,17 +15,20 @@ The same function as the JAX package's, global over the mesh:
 - dispatch in ``x.dtype``, combine computed in f32 and cast to it;
 - the Switch load-balancing aux loss over the global batch.
 
-Under a mesh (``parallel.sharding.make_mesh``) the batch is split over
-`data` and replicated over `expert` and `model`; each rank holds E / ep
-experts, each with d_ff / tp of its hidden columns (EP x TP). Where XLA
-lowers the sharded dispatch to collectives, this module calls them: an
-all-gather of per-(choice, expert) counts over `data` (the slots taken by
-lower data ranks), a sum of the dispatched slots over `data`, the slots
-entering the experts' column-cut products through f over `model` and
-their partial outputs summed over `model`, a sum of the experts' outputs
-over `expert`, and sums over `data` for the aux loss's means
+Under a mesh (``parallel.sharding.make_mesh``) the batch's rows are
+split over `data` and its sequence over `seq`, and both are replicated
+over `expert` and `model`; each rank holds E / ep experts, each with
+d_ff / tp of its hidden columns (EP x TP). Where XLA lowers the sharded
+dispatch to collectives, this module calls them: an all-gather of
+per-row (choice, expert) counts over `seq` and then over `data` (the
+slots taken by the tokens before this rank's in global token order), a
+sum of the dispatched slots over `data` and `seq`, the slots entering the
+experts' column-cut products through f over `model` and their partial
+outputs summed over `model`, a sum of the experts' outputs over
+`expert`, and sums over `data` and `seq` for the aux loss's means
 (``parallel.comm`` says how each differentiates). Routing, slot
-positions and the aux loss are replicated over `model`.
+positions and the aux loss are replicated over `model`; the aux loss is
+the global one on every `data` and `seq` rank.
 """
 
 from __future__ import annotations
@@ -71,37 +74,64 @@ def top_k(probs: torch.Tensor, k: int):
     return values[..., :k], indices[..., :k]
 
 
-def _positions(choice: torch.Tensor, data_size: int, data_rank: int,
-               data_group) -> torch.Tensor:
+def _chunks_before(counts: torch.Tensor, mesh) -> tuple:
+    """counts: [B_local, k, E], the choices of each of this rank's rows
+    (its chunk of each) to each expert -> ([B_local, k, E], the choices
+    in the chunks before each of those in global token order; [k, E], the
+    whole batch's).
+
+    Global token order is row-major over the global [B, S] batch, and
+    rank (d, q) holds chunk q of rows d * B_local ... (d + 1) * B_local - 1,
+    so the chunks come in the order (d, row, q): a rank's rows interleave
+    with the other `seq` ranks' chunks of them."""
+    d_size, d_rank, d_group = axis(mesh, "data")
+    q_size, q_rank, q_group = axis(mesh, "seq")
+    every = comm.all_gather(comm.all_gather(counts, q_size, q_group),
+                            d_size, d_group)  # [D, Q, B_local, k, E]
+    ordered = every.transpose(1, 2)  # [D, B_local, Q, k, E]
+    flat = ordered.reshape(-1, *counts.shape[1:])
+    before = (torch.cumsum(flat, 0) - flat).reshape(ordered.shape)
+    return before[d_rank, :, q_rank], flat.sum(0)
+
+
+def _positions(choice: torch.Tensor, rows: int, mesh) -> torch.Tensor:
     """Slot of each (token, choice) in its expert's buffer, in integers:
     the number of earlier routed choices to the same expert, counting all
     choices of lower priority rank first and, within one priority rank,
-    the tokens of lower data ranks, then this rank's earlier tokens.
-    choice: one-hot [T, k, E] int64 -> [T, k] int64."""
-    flat = choice.transpose(0, 1)  # [k, T, E]
-    counts = flat.sum(1)  # [k, E]
-    earlier_tokens = torch.cumsum(flat, 1) - flat  # [k, T, E]
-    every = comm.all_gather(counts, data_size, data_group)  # [D, k, E]
-    lower_ranks = every[:data_rank].sum(0)
-    total = every.sum(0)
-    earlier_choices = torch.cumsum(total, 0) - total
-    pos = earlier_tokens + (earlier_choices + lower_ranks)[:, None, :]
-    return (pos * flat).sum(-1).transpose(0, 1)
+    the tokens before this one in global token order (``_chunks_before``),
+    then those before it in its chunk.
+    choice: one-hot [T, k, E] int64, T = `rows` x S_local tokens in
+    row-major order -> [T, k] int64."""
+    t, k, e = choice.shape
+    per_row = choice.reshape(rows, t // rows, k, e)
+    earlier_in_chunk = torch.cumsum(per_row, 1) - per_row
+    before, total = _chunks_before(per_row.sum(1), mesh)
+    earlier_choices = torch.cumsum(total, 0) - total  # [k, E]
+    pos = earlier_in_chunk + (before + earlier_choices)[:, None]
+    return (pos * per_row).sum(-1).reshape(t, k)
+
+
+def _sum_over(x: torch.Tensor, groups) -> torch.Tensor:
+    """x summed over each group in turn (``comm.sum_over_group``)."""
+    for group in groups:
+        x = comm.sum_over_group(x, group)
+    return x
 
 
 def moe_mlp(layer, x, cfg, mesh=None):
     """MoE feed-forward. x: [B, S, D] -> (y [B, S, D], aux_loss scalar).
 
-    Under a mesh, x holds this rank's data shard and `layer` its experts;
-    y is this shard's output and aux the global aux loss (the same on
-    every rank)."""
+    Under a mesh, x holds this rank's block of the batch (its rows, its
+    chunk of the sequence) and `layer` its experts; y is this block's
+    output and aux the global aux loss (the same on every rank)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
-    data_size, data_rank, data_group = axis(mesh, "data")
+    data_size, _, data_group = axis(mesh, "data")
+    seq_size, _, seq_group = axis(mesh, "seq")
     ep_size, ep_rank, ep_group = axis(mesh, "expert")
     tp_group = axis(mesh, "model")[2]
     n_tokens = b * s
-    n_global = n_tokens * data_size
+    n_global = n_tokens * data_size * seq_size
     cap = _capacity(n_global, cfg)
     e_local = layer["experts_gate"].shape[0]
     if e_local * ep_size != e:
@@ -117,7 +147,7 @@ def moe_mlp(layer, x, cfg, mesh=None):
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
 
     choice = F.one_hot(gate_idx, e)  # [T, k, E] int64
-    pos = _positions(choice, data_size, data_rank, data_group)  # [T, k]
+    pos = _positions(choice, b, mesh)  # [T, k]
     keep = pos < cap
     # A dropped choice gets a zero slot row (jax.nn.one_hot of index cap).
     slot = F.one_hot(torch.where(keep, pos, 0), cap) * keep[..., None]
@@ -133,9 +163,10 @@ def moe_mlp(layer, x, cfg, mesh=None):
 
     x_e = torch.einsum("tkec,td->ecd", dispatch,
                        comm.copy_to_group(xf, ep_group))  # [E_l, C, D]
-    # Each data rank filled the slots of its own tokens.
-    x_e = comm.copy_to_group(comm.reduce_from_group(x_e, data_group),
-                             tp_group)
+    # Each data and seq rank filled the slots of its own tokens.
+    for group in (data_group, seq_group):
+        x_e = comm.reduce_from_group(x_e, group)
+    x_e = comm.copy_to_group(x_e, tp_group)
 
     # Per-expert SwiGLU, batched over this rank's experts and hidden
     # columns; each model rank adds its columns' part.
@@ -151,8 +182,9 @@ def moe_mlp(layer, x, cfg, mesh=None):
 
     # Switch load-balancing aux loss (computed on primary assignments),
     # means over the global batch.
-    routed = comm.sum_over_group(choice[:, 0, :].float().sum(0), data_group)
-    prob_sum = comm.sum_over_group(probs.sum(0), data_group)
+    routed = _sum_over(choice[:, 0, :].float().sum(0),
+                       (data_group, seq_group))
+    prob_sum = _sum_over(probs.sum(0), (data_group, seq_group))
     aux = torch.sum((routed / n_global) * (prob_sum / n_global)) * e
 
     return y.reshape(b, s, d), aux

@@ -74,8 +74,9 @@ def make_train_step(cfg: TransformerConfig, mesh=None):
 
     With a mesh, `tokens` is the global batch (the same on every process)
     and the loss returned is the global batch's. Each rank's loss is its
-    chunk's part of its data row's loss, and every leaf is replicated over
-    `seq`, so the gradients and the loss are summed over `seq`, then
+    chunk's part of its data row's loss (with MoE, plus 1 / seq of the
+    global aux loss), and every leaf is replicated over `seq`, so the
+    gradients and the loss are summed over `seq`, then
     averaged over `data`: expert leaves among the ranks that hold the
     same experts. Over `model` and `expert` the collectives' conjugates
     (``parallel.comm``) already give every rank the whole gradient of its

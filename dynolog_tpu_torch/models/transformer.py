@@ -16,8 +16,11 @@ collectives that XLA inserts in the JAX package (``parallel.comm``):
 over `model`, activations enter the column-cut products (wq/wk/wv,
 w_gate/w_up, w_out) through f and leave the row-cut ones (wo, w_down)
 through g, each rank attends with its own heads, and the embedding's
-and the logits' cut columns are gathered whole; over `seq`, attention is
-ring attention (``parallel.ring_attention``) and positions are global.
+and the logits' cut columns are gathered whole; over `seq`, positions are
+global and attention is either ring attention (``parallel.ring_attention``)
+or, for "reference" and "flash", the whole sequence's q, k and v gathered
+(``comm.gather_over_group``), attended to as on one process, and this
+rank's chunk of the output kept.
 
 This is a *workload*, not a modeling library: the monitoring framework
 only observes it.
@@ -87,25 +90,16 @@ class TransformerConfig:
 
 def check_supported(cfg: TransformerConfig, mesh=None) -> None:
     """Raises for a configuration the port cannot run on `mesh`: an
-    unknown attention, a head count that does not split over `model`
-    (ValueError), and, with `seq` > 1, attention other than "ring" or MoE
-    layers (NotImplementedError: the JAX package lets XLA gather the
-    sequence for them, and MoE slot priority interleaves rows and chunks,
-    which ``models.moe`` does not model)."""
+    unknown attention or a head count that does not split over `model`
+    (ValueError), a mesh whose `pipe` axis is larger than 1
+    (NotImplementedError, ``sharding.check_mesh``). Every attention runs
+    over `seq`, dense or MoE, as in the JAX package."""
     if cfg.attn_impl not in ("reference", "flash", "ring"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     check_mesh(mesh)
     if cfg.n_heads % axis(mesh, "model")[0]:
         raise ValueError(f"{cfg.n_heads} heads do not split over "
                          f"model={axis(mesh, 'model')[0]}")
-    if axis(mesh, "seq")[0] > 1:
-        if cfg.attn_impl != "ring":
-            raise NotImplementedError(
-                f"attn_impl={cfg.attn_impl!r} over mesh axis 'seq' is not "
-                "ported to PyTorch; use 'ring'")
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                "MoE layers over mesh axis 'seq' are not ported to PyTorch")
 
 
 def init_params(cfg: TransformerConfig, device="cuda",
@@ -186,8 +180,9 @@ def _rope(x, positions, theta):
 
 
 def _attention(layer, x, positions, cfg: TransformerConfig, mesh=None):
-    """Attention over this rank's heads (n_heads / model of them); the
-    output projection's partial sums are added over `model`."""
+    """Attention over this rank's heads (n_heads / model of them) for its
+    chunk of the sequence; the output projection's partial sums are added
+    over `model`."""
     b, s, _ = x.shape
     t, _, group = axis(mesh, "model")
     h, hd = cfg.n_heads // t, cfg.head_dim
@@ -198,14 +193,24 @@ def _attention(layer, x, positions, cfg: TransformerConfig, mesh=None):
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
 
-    if cfg.attn_impl == "flash":
-        out = flash_attention(q, k, v, True)
-    elif cfg.attn_impl == "ring":
+    if cfg.attn_impl == "ring":
         if mesh is None:
             raise ValueError("attn_impl='ring' requires a mesh")
         out = ring_attention(q, k, v, mesh, causal=True)
     else:
-        out = reference_attention(q, k, v, causal=True)
+        attend = (flash_attention if cfg.attn_impl == "flash"
+                  else reference_attention)
+        _, seq_rank, seq_group = axis(mesh, "seq")
+        if seq_group is None:
+            out = attend(q, k, v, causal=True)
+        else:
+            # What XLA does with an operand cut over `seq` that it cannot
+            # partition (the Pallas call): every rank attends over the
+            # whole sequence and keeps its chunk.
+            whole = comm.gather_over_group(torch.stack((q, k, v)), 2,
+                                           seq_group)
+            out = attend(*whole.unbind(0), causal=True).narrow(
+                1, seq_rank * s, s)
     return comm.reduce_from_group(out.reshape(b, s, h * hd) @ layer["wo"],
                                   group)
 
@@ -263,7 +268,8 @@ def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None,
     The full [B, S] sequence is forwarded and the last-position logits
     dropped afterwards, as the reference does. With MoE the Switch
     load-balancing aux loss is added, scaled by cfg.moe_aux_weight / the
-    layer count.
+    layer count (and by 1 / seq under a mesh, where every `seq` rank holds
+    the global aux loss).
 
     Under a mesh, `tokens`, `targets` and `params` are this rank's shards
     (``parallel.sharding.local_batch``, ``shard_params``; `targets`
@@ -283,5 +289,7 @@ def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None,
     nll = -torch.gather(logprobs, -1, targets[..., None])
     loss = nll.sum() / (tokens.shape[0] * (tokens.shape[1] * n_seq - 1))
     if cfg.n_experts > 0:
-        loss = loss + cfg.moe_aux_weight * aux / cfg.n_layers
+        # Every `seq` rank holds the global aux loss and the step sums
+        # the ranks' losses over `seq`: each adds its 1/seq share.
+        loss = loss + cfg.moe_aux_weight * aux / (cfg.n_layers * n_seq)
     return loss

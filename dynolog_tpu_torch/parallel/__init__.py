@@ -6,13 +6,14 @@
 - :mod:`~dynolog_tpu_torch.parallel.comm` — collectives that autograd can
   differentiate, written as conjugate pairs, and the ring shift;
 - :mod:`~dynolog_tpu_torch.parallel.ring_attention` — exact causal
-  attention with the sequence cut over ``seq``;
+  attention with the sequence cut over ``seq`` (reference and flash
+  attention gather the sequence instead: ``models.transformer``);
 - :mod:`~dynolog_tpu_torch.parallel.pipeline` — the GPipe pipeline over
   ``pipe``;
 - :mod:`~dynolog_tpu_torch.parallel.launch` — one process per rank, joined
   in one process group.
 
-Data parallelism over ``data``, ring attention over ``seq``, tensor
+Data parallelism over ``data``, sequence parallelism over ``seq``, tensor
 parallelism over ``model``, expert parallelism over ``expert`` and the
 GPipe pipeline over ``pipe`` are ported.
 """

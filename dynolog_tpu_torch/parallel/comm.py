@@ -5,7 +5,7 @@ depends on how the ranks of the group use the result, not on the
 collective alone. ``torch.distributed.nn.functional.all_reduce`` always
 sums gradients in its backward; where every rank of the group computes
 the same loss from the same replicated value, that counts the gradient
-once per rank. Three forms cover the uses here (Megatron-LM's f and g,
+once per rank. These forms cover the uses here (Megatron-LM's f and g,
 and the plain sum):
 
 - ``copy_to_group`` (f): identity forward, all-reduce backward. A value
@@ -18,12 +18,20 @@ and the plain sum):
   whose losses differ, each depending on every rank's part. This is what
   ``torch.distributed.nn.functional.all_reduce`` computes, but PyTorch
   2.13 deprecates that function with a FutureWarning on every call, and
-  the model calls it twice per MoE layer and step.
+  the model calls it on every MoE layer and step.
 - ``gather_from_group``: all-gather along a dimension forward, this
   rank's slice of the gradient backward. A value cut over the group (the
   embedding's columns, the logits' vocabulary) that every rank then uses
   whole in the same way: each rank's gradient of the whole value is
   already the whole gradient, so its slice is this rank's part.
+- ``gather_over_group``: all-gather along a dimension forward,
+  reduce-scatter backward. A value cut over the group (q, k and v cut
+  over `seq`) that every rank uses whole but in its own way (each keeps
+  its own chunk of the attention's output): the ranks' gradients of the
+  whole value differ, so they are summed and each rank keeps its block.
+  ``gather_from_group``'s backward would keep only this rank's own
+  gradient of its block and drop what the other ranks' losses owe it
+  (the later chunks' queries attend to this chunk's keys).
 - ``ring_shift``: forward, each rank sends its value to the next
   coordinate of the group and receives the previous one's; backward, the
   gradient goes the other way. Ring attention rotates each K/V chunk one
@@ -93,6 +101,23 @@ class _GatherFromGroup(torch.autograd.Function):
         return grad.narrow(ctx.dim, ctx.rank * ctx.part, ctx.part), None, None
 
 
+class _GatherOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return torch.cat(
+            all_gather(x, dist.get_world_size(group), group).unbind(0), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        size = dist.get_world_size(ctx.group)
+        blocks = grad.unflatten(ctx.dim, (size, -1)).movedim(ctx.dim, 0)
+        out = blocks.new_empty((blocks[0].numel(),))
+        dist.reduce_scatter_tensor(out, blocks.contiguous().reshape(-1),
+                                   group=ctx.group)
+        return out.reshape(blocks.shape[1:]), None, None
+
+
 def _p2p(group, send: torch.Tensor | None = None, dst: int = 0,
          recv: torch.Tensor | None = None, src: int = 0) -> None:
     """Sends `send` to coordinate `dst` of the group and receives into
@@ -145,6 +170,14 @@ def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
 def gather_from_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Every rank's `x` concatenated along `dim`, in rank order."""
     return x if group is None else _GatherFromGroup.apply(x, dim, group)
+
+
+def gather_over_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's `x` concatenated along `dim`, in rank order; the
+    gradient summed over the group, this rank's block kept."""
+    if group is None:
+        return x
+    return _GatherOverGroup.apply(x, dim % x.dim(), group)
 
 
 def ring_shift(x: torch.Tensor, group) -> torch.Tensor:

@@ -12,15 +12,32 @@ and its result picklable: keep tensors off the card in it.
 from __future__ import annotations
 
 import queue as queue_mod
+import random
 import socket
 import time
 import traceback
 
+# Linux hands out ports from 32768 up (ip_local_port_range's default) to
+# every bind to port 0 and every outgoing connection; the rendezvous port
+# is drawn below that range.
+PORTS = range(20000, 32768)
+
 
 def free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    """A port of PORTS that is free now. A port from bind(port 0) lies in
+    the ephemeral range, and between its release and the rendezvous' bind
+    the kernel may hand it to another socket (NCCL's bootstrap opens many),
+    which fails the rendezvous with EADDRINUSE."""
+    draw = random.SystemRandom()
+    for _ in range(100):
+        port = draw.choice(PORTS)
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port in {PORTS}")
 
 
 def _worker(rank, nprocs, port, backend, fn, args, results):

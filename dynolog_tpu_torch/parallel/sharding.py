@@ -8,12 +8,11 @@ rank order, each process holds its own slice of the parameters
 (``shard_params``) and of the batch (``local_batch``), and the model calls
 the collectives itself (``parallel.comm``).
 
-Ported: ``data`` (the batch's rows), ``seq`` (the batch's columns, with
-ring attention), ``model`` (tensor parallelism: the columns of
-wq/wk/wv/w_gate/w_up/w_out/embedding and the rows of wo/w_down) and
-``expert`` (the stacked MoE expert weights, their hidden dimension cut on
-``model`` too). Which model options a ``seq`` cut supports,
-``models.transformer.check_supported`` says.
+Ported: ``data`` (the batch's rows), ``seq`` (the batch's columns, under
+every attention and MoE layers, as in the JAX package), ``model`` (tensor
+parallelism: the columns of wq/wk/wv/w_gate/w_up/w_out/embedding and the
+rows of wo/w_down) and ``expert`` (the stacked MoE expert weights, their
+hidden dimension cut on ``model`` too).
 
 ``pipe`` is the GPipe pipeline's axis (``parallel.pipeline``), which
 takes its own stage slice of the tree and of the batch: the dense and MoE

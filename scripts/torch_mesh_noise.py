@@ -24,6 +24,16 @@ tp, the tensor-parallel check's cases (chip_smoke.MESH_CASES), B=1:
 - for phase 10's model: a repeat, plain attention against flash, and
   MeshSpec(expert=2, model=2) and MeshSpec(model=2) against one process;
 
+sp, the sequence-parallel checks' cases (chip_smoke.MESH_CASES "sp" and
+"moe_sp"):
+- a repeat of the dense flash trainer on one process (B=1), and the
+  reference-attention run against it (the check (d)'s floor);
+- MeshSpec(seq=2, model=2) with flash attention against the one-process
+  flash run, and MeshSpec(seq=2) alone;
+- for phase 10's model at B=2: a repeat, plain attention against flash
+  (the check (e)'s floor), and MeshSpec(seq=2, expert=2),
+  MeshSpec(seq=2) and MeshSpec(expert=2) against one process;
+
 pp, the pipeline check's model (chip_smoke.PIPE_MESH: 4 layers,
 reference attention, B=4 in 4 microbatches):
 - a repeat of the dense trainer on one process, and the flash trainer
@@ -32,8 +42,8 @@ reference attention, B=4 in 4 microbatches):
   MeshSpec(pipe=4) against the dense trainer on one process, and a
   repeat of the pipe=4 run.
 
-Run on four cards: python3 scripts/torch_mesh_noise.py [ep] [tp] [pp]
-(all three without arguments).
+Run on four cards: python3 scripts/torch_mesh_noise.py [ep] [tp] [sp] [pp]
+(all four without arguments).
 """
 
 import dataclasses
@@ -50,11 +60,12 @@ from dynolog_tpu_torch.ops import _build  # noqa: E402
 from dynolog_tpu_torch.parallel.launch import spawn  # noqa: E402
 
 
-def on_mesh(cfg, spec: dict) -> list:
-    """chip_smoke.mesh_train's result of every rank of MeshSpec(**spec)."""
+def on_mesh(cfg, spec: dict, rows: int | None = None) -> list:
+    """chip_smoke.mesh_train's result of every rank of MeshSpec(**spec)
+    (on `rows` rows, one a `data` rank by default)."""
     cs.free_cache()
     return spawn(cs._mesh_rank, math.prod(spec.values()), "nccl",
-                 (cfg, spec), timeout_s=300)
+                 (cfg, spec, rows), timeout_s=300)
 
 
 def ep_rows() -> list:
@@ -88,6 +99,26 @@ def tp_rows() -> list:
     return rows
 
 
+def sp_rows() -> list:
+    flash = cs.dense_config()
+    one = cs.mesh_train(flash)
+    rows = [("flash repeat", cs.mesh_train(flash), one),
+            ("reference against flash",
+             cs.mesh_train(cs.dense_config("reference")), one)]
+    for spec in ({"seq": 2, "model": 2}, {"seq": 2}):
+        rows += [(f"flash {spec} rank {r}", got, one)
+                 for r, got in enumerate(on_mesh(flash, spec))]
+    moe, b = cs.moe_config(), cs.MESH_ROWS["moe_sp"]
+    one = cs.mesh_train(moe, b)
+    plain = cs.mesh_train(dataclasses.replace(moe, attn_impl="reference"), b)
+    rows += [(f"MoE repeat, B={b}", cs.mesh_train(moe, b), one),
+             (f"MoE plain attention, B={b}", plain, one)]
+    for spec in ({"seq": 2, "expert": 2}, {"seq": 2}, {"expert": 2}):
+        rows += [(f"MoE {spec} B={b} rank {r}", got, one)
+                 for r, got in enumerate(on_mesh(moe, spec, b))]
+    return rows
+
+
 def pp_rows() -> list:
     cfg = cs.pipe_config(cs.PIPE_MESH["n_layers"])
     rows, n_micro = cs.PIPE_MESH["rows"], cs.PIPE_MESH["n_micro"]
@@ -109,9 +140,10 @@ def pp_rows() -> list:
 
 
 def main() -> int:
-    cases = sys.argv[1:] or ["ep", "tp", "pp"]
-    if not set(cases) <= {"ep", "tp", "pp"}:
-        print("usage: torch_mesh_noise.py [ep] [tp] [pp]", file=sys.stderr)
+    cases = sys.argv[1:] or ["ep", "tp", "sp", "pp"]
+    if not set(cases) <= {"ep", "tp", "sp", "pp"}:
+        print("usage: torch_mesh_noise.py [ep] [tp] [sp] [pp]",
+              file=sys.stderr)
         return 2
     if torch.cuda.device_count() < 4:
         print("torch_mesh_noise: needs four cards", file=sys.stderr)
@@ -120,7 +152,7 @@ def main() -> int:
     print(cs.nvidia_smi_line(), flush=True)
     _build.build_all()
     for case in cases:
-        for name, a, b in {"ep": ep_rows, "tp": tp_rows,
+        for name, a, b in {"ep": ep_rows, "tp": tp_rows, "sp": sp_rows,
                            "pp": pp_rows}[case]():
             print(f"{name}: losses {a['losses']} against {b['losses']}; "
                   f"{cs.deviation(a, b)}; steps {a['step_ms']} ms; peak "

@@ -134,15 +134,10 @@ def test_make_train_state_keeps_this_ranks_experts():
 
 @pytest.mark.parametrize("spec,overrides,match", [
     ({"pipe": 2}, {}, "GPipe"),
-    ({"seq": 2}, {"attn_impl": "ring"}, "MoE layers"),
-    ({"seq": 2}, {"n_experts": 0}, "'reference' over mesh axis 'seq'"),
-    ({"seq": 2}, {"n_experts": 0, "attn_impl": "flash"},
-     "'flash' over mesh axis 'seq'"),
-], ids=["pipe", "moe_over_seq", "reference_over_seq", "flash_over_seq"])
+], ids=["pipe"])
 def test_unported_axes_raise(spec, overrides, match):
     """The dense and MoE trainers refuse a `pipe` axis (the GPipe pipeline
-    trains over it); still to port: MoE layers over `seq`, and attention
-    other than ring attention over `seq`."""
+    trains over it)."""
     class Mesh:
         mesh_dim_names = ("data", "seq", "model", "expert", "pipe")
 

@@ -91,6 +91,20 @@ def _coords(rank, world, shape):
             for name in mesh.mesh_dim_names}
 
 
+def test_free_port_lies_below_the_ephemeral_range():
+    """The rendezvous port is one no socket is bound to and one the kernel
+    does not hand out on its own (bind to port 0, outgoing connections):
+    a port in the ephemeral range can be taken between its release and
+    the rendezvous' bind."""
+    import socket
+
+    for _ in range(20):
+        port = launch.free_port()
+        assert port in launch.PORTS and port < 32768
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            s.bind(("localhost", port))
+
+
 def test_make_mesh_places_ranks_row_major():
     """MeshSpec(data=2, expert=2) on 4 gloo processes: rank r sits at the
     row-major coordinate of r; the expert groups are {0, 1} and {2, 3},

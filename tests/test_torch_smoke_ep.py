@@ -4,8 +4,8 @@ width: a correct expert-parallel run lies within f32 rounding of the
 one-process run, and one whose gradients are not averaged over `data`
 lies further than the check's tolerance, on the gradient norms and on
 the projections alike; so do correct runs over the meshes of the
-tensor-parallel check (a) and (b), whose leaves are cut over `model` and
-`seq` too, and the GPipe ranks of phase 13 and the check (c), each
+multi-card checks (a), (b), (d) and (e), whose leaves are cut over
+`model` and `seq` too, and the GPipe ranks of phase 13 and the check (c), each
 holding its stage's leaves; and the pipeline's capture check passes a
 capture that the port's unitrace triggers through a live daemon."""
 
@@ -47,10 +47,10 @@ def _rank(rank, world, spec, drop_grad_mean):
     return chip_smoke.mesh_train(CFG, spec["data"], mesh, "cpu", SEQ)
 
 
-def _mesh_rank(rank, world, cfg, spec):
+def _mesh_rank(rank, world, cfg, spec, rows):
     torch.set_num_threads(1)
     mesh = sharding.make_mesh(sharding.MeshSpec(**spec), "cpu")
-    return chip_smoke.mesh_train(cfg, 1, mesh, "cpu", SEQ)
+    return chip_smoke.mesh_train(cfg, rows, mesh, "cpu", SEQ)
 
 
 @pytest.mark.parametrize("drop_grad_mean", [False, True],
@@ -75,17 +75,22 @@ def test_ep_check_measures(drop_grad_mean):
 @pytest.mark.parametrize("case", list(chip_smoke.MESH_CASES))
 def test_mesh_check_measures(case):
     """The multi-card checks' meshes, (a) the dense model with ring
-    attention over MeshSpec(seq=2, model=2) against a one-rank ring run
-    and (b) the MoE model over MeshSpec(expert=2, model=2) against one
-    process: the projections of leaves cut over `model` (and `expert`)
-    are summed over the blocks, so a correct run lies within f32
-    rounding."""
+    attention over MeshSpec(seq=2, model=2) against a one-rank ring run,
+    (b) the MoE model over MeshSpec(expert=2, model=2), (d) the dense
+    model with flash attention over MeshSpec(seq=2, model=2) and (e) the
+    MoE model over MeshSpec(seq=2, expert=2) at MESH_ROWS rows, each
+    against one process: the projections of leaves cut over `model` (and
+    `expert`) are summed over the blocks, so a correct run lies within
+    f32 rounding."""
     spec = chip_smoke.MESH_CASES[case]
-    cfg = (dataclasses.replace(CFG, n_experts=0, attn_impl="ring")
-           if case == "tp" else CFG)
-    ranks = launch.spawn(_mesh_rank, 4, "gloo", (cfg, spec), timeout_s=60)
-    one = chip_smoke.mesh_train(cfg, 1, OneRank() if case == "tp" else None,
-                                "cpu", SEQ)
+    rows = chip_smoke.MESH_ROWS.get(case, 1)
+    cfg = {"tp": dataclasses.replace(CFG, n_experts=0, attn_impl="ring"),
+           "sp": dataclasses.replace(CFG, n_experts=0)}.get(case, CFG)
+    ranks = launch.spawn(_mesh_rank, 4, "gloo", (cfg, spec, rows),
+                         timeout_s=60)
+    one = chip_smoke.mesh_train(cfg, rows,
+                                OneRank() if case == "tp" else None, "cpu",
+                                SEQ)
     for got in ranks:
         dev = chip_smoke.deviation(got, one)
         assert max(dev.values()) <= 1e-5, dev

@@ -36,7 +36,6 @@ import itertools
 import jax
 import numpy as np
 import pytest
-import torch
 
 import torch_mesh_ranks
 from dynolog_tpu.models import train as jtrain
@@ -44,7 +43,6 @@ from dynolog_tpu.models import transformer as jtr
 from dynolog_tpu.parallel import sharding as jsh
 from dynolog_tpu_torch.models import train as ttrain
 from dynolog_tpu_torch.models import transformer as ttr
-from dynolog_tpu_torch.models.convert import params_from_jax
 from dynolog_tpu_torch.parallel import launch, sharding
 
 DIMS = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, d_ff=64,
@@ -59,16 +57,6 @@ CASES = {
     "ep2xtp2_moe": ({"expert": 2, "model": 2},
                     {"attn_impl": "flash", "n_experts": 4}),
 }
-
-
-class OneRank:
-    """A stand-in mesh of one rank: the DeviceMesh methods sharding.axis
-    reads, every axis of size 1."""
-
-    mesh_dim_names = ("data", "seq", "model", "expert", "pipe")
-
-    def size(self, dim):
-        return 1
 
 
 def _jax_step(spec, dims):
@@ -86,27 +74,6 @@ def _jax_step(spec, dims):
     return np_params, np.array(batch).astype(np.int64), float(loss)
 
 
-def _one_process(dims, np_params, tokens):
-    cfg = ttr.TransformerConfig(**dims)
-    params = params_from_jax(np_params, "cpu", torch.float32)
-    mesh = OneRank() if cfg.attn_impl == "ring" else None
-    loss = ttrain.make_train_step(cfg, mesh)(
-        params, ttrain.make_optimizer(params), torch.from_numpy(tokens))
-    return float(loss), {n: p.grad.numpy()
-                         for n, p in torch_mesh_ranks.named(params).items()}
-
-
-def _slice(grad, path, spec, coord):
-    """This rank's block of a whole leaf's gradient, by PARAM_RULES."""
-    for dim, name in enumerate(sharding.rule_for(path)):
-        size = spec.get(name, 1) if name else 1
-        block = grad.shape[dim] // size
-        grad = np.take(grad, range(coord[name] * block,
-                                   (coord[name] + 1) * block), axis=dim) \
-            if size > 1 else grad
-    return grad
-
-
 @pytest.mark.parametrize("name", CASES)
 def test_mesh_step_matches_one_process_and_jax(name):
     spec, overrides = CASES[name]
@@ -115,7 +82,8 @@ def test_mesh_step_matches_one_process_and_jax(name):
     world = int(np.prod(list(spec.values())))
     ranks = launch.spawn(torch_mesh_ranks.train_rank, world, "gloo",
                          (spec, dims, np_params, tokens), timeout_s=90)
-    one_loss, one_grads = _one_process(dims, np_params, tokens)
+    one_loss, one_grads = torch_mesh_ranks.one_process(dims, np_params,
+                                                         tokens)
 
     assert sorted(tuple(r["coord"].values()) for r in ranks) == sorted(
         itertools.product(*(range(spec.get(a, 1))
@@ -125,7 +93,8 @@ def test_mesh_step_matches_one_process_and_jax(name):
         assert abs(r["loss"] - jax_loss) < 1e-5, (r["loss"], jax_loss)
         for path, got in r["grads"].items():
             np.testing.assert_allclose(
-                got, _slice(one_grads[path], path, spec, r["coord"]),
+                got, torch_mesh_ranks.block_of(one_grads[path], path, spec,
+                                          r["coord"]),
                 rtol=0, atol=1e-6, err_msg=f"{path} on {r['coord']}")
     for a, b in itertools.combinations(ranks, 2):
         for path, got in a["grads"].items():
@@ -164,7 +133,7 @@ def test_ring_shift_and_gather_from_group():
 
 
 def test_heads_that_do_not_split_over_model_raise():
-    class Model3(OneRank):
+    class Model3(torch_mesh_ranks.OneRank):
         def size(self, dim):
             return 3 if self.mesh_dim_names[dim] == "model" else 1
 

@@ -1,6 +1,7 @@
 """Rank bodies of the port's multi-process parity tests
 (tests/test_torch_ring_attention.py, tests/test_torch_tensor_parallel.py,
-tests/test_torch_pipeline.py).
+tests/test_torch_seq_parallel.py, tests/test_torch_pipeline.py), and the
+helpers they share that import no JAX.
 
 ``parallel.launch.spawn`` starts each rank with the 'spawn' method, which
 re-imports the module of the rank's function by name. The test modules
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dynolog_tpu_torch.models import train, transformer
+from dynolog_tpu_torch.models import moe, train, transformer
 from dynolog_tpu_torch.models.convert import params_from_jax
 from dynolog_tpu_torch.parallel import comm, pipeline, sharding
 from dynolog_tpu_torch.parallel import ring_attention as ring
@@ -32,10 +33,69 @@ def named(tree) -> dict:
     return out
 
 
+class OneRank:
+    """A stand-in mesh of one rank: the DeviceMesh methods sharding.axis
+    reads, every axis of size 1."""
+
+    mesh_dim_names = ("data", "seq", "model", "expert", "pipe")
+
+    def size(self, dim):
+        return 1
+
+
+def block_of(grad, path, spec, coord):
+    """This rank's block of a whole leaf's gradient, by PARAM_RULES."""
+    for dim, name in enumerate(sharding.rule_for(path)):
+        size = spec.get(name, 1) if name else 1
+        block = grad.shape[dim] // size
+        grad = np.take(grad, range(coord[name] * block,
+                                   (coord[name] + 1) * block), axis=dim) \
+            if size > 1 else grad
+    return grad
+
+
+def one_process(dims, np_params, tokens):
+    """(loss, {path: gradient}) of one train step of the port on one
+    process, f32, from the JAX package's parameters on the global batch
+    `tokens`; ring attention runs on a OneRank mesh (the ring consumes its
+    one chunk)."""
+    cfg = transformer.TransformerConfig(**dims)
+    params = params_from_jax(np_params, "cpu", torch.float32)
+    mesh = OneRank() if cfg.attn_impl == "ring" else None
+    loss = train.make_train_step(cfg, mesh)(
+        params, train.make_optimizer(params), torch.from_numpy(tokens))
+    return float(loss), {n: p.grad.numpy() for n, p in named(params).items()}
+
+
+def _chunks_in_rank_order(counts, mesh):
+    """moe._chunks_before with the chunks taken in rank order (d, q, row)
+    instead of global token order (d, row, q): the same whenever a rank
+    holds one row."""
+    d_size, d_rank, d_group = sharding.axis(mesh, "data")
+    q_size, q_rank, q_group = sharding.axis(mesh, "seq")
+    every = comm.all_gather(comm.all_gather(counts, q_size, q_group),
+                            d_size, d_group)
+    flat = every.reshape(-1, *counts.shape[1:])
+    before = (torch.cumsum(flat, 0) - flat).reshape(every.shape)
+    return before[d_rank, q_rank], flat.sum(0)
+
+
 def _plant(fault) -> None:
     if fault is None:
         return
-    if fault == "mask_without_src_offset":
+    if fault == "gather_with_narrow_backward":
+        comm.gather_over_group = comm.gather_from_group
+    elif fault == "positions_in_rank_order":
+        moe._chunks_before = _chunks_in_rank_order
+    elif fault == "aux_on_every_seq_rank":
+        forward = transformer._forward_with_aux
+
+        def whole_aux(params, tokens, cfg, mesh=None):
+            logits, aux = forward(params, tokens, cfg, mesh)
+            return logits, aux * sharding.axis(mesh, "seq")[0]
+
+        transformer._forward_with_aux = whole_aux
+    elif fault == "mask_without_src_offset":
         mask = ring._causal_mask
         ring._causal_mask = lambda q_idx, k_idx, s_loc, device: mask(
             q_idx, 0, s_loc, device)
@@ -107,6 +167,20 @@ def comm_rank(rank, world):
     gathered.backward(torch.arange(2.0 * world)[None])
     return (shifted.detach().numpy(), x.grad.numpy(),
             gathered.detach().numpy(), y.grad.numpy())
+
+
+def gather_rank(rank, world, fault=None):
+    """gather_over_group over the whole group along dim -2 of a [2, 3, 4]
+    value, under a loss that differs by rank (the gathered value weighted
+    by 1 + rank): (gathered, its input's gradient)."""
+    torch.set_num_threads(1)
+    _plant(fault)
+    x = (torch.arange(24.0).reshape(2, 3, 4) + 100 * rank).requires_grad_(
+        True)
+    gathered = comm.gather_over_group(x, -2, dist.group.WORLD)
+    weight = torch.arange(float(gathered.numel())).reshape(gathered.shape)
+    (gathered * weight * (1 + rank)).sum().backward()
+    return gathered.detach().numpy(), x.grad.numpy()
 
 
 def _plant_in_pipeline(fault, mesh, params) -> None:
