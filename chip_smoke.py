@@ -69,6 +69,19 @@ if any phase fails:
    summary must name the steps; its losses and per-leaf gradient norms
    and projections are held against the dense trainer with reference
    attention on one process on the same batch;
+14. fleet straggler loop: the port's FleetRelay (durable acks) takes the
+   records of three dynologd senders h0, h1, h2 (one pod), each with a
+   dense flash trainer of phase 4 in a process of its own under the
+   port's TraceClient, h0 and h1 at B=1 and h2 at B=2 (the straggler);
+   each job step rate reaches the relay (read from each daemon's store,
+   ROADMAP C12), h0's and h1's rates set the spread, and the port's
+   FleetWatcher must fire once, on h2 with h0 or h1 as the peer, capture
+   both under one trace context through their daemons' advertised rpc
+   ports, and have the port's engine (dynolog_tpu_torch.diagnose) write a
+   `regressed` report with a finding for each flash kernel; every host
+   live, no sequence gap, records equal to the applied sequence; the
+   capture latencies of phases 5, 7 and 14 rendered as a histogram
+   exposition, and h2 sampled with the perf CLI where `perf` is on PATH;
 
 then, with two cards or more, phase 10's model trained expert-parallel
 over NCCL (data x expert, one process per card) for two steps, held in
@@ -94,15 +107,17 @@ and the daemon, and runs phase 12 and the checks (a), (b), (d), (e) and
 
 The launch counters are zeroed just before each main path (phases 4-5,
 the dense trainer; phase 10, the MoE trainer; phase 12's ring run; phase
-13's pipeline run; in each rank of a multi-card check, its steps) and
-read just after; phases 7 and 8 drive the dense trainer again, each with
-the counters zeroed before it and read after it. The last lines are the
+13's pipeline run; phase 14's three trainers, each in its own process;
+in each rank of a multi-card check, its steps) and read just after;
+phases 7 and 8 drive the dense trainer again, each with the counters
+zeroed before it and read after it. The last lines are the
 card's name and power limit, a JSON object with one entry per kernel
 (launches: phases 4-5 and 10 together, and in launches_by_path each
 path's own: ring and pp (phase 13), whose plain products launch no
-kernel, the expert-parallel ranks' total as moe_ep, the ranks' totals of
-(a), (b), (d), (e) and (c) as tp, moe_tp, sp, moe_sp and pp_mesh, or null
-where a check did not run), and {"ok": true, "device": ...}.
+kernel, fleet (phase 14's trainers together), the expert-parallel
+ranks' total as moe_ep, the ranks' totals of (a), (b), (d), (e) and (c)
+as tp, moe_tp, sp, moe_sp and pp_mesh, or null where a check did not
+run), and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -893,10 +908,10 @@ def run_cli(args: list[str], timeout: float = 300):
 
 
 def phase_diagnosis(F, daemon, trainer, client, job_id: int, tmp: Path,
-                    cap: dict) -> Path:
+                    cap: dict) -> tuple[Path, float]:
     """Baseline from the phase-5 capture; a second capture at B=2 must be
     diagnosed as regressed, naming each flash kernel. Returns the
-    baseline's path."""
+    baseline's path and the capture's latency (ms)."""
     base = tmp / "baseline.json"
     out = run_cli(["-m", "dynolog_tpu_torch.diagnose",
                    str(cap["manifest_path"]), "--save-baseline", str(base)])
@@ -941,7 +956,7 @@ def phase_diagnosis(F, daemon, trainer, client, job_id: int, tmp: Path,
         log(f"  {op}: (kind, severity %) {found}")
         if not {"compute_regression", "fusion_shape_change"} & set(kinds):
             raise AssertionError(f"no regression finding for {op}: {kinds}")
-    return base
+    return base, latency
 
 
 def phase_ring(F, daemon, trainer, tmp: Path, base: Path) -> None:
@@ -1736,6 +1751,384 @@ def phase_multicard_pipeline() -> dict | None:
             for k in ranks[0]["launches"]}
 
 
+# ------------------------------------------------------------ phase 14
+
+
+# Phase 14: three dense flash trainers on the one card (FLEET_ROWS rows of
+# S=2048 each), each under a dynologd that sends its records to the port's
+# FleetRelay; h2 trains at B=2 and is the straggler.
+FLEET_ROWS = {"h0": 1, "h1": 1, "h2": 2}
+FLEET_LIVE_S = 30  # bound for every host to reach `live` at the relay
+FLEET_METRIC_S = 240  # bound for every host's step rate to reach the relay
+FLEET_CAPTURE_S = 120  # bound for one capture's manifest
+FLEET_BREACH_S = 30  # bound for the watcher to see the straggler
+FLEET_TRAIN_S = 600  # a trainer stops by itself after this long
+FLEET_DIAGNOSE_TOP = 50  # the engine's cut of ranked findings, as phase 7
+
+
+def fleet_trainer(spec: dict) -> int:
+    """`chip_smoke.py --fleet-trainer SPEC`: one of phase 14's trainers,
+    the dense flash trainer at spec["rows"] rows under a port TraceClient
+    registered with spec["endpoint"], until spec["stop"] exists. Writes
+    its step times, peak memory and launches to spec["result"]."""
+    F = importlib.import_module("dynolog_tpu_torch.ops.flash_attention")
+    from dynolog_tpu_torch.client import TraceClient
+
+    trainer = Trainer(dense_config())
+    rows, stop = spec["rows"], Path(spec["stop"])
+    trainer.batch(rows)
+    client = TraceClient(job_id=spec["job_id"], endpoint=spec["endpoint"],
+                         poll_interval_s=0.2, report_interval_s=1.0)
+    if not client.start():
+        raise RuntimeError(f"trainer {spec['host']}: the shim could not "
+                           "register with its dynologd")
+    step_ms, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    F.reset_launches()
+    t_end = time.time() + FLEET_TRAIN_S
+    try:
+        while not stop.exists() and time.time() < t_end:
+            t0 = time.perf_counter()
+            losses.append(float(trainer.step(rows)))
+            client.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        client.stop()
+        for proc in client.summary_procs:
+            proc.wait(timeout=120)
+    warm = sorted(step_ms[3:] or step_ms)
+    Path(spec["result"]).write_text(json.dumps({
+        "steps": len(step_ms), "step_ms": warm[len(warm) // 2],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": dict(F.launches), "traces": client.traces_completed,
+        "finite": all(math.isfinite(x) for x in losses)}))
+    return 0
+
+
+class RateForwarder(threading.Thread):
+    """Every half second, each host's newest `metric` from its dynologd's
+    metric store (queryMetrics), merged into the host's relay entry as an
+    untracked record: no wal_seq, so it moves no watermark. dynologd's
+    relay records carry its collectors' rows only, never the IPC
+    monitor's job telemetry (ROADMAP C12), so without this the relay
+    never sees a step rate."""
+
+    def __init__(self, relay, daemons: dict, metric: str):
+        super().__init__(name="rate_forwarder", daemon=True)
+        self.relay, self.daemons, self.metric = relay, daemons, metric
+        self.halt = threading.Event()
+        self.forwarded = 0
+        self.error: str | None = None
+
+    def forward(self) -> None:
+        now = int(time.time() * 1000)
+        for host, daemon in self.daemons.items():
+            resp = daemon.rpc({"fn": "queryMetrics", "metrics": [self.metric],
+                               "start_ts": now - 5000, "end_ts": now + 1000})
+            values = (((resp or {}).get("metrics") or {}).get(self.metric)
+                      or {}).get("values") or []
+            if values:
+                self.relay.view.ingest_line(json.dumps(
+                    {"host": host, self.metric: float(values[-1])}))
+                self.forwarded += 1
+
+    def run(self) -> None:
+        while not self.halt.wait(0.5):
+            try:
+                self.forward()
+            except Exception as e:  # noqa: BLE001 - read by the phase
+                self.error = f"{type(e).__name__}: {e}"
+
+    def stop(self) -> None:
+        self.halt.set()
+        self.join(timeout=10)
+
+
+def fleet_trigger(tmp: Path, job_id: int, captures: dict):
+    """The watcher's trigger: an iteration-window capture through the
+    host's advertised rpc coordinates (dynolog_tpu_torch.cluster.rpc, the
+    `gputrace` verb's body), stamped with the watcher's trace context;
+    returns the manifest's path once it is on disk."""
+    from dynolog_tpu_torch.cluster.rpc import FramedRpcClient
+
+    def trigger(host: str, rpc: tuple, trace_ctx: str) -> str:
+        base = tmp / f"fleet_{host}.json"
+        t0 = time.time()
+        with FramedRpcClient(rpc[0], int(rpc[1]), timeout_s=10) as client:
+            resp = client.call({
+                "fn": "setKinetOnDemandRequest",
+                "config": (f"ACTIVITIES_LOG_FILE={base}\n"
+                           f"ACTIVITIES_ITERATIONS={ITERATIONS}"),
+                "job_id": job_id, "pids": [0], "process_limit": 3,
+                "trace_ctx": trace_ctx})
+        if not (resp and resp.get("processesMatched")):
+            raise AssertionError(f"{host} at {rpc}: {resp}")
+        while time.time() < t0 + FLEET_CAPTURE_S:
+            hits = [p for p in tmp.glob(f"fleet_{host}_*.json")
+                    if p.stem.rsplit("_", 1)[-1].isdigit()]
+            if hits:
+                manifest = json.loads(hits[0].read_text())
+                if manifest["status"] != "ok":
+                    raise AssertionError(f"{host}'s capture: {manifest}")
+                captures[host] = {
+                    "manifest": manifest,
+                    "latency_ms": manifest["ended_ms"] - t0 * 1000}
+                return str(hits[0])
+            time.sleep(0.05)
+        raise AssertionError(f"no manifest from {host} within "
+                             f"{FLEET_CAPTURE_S} s")
+    return trigger
+
+
+def phase_fleet(smi: str, latencies: dict) -> dict:
+    """Phase 14: the fleet straggler loop. The port's FleetRelay (durable
+    acks) takes the records of three dynologd senders h0, h1, h2 (one pod),
+    each with a trainer of FLEET_ROWS rows under its shim; h0's and h1's
+    step rates set the watcher's spread, and the port's FleetWatcher must
+    fire once, on h2 with h0 or h1 as the peer, capture both under one
+    trace context and have the port's engine read h2 as regressed in each
+    flash kernel. Returns the trainers' launches together."""
+    from dynolog_tpu_torch import obs
+    from dynolog_tpu_torch.host.perfcli import PerfCliSampler, summarize
+    from dynolog_tpu_torch.supervise import (
+        FLEET_LIVE, FleetRelay, FleetWatcher, run_diagnosis_engine)
+
+    t_phase = time.time()
+    tmp = Path(tempfile.mkdtemp(prefix="dynotpu_fleet_"))
+    job_id = 5400 + os.getpid() % 1000
+    metric = f"job{job_id}.steps_per_sec"
+    stop = tmp / "stop"
+    relay = FleetRelay(0, snapshot_path=str(tmp / "relay_state.json"),
+                       max_metrics_per_host=256)
+    daemons, trainers, forwarder = {}, {}, None
+    try:
+        for host in FLEET_ROWS:
+            daemons[host] = Daemon((
+                "--kernel_monitor_reporting_interval_s=1",
+                "--use_tcp_relay", "--relay_host=127.0.0.1",
+                f"--relay_port={relay.port}", "--sink_relay_ack",
+                f"--sink_spill_dir={tmp / ('spill_' + host)}",
+                f"--fleet_host_id={host}",
+                "--fleet_advertise_host=127.0.0.1"))
+        for host, rows in FLEET_ROWS.items():
+            spec = {"host": host, "rows": rows, "job_id": job_id,
+                    "endpoint": daemons[host].endpoint, "stop": str(stop),
+                    "result": str(tmp / f"{host}.result.json")}
+            trainers[host] = subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"),
+                 "--fleet-trainer", json.dumps(spec)], cwd=REPO)
+
+        def detail() -> dict:
+            return relay.view.query(detail=True, metrics=[metric],
+                                    skew_metric=metric)
+
+        t0 = time.time()
+        while time.time() < t0 + FLEET_LIVE_S:
+            states = {h: (detail()["hosts_detail"].get(h) or {}).get("state")
+                      for h in FLEET_ROWS}
+            if all(s == FLEET_LIVE for s in states.values()):
+                break
+            time.sleep(0.1)
+        if not all(s == FLEET_LIVE for s in states.values()):
+            raise AssertionError(f"hosts not live within {FLEET_LIVE_S} s:"
+                                 f" {states}")
+        log(f"  every host live at the relay {time.time() - t0:.1f} s "
+            f"after the daemons started (bound {FLEET_LIVE_S} s)")
+
+        forwarder = RateForwarder(relay, daemons, metric)
+        forwarder.start()
+        # Every host's rate on the relay, the first windows (model build,
+        # warm-up) past: three reports of a nonzero rate in a row.
+        seen = {h: [] for h in FLEET_ROWS}
+        t0 = time.time()
+        while time.time() < t0 + FLEET_METRIC_S:
+            for h in FLEET_ROWS:
+                if trainers[h].poll() is not None:
+                    raise AssertionError(f"trainer {h} exited "
+                                         f"{trainers[h].returncode}")
+            rates = detail()["metrics"]
+            for h in FLEET_ROWS:
+                value = (rates.get(h) or {}).get(metric)
+                if value and (not seen[h] or seen[h][-1] != value):
+                    seen[h].append(value)
+            if all(len(v) >= 4 for v in seen.values()):
+                break
+            time.sleep(0.2)
+        if forwarder.error or not all(len(v) >= 4 for v in seen.values()):
+            raise AssertionError(f"step rates at the relay after "
+                                 f"{FLEET_METRIC_S} s: {seen}; forwarder "
+                                 f"{forwarder.error}")
+        rates = {h: detail()["metrics"][h][metric] for h in FLEET_ROWS}
+        # The spread that counts as a straggler: a quarter of the healthy
+        # hosts' rate, each host's the median of its reports (a 1 s window
+        # holds a whole number of steps, so one report moves by a step).
+        healthy = statistics.mean(statistics.median(seen[h])
+                                  for h in ("h0", "h1"))
+        spread = 0.25 * healthy
+        log(f"  {smi}: steps_per_sec at the relay {rates} "
+            f"({time.time() - t0:.1f} s after the trainers started; "
+            f"reports {seen}); spread threshold {spread:.3f}, 0.25 x the "
+            f"mean {healthy:.3f} of h0's and h1's median reports")
+
+        captures: dict = {}
+        engine_s = []
+
+        def diagnose(target, baseline, trace_ctx):
+            t = time.time()
+            report = run_diagnosis_engine(target, baseline, trace_ctx,
+                                          top=FLEET_DIAGNOSE_TOP)
+            engine_s.append(time.time() - t)
+            return report
+
+        watcher = FleetWatcher(
+            relay.view, metric=metric, spread=spread,
+            trigger=fleet_trigger(tmp, job_id, captures), diagnose=diagnose)
+        # Tick as the relay would until the breach shows (a tick without a
+        # candidate charges no cooldown); the breach time is the start of
+        # the tick that saw it.
+        t0, report = time.time(), None
+        while report is None and time.time() < t0 + FLEET_BREACH_S:
+            t_breach = time.time()
+            report = watcher.tick()
+            if report is None:
+                time.sleep(0.2)
+        if report is None:
+            raise AssertionError(f"the watcher did not fire within "
+                                 f"{FLEET_BREACH_S} s: {detail()}")
+        breach_to_report_ms = (
+            Path(report["report_path"]).stat().st_mtime - t_breach) * 1000
+        if watcher.tick() is not None or watcher.fires != 1:
+            raise AssertionError(f"the watcher fired {watcher.fires} times "
+                                 "inside its cooldown")
+        cand = report["candidate"]
+        ctx = report["trace_ctx"]
+        on_disk = json.loads(Path(report["report_path"]).read_text())
+        log(f"  {smi}: watcher fired once ({cand['reason']}): outlier "
+            f"{cand['outlier']} at {cand['outlier_value']:.3f}, peer "
+            f"{cand['peer']} at {cand['peer_value']:.3f}, spread "
+            f"{cand['spread']:.3f}; breach to report on disk "
+            f"{breach_to_report_ms:.0f} ms; engine "
+            f"{sum(engine_s):.2f} s; trace_ctx {ctx}")
+        for host, cap in captures.items():
+            log(f"  {smi}: capture of {host}: latency RPC->manifest "
+                f"{cap['latency_ms']:.0f} ms, trace_ctx "
+                f"{cap['manifest']['trace_ctx']}, timing "
+                f"{cap['manifest']['timing']}")
+            with open(cap["manifest"]["trace_file"]) as f:
+                events = json.load(f)["traceEvents"]
+            for name in PRODUCTS:
+                calls = sorted(e["dur"] / 1e3 for e in events
+                               if e.get("cat") == "kernel" and
+                               f"flash_tc::{name}_kernel<128>" in e["name"])
+                log(f"    {name} calls (ms, sorted): "
+                    f"{[round(c, 4) for c in calls]}")
+        failures = []
+        if cand["outlier"] != "h2" or cand["peer"] not in ("h0", "h1"):
+            failures.append(f"picked {cand['outlier']} against "
+                            f"{cand['peer']}, not h2 against h0 or h1")
+        # One trace id (the part before "/"); each daemon parents its own
+        # span under the watcher's.
+        ids = {c["manifest"]["trace_ctx"].split("/")[0]
+               for c in captures.values()}
+        if (len(captures) != 2 or ids != {ctx.split("/")[0]}
+                or on_disk.get("trace_ctx") != ctx):
+            failures.append(f"trace contexts: captures {ids}, watcher "
+                            f"{ctx}, report {on_disk.get('trace_ctx')}")
+        log(f"  verdict {on_disk['verdict']}: {on_disk['headline']}")
+        if on_disk["verdict"] != "regressed":
+            failures.append(f"h2 diagnosed {on_disk['verdict']}")
+        for name in PRODUCTS:
+            op = f"flash_tc::{name}_kernel<128>"
+            found = [(f["kind"], f["severity_pct"])
+                     for f in on_disk["findings"] if f["op"] == op]
+            log(f"  {op}: (kind, severity %) {found}")
+            if not {"compute_regression", "fusion_shape_change"} & {
+                    kind for kind, _ in found}:
+                failures.append(f"no regression finding for {op}")
+
+        for host, cap in captures.items():
+            latencies[f"14 {host}"] = cap["latency_ms"] / 1000
+        family = obs.HistogramFamily(
+            "dynolog_capture_latency_seconds",
+            "RPC to manifest latency of the smoke's daemon-triggered "
+            "captures", label_key="phase")
+        for phase, seconds in latencies.items():
+            family.observe(seconds, phase)
+        log(f"  {smi}: capture latencies (s) {latencies}; exposition:")
+        for line in obs.render_exposition([family]).splitlines():
+            if not line.startswith("#") and "_bucket" not in line:
+                log(f"    {line}")
+
+        sampler = PerfCliSampler(pid=trainers["h2"].pid)
+        if sampler.available():
+            got = summarize(sampler.sample(2.0))
+            log(f"  perf on h2 (pid {trainers['h2'].pid}), 2 s: "
+                f"{got['samples']} samples; top comms "
+                f"{list(got['by_comm'].items())[:5]}")
+        else:
+            log("  perf is not on PATH: the perf CLI sampler was not run "
+                "on the card")
+
+        forwarder.stop()
+        stop.touch()
+        results = {}
+        for host, proc in trainers.items():
+            if proc.wait(timeout=180) != 0:
+                failures.append(f"trainer {host} exited {proc.returncode}")
+                continue
+            results[host] = json.loads(
+                (tmp / f"{host}.result.json").read_text())
+        relay.write_snapshot()
+        doc = detail()
+        for host in FLEET_ROWS:
+            h = doc["hosts_detail"][host]
+            wal = daemons[host].rpc({"fn": "health"})["durability"]["sinks"]
+            wal = next(iter(wal.values()))
+            log(f"  {smi}: {host} at the relay: records {h['records']}, "
+                f"applied_seq {h['applied_seq']}, durable (acked) seq "
+                f"{h.get('durable_seq')}, seq_gaps {h['seq_gaps']}; sender "
+                f"WAL last_seq {wal['last_seq']}, acked_seq "
+                f"{wal['acked_seq']}")
+            if h["seq_gaps"] != 0 or h["records"] != h["applied_seq"]:
+                failures.append(f"{host}: seq_gaps {h['seq_gaps']}, records"
+                                f" {h['records']}, applied "
+                                f"{h['applied_seq']}")
+        log(f"  relay ingest {doc['global']['ingest']}; rate records "
+            f"forwarded {forwarder.forwarded}")
+        for host, r in results.items():
+            log(f"  {smi}: trainer {host} (B={FLEET_ROWS[host]}): "
+                f"{r['steps']} steps, step {r['step_ms']:.1f} ms (median "
+                f"after the first 3), peak memory {r['peak_gib']:.2f} GiB, "
+                f"captures {r['traces']}, launches {r['launches']}")
+            if not r["finite"]:
+                failures.append(f"trainer {host}: non-finite loss")
+            for name, count in r["launches"].items():
+                if count < N_LAYERS * r["steps"]:
+                    failures.append(f"trainer {host}: {name} launched "
+                                    f"{count} times in {r['steps']} steps")
+        if failures:
+            raise AssertionError("\n".join(failures))
+        log(f"  phase 14 took {time.time() - t_phase:.1f} s")
+        return {name: sum(r["launches"][name] for r in results.values())
+                for name in PRODUCTS}
+    finally:
+        if forwarder is not None:
+            forwarder.stop()
+        stop.touch()
+        for proc in trainers.values():
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for daemon in daemons.values():
+            daemon.stop()
+        relay.sever()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main_alone(_build, mode: str) -> int:
     """`chip_smoke.py --ep` (two cards or more): the kernels built and the
     expert-parallel check alone. `chip_smoke.py --mesh` (four cards or
@@ -1787,6 +2180,8 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--fleet-trainer"] and len(sys.argv) == 3:
+        return fleet_trainer(json.loads(sys.argv[2]))
     if sys.argv[1:] in (["--ep"], ["--mesh"]):
         return main_alone(_build, sys.argv[1])
     if sys.argv[1:]:
@@ -1847,8 +2242,8 @@ def main() -> int:
             log("phase 6: summary of the capture")
             phase_summary(cap, results, cfg.n_layers)
             log("phase 7: diagnosis of a B=2 capture against the baseline")
-            base = phase_diagnosis(F, daemon, trainer, client, job_id, tmp,
-                                   cap)
+            base, b2_latency_ms = phase_diagnosis(F, daemon, trainer, client,
+                                                  job_id, tmp, cap)
         finally:
             client.stop()
             for proc in client.summary_procs:
@@ -1870,6 +2265,10 @@ def main() -> int:
         ring, ring_distance, flash = phase_ring_attention()
         log("phase 13: GPipe trainer under a capture triggered by unitrace")
         pipe = phase_pipeline(daemon)
+        log("phase 14: fleet straggler loop")
+        free_cache()
+        fleet_counts = phase_fleet(smi, {"5": cap["latency_ms"] / 1000,
+                                         "7": b2_latency_ms / 1000})
         log("multi-card expert parallelism")
         ep_counts = phase_multicard_ep()
         log("multi-card tensor, sequence and expert parallelism")
@@ -1895,7 +2294,7 @@ def main() -> int:
             "launches_by_path": {
                 "dense": counts[name], "moe": moe_counts[name],
                 "ring": ring["launches"][name],
-                "pp": pipe["launches"][name],
+                "pp": pipe["launches"][name], "fleet": fleet_counts[name],
                 "moe_ep": ep_counts and ep_counts[name],
                 **{path: mesh_counts[path][name] if mesh_counts else None
                    for path in MESH_CASES},

@@ -15,7 +15,11 @@ It runs beside the JAX package and imports nothing of it (nor JAX):
 - :mod:`dynolog_tpu_torch.collectives` — the NCCL collective probe for
   the daemon's file backend;
 - :mod:`dynolog_tpu_torch.ops` — flash attention as hand-written CUDA
-  kernels for Hopper, each with a plain PyTorch version.
+  kernels for Hopper, each with a plain PyTorch version;
+- :mod:`dynolog_tpu_torch.supervise` — the mirror of the daemon's
+  supervision, durable spill queue, fleet relay and watcher (diagnosing
+  with :mod:`dynolog_tpu_torch.diagnose`) and resource governor;
+  :mod:`dynolog_tpu_torch.host` — the perf(1) CLI sampler.
 
 Entry points run on the card (``device="cuda"``) and raise where there is
 none; only a caller that asks for ``device="cpu"`` gets the CPU.

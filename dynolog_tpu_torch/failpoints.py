@@ -1,7 +1,8 @@
 """Named failpoints for the PyTorch shim — the mirror of
 src/common/Failpoints.h (same spec grammar, same env variable), so one
 ``DYNO_FAILPOINTS`` setting can drive a fault drill through both halves
-of the stack: the C++ daemon's collectors/sinks and the PyTorch shim.
+of the stack: the C++ daemon's collectors/sinks and the PyTorch shim,
+its summary child, cluster fan-out and the supervise mirror.
 
 Spec grammar (one failpoint)::
 
@@ -42,6 +43,25 @@ Instrumented sites (see docs/RELIABILITY.md for the catalog)::
                           the way a crash kills it)
     cluster.rpc_connect   FramedRpcClient's connect (error: the host reads
                           as unreachable)
+    wal.append.write      SinkWal.append's segment write (errno: the
+                          append raises; DurableSink defers the record in
+                          memory and re-appends it when the disk recovers)
+    wal.seal.rename       SinkWal's seal of a full open segment (errno: the
+                          segment is sealed in place under its .open name;
+                          recovery retries the rename)
+    wal.ack.persist       SinkWal's ack-watermark commit (errno: the
+                          watermark does not move; the records replay)
+    relay.merge.apply     FleetView's apply of a child relay's rollup
+                          (error: the rollup is neither applied nor acked,
+                          so the child retries it durably)
+    relay.upstream.export FleetRelay's export of its rollup upstream
+                          (error: the round is skipped and counted)
+    state.snapshot.write  FleetRelay's snapshot commit (errno: the previous
+                          snapshot file stays byte-identical)
+    diagnose.report.write the fleet watcher's diagnosis report write (errno:
+                          the tmp is removed and no partial report appears)
+    trace.artifact.write  also guards atomic_artifact_write, the governor's
+                          artifact write
 
 Cost when unarmed: one falsy dict check per site.
 """

@@ -1,7 +1,7 @@
 """Control-plane self-tracing — the PyTorch shim's half.
 
-A copy of the parts of ``dynolog_tpu/obs.py`` the port's shim and its
-cluster fan-out (``cluster.unitrace``, ``cluster.rpc``) use, so the port
+A copy of ``dynolog_tpu/obs.py`` for the port's shim, its cluster fan-out
+(``cluster.unitrace``, ``cluster.rpc``) and its fleet tooling, so the port
 imports nothing of the JAX package:
 
 - ``TraceContext``: the 64-bit trace-id/span-id pair naming one
@@ -18,6 +18,10 @@ imports nothing of the JAX package:
   (the diagnose CLI, the shim's summary child) joins the request that
   started it. It reads its parent's context from ``$DYNO_TRACE_CTX`` and
   flushes its spans to the daemon named by ``$DYNO_OBS_ENDPOINT`` on exit.
+- ``HistogramFamily``: the fixed-bucket latency histogram with the same
+  bounds and `_bucket`/`_sum`/`_count` OpenMetrics rendering as the C++
+  registry (src/core/Histograms.{h,cpp}); ``render_exposition`` renders
+  families byte-for-byte as the JAX package's mirror does.
 
 Stdlib only, and injectable (``now``), so tests drive time synthetically.
 """
@@ -39,6 +43,14 @@ CONFIG_KEY = "TRACE_CONTEXT"
 # daemon IPC endpoint the child flushes its spans to.
 ENV_TRACE_CTX = "DYNO_TRACE_CTX"
 ENV_FLUSH_ENDPOINT = "DYNO_OBS_ENDPOINT"
+
+# Mirror of src/core/Histograms.cpp LatencyHistogram::bounds() — change
+# both or dashboards break. 500µs..10s, ~1-2.5-5 per decade.
+DEFAULT_BOUNDS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
 # Wire limit for span names (src/tracing/IPCMonitor.h ClientSpan.name,
 # NUL terminator included).
 NAME_BYTES = 48
@@ -179,6 +191,95 @@ def span(
         _current.reset(token)
         rec.dur_us = max(int(now() * 1e6) - rec.start_us, 0)
         (journal if journal is not None else JOURNAL).record(rec)
+
+
+class Histogram:
+    """One fixed-bucket latency histogram (C++ LatencyHistogram mirror)."""
+
+    def __init__(self, bounds=DEFAULT_BOUNDS):
+        self.bounds = tuple(bounds)
+        self.buckets = [0] * (len(self.bounds) + 1)  # per-bucket, not cum.
+        self.count = 0
+        self.sum = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, seconds: float) -> None:
+        if not seconds >= 0:  # NaN/negative clock skew
+            seconds = 0.0
+        idx = 0
+        while idx < len(self.bounds) and seconds > self.bounds[idx]:
+            idx += 1
+        with self._lock:
+            self.buckets[idx] += 1
+            self.count += 1
+            self.sum += seconds
+
+
+def _fmt(v: float) -> str:
+    """%g-style canonical le/sum formatting, matching the C++ renderer."""
+    return f"{v:g}"
+
+
+class HistogramFamily:
+    """A named histogram family rendering the conformant OpenMetrics
+    block: `# HELP`, `# TYPE ... histogram`, then per-series cumulative
+    `_bucket{...,le="..."}`, `_sum`, `_count`. label_key=None renders a
+    single unlabeled series; a labeled family always renders the
+    {<label>="all"} aggregate first (C++ registry behavior)."""
+
+    def __init__(self, name: str, help_text: str, label_key: str | None = None):
+        self.name = name
+        self.help = help_text
+        self.label_key = label_key
+        self.aggregate = Histogram()
+        self.children: dict[str, Histogram] = {}
+        self._lock = threading.Lock()
+
+    def observe(self, seconds: float, label: str | None = None) -> None:
+        self.aggregate.observe(seconds)
+        if self.label_key is None or label is None:
+            return
+        with self._lock:
+            hist = self.children.get(label)
+            if hist is None:
+                hist = self.children[label] = Histogram()
+        hist.observe(seconds)
+
+    def _series(self, labels: str, hist: Histogram) -> str:
+        out = []
+        cumulative = 0
+        for bound, n in zip(hist.bounds, hist.buckets):
+            cumulative += n
+            out.append(
+                f'{self.name}_bucket{{{labels}le="{_fmt(bound)}"}} '
+                f"{cumulative}")
+        # +Inf/_count from the cumulative bucket sum, mirroring the C++
+        # renderer (there the separate count atomic can race a scrape
+        # into a non-monotonic histogram).
+        cumulative += hist.buckets[-1]
+        out.append(f'{self.name}_bucket{{{labels}le="+Inf"}} {cumulative}')
+        block = "{" + labels[:-1] + "}" if labels else ""
+        out.append(f"{self.name}_sum{block} {_fmt(hist.sum)}")
+        out.append(f"{self.name}_count{block} {cumulative}")
+        return "\n".join(out) + "\n"
+
+    def render(self) -> str:
+        out = f"# HELP {self.name} {self.help}\n"
+        out += f"# TYPE {self.name} histogram\n"
+        if self.label_key is None:
+            return out + self._series("", self.aggregate)
+        out += self._series(f'{self.label_key}="all",', self.aggregate)
+        with self._lock:
+            children = sorted(self.children.items())
+        for label, hist in children:
+            out += self._series(f'{self.label_key}="{label}",', hist)
+        return out
+
+
+def render_exposition(families: list[HistogramFamily]) -> str:
+    """Families rendered as one OpenMetrics exposition, terminated with
+    `# EOF` like the daemon's /metrics (src/core/OpenMetricsServer.cpp)."""
+    return "".join(f.render() for f in families) + "# EOF\n"
 
 
 def flush_spans(

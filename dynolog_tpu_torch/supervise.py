@@ -1,0 +1,2821 @@
+"""Pure-Python reference implementation of the daemon's fault-containment
+and durability model — the port's copy of ``dynolog_tpu/supervise.py``,
+with the same wire, on-disk formats and decision cores, since the C++
+daemon under src/ serves both Python packages. It mirrors
+src/daemon/Supervisor.{h,cpp}, src/core/Health.{h,cpp}, SinkBreaker in
+src/core/RemoteLoggers.{h,cpp}, the durable sink spill queue
+src/core/SinkWal.{h,cpp}, the fleet relay (src/relay/), its watcher and
+the resource governor (src/core/ResourceGovernor.{h,cpp}).
+
+Its jobs:
+
+1. **Schema/semantics pin.** The states (``up`` / ``recovering`` /
+   ``degraded`` / ``disabled``), the per-component snapshot keys, and the
+   registry snapshot layout here are the `health` RPC verb's wire schema.
+   The supervision algorithm (restart backoff, consecutive-failure
+   breaker, park-and-probe recovery, sink circuit breakers) runs without
+   a C++ toolchain.
+
+2. **Client-side supervision.** The shim and cluster paths can reuse
+   the same breaker/backoff policy objects where they need one (e.g.
+   around a flaky relay of their own).
+
+3. **Durability mirror.** :class:`SinkWal` speaks the C++ spill queue's
+   exact on-disk format (segmented CRC-framed records, tmp+fsync+rename
+   ack watermark), so a harness can write, crash, recover, and VERIFY a
+   queue — including one a C++ daemon wrote — without a toolchain.
+   :class:`DurableSink` composes it with :class:`SinkBreaker` into the
+   append-then-drain acknowledged transport RelayLogger implements.
+
+4. **Fleet relay and automated diagnosis.** :class:`FleetView` /
+   :class:`FleetRelay` ingest the daemons' acked relay records;
+   :class:`FleetWatcher` captures a straggler and a healthy peer under one
+   trace context and diffs the two captures with
+   :mod:`dynolog_tpu_torch.diagnose` (torch.profiler / kineto captures).
+
+Kept dependency-free (no torch: nothing here touches a tensor) and
+injectable (``now``/``sleep``), so tests drive time synthetically.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import socket
+import struct
+import threading
+import time
+import zlib
+
+from dynolog_tpu_torch import failpoints
+
+STATE_UP = "up"
+STATE_RECOVERING = "recovering"
+STATE_DEGRADED = "degraded"
+STATE_DISABLED = "disabled"
+
+
+class ComponentHealth:
+    """One supervised component's live state (mirror of
+    src/core/Health.h ComponentHealth; same snapshot keys)."""
+
+    def __init__(self, name: str, now=time.monotonic):
+        self.name = name
+        self._now = now
+        self._lock = threading.Lock()
+        self._state = STATE_UP
+        self._restarts = 0
+        self._consecutive = 0
+        self._drops = 0
+        self._open_breakers = 0
+        self._last_tick: float | None = None
+        self.last_error = ""
+
+    def tick_ok(self) -> None:
+        with self._lock:
+            self._last_tick = self._now()
+            self._consecutive = 0
+            if self._open_breakers == 0:
+                self._state = STATE_UP
+
+    def on_failure(self, error: str) -> None:
+        with self._lock:
+            self._restarts += 1
+            self._consecutive += 1
+            self.last_error = error
+            self._state = STATE_RECOVERING
+
+    def park(self) -> None:
+        with self._lock:
+            self._state = STATE_DEGRADED
+
+    def disable(self, reason: str) -> None:
+        with self._lock:
+            self.last_error = reason
+            self._state = STATE_DISABLED
+
+    def add_drop(self, error: str = "") -> None:
+        with self._lock:
+            self._drops += 1
+            if error:
+                self.last_error = error
+
+    def note_error(self, error: str) -> None:
+        """last_error without a drop (mirror of the C++ noteError): the
+        durable sink path defers intervals instead of losing them."""
+        with self._lock:
+            if error:
+                self.last_error = error
+
+    def breaker_opened(self, error: str) -> None:
+        with self._lock:
+            self._open_breakers += 1
+            if error:
+                self.last_error = error
+            self._state = STATE_DEGRADED
+
+    def breaker_closed(self) -> None:
+        with self._lock:
+            if self._open_breakers > 0:
+                self._open_breakers -= 1
+                if self._open_breakers == 0:
+                    self._state = STATE_UP
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            snap = {
+                "state": self._state,
+                "restarts": self._restarts,
+                "consecutive_failures": self._consecutive,
+                "drops": self._drops,
+                "last_error": self.last_error,
+            }
+            if self._last_tick is not None:
+                snap["seconds_since_tick"] = self._now() - self._last_tick
+            return snap
+
+
+class HealthRegistry:
+    """Mirror of src/core/Health.h HealthRegistry — snapshot() is the
+    `health` RPC verb's response shape."""
+
+    def __init__(self, now=time.monotonic):
+        self._now = now
+        self._start = now()
+        self._lock = threading.Lock()
+        self._components: dict[str, ComponentHealth] = {}
+
+    def component(self, name: str) -> ComponentHealth:
+        with self._lock:
+            comp = self._components.get(name)
+            if comp is None:
+                comp = self._components[name] = ComponentHealth(
+                    name, now=self._now)
+            return comp
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            comps = list(self._components.values())
+        components = {c.name: c.snapshot() for c in comps}
+        degraded = [
+            c.name for c in comps
+            if c.state not in (STATE_UP, STATE_DISABLED)
+        ]
+        return {
+            "status": "ok" if not degraded else "degraded",
+            "uptime_s": self._now() - self._start,
+            "components": components,
+            "degraded": degraded,
+        }
+
+    def all_up(self) -> bool:
+        return not self.snapshot()["degraded"]
+
+
+class Supervisor:
+    """Mirror of src/daemon/Supervisor: contained restarts with
+    exponential backoff + jitter, a consecutive-failure breaker parking
+    the component as degraded, slow probes while parked, recovery on the
+    first clean tick."""
+
+    def __init__(
+        self,
+        registry: HealthRegistry,
+        *,
+        backoff_initial_s: float = 1.0,
+        backoff_max_s: float = 30.0,
+        max_consecutive_failures: int = 5,
+        degraded_retry_s: float = 60.0,
+        sleep=None,
+        rng: random.Random | None = None,
+    ):
+        self.registry = registry
+        self.backoff_initial_s = backoff_initial_s
+        self.backoff_max_s = backoff_max_s
+        self.max_consecutive_failures = max(max_consecutive_failures, 1)
+        self.degraded_retry_s = degraded_retry_s
+        self._stop = threading.Event()
+        self._sleep = sleep if sleep is not None else self._default_sleep
+        self._rng = rng or random.Random()
+
+    def _default_sleep(self, seconds: float) -> None:
+        # Interruptible: requestStop() cuts through a parked component's
+        # long probe sleep, bounding shutdown like the C++ sleepFor.
+        self._stop.wait(seconds)
+
+    def request_stop(self) -> None:
+        self._stop.set()
+
+    @property
+    def stop_requested(self) -> bool:
+        return self._stop.is_set()
+
+    def run(self, component: str, interval_s, make_ticker) -> None:
+        """Supervised loop, same algorithm as Supervisor::run in C++.
+        ``interval_s`` is a float or a zero-arg callable re-read per lap;
+        ``make_ticker`` builds one collector incarnation and returns its
+        tick callable (None = disabled)."""
+        comp = self.registry.component(component)
+        get_interval = interval_s if callable(interval_s) else (
+            lambda: interval_s)
+        tick = None
+        consecutive = 0
+        backoff = self.backoff_initial_s
+        ever_built = False
+        while not self._stop.is_set():
+            try:
+                if tick is None:
+                    tick = make_ticker()
+                    if tick is None:
+                        if ever_built:
+                            # Declining AFTER a successful build = the
+                            # dependency is transiently sick: retry on
+                            # the failure path, like the C++ supervisor.
+                            raise RuntimeError(
+                                "collector factory declined after a "
+                                "previous successful build")
+                        if comp.state != STATE_DISABLED:
+                            comp.disable("collector unavailable")
+                        return
+                    ever_built = True
+                tick()
+                comp.tick_ok()
+                consecutive = 0
+                backoff = self.backoff_initial_s
+                self._sleep(max(get_interval(), 0.001))
+                continue
+            except Exception as e:  # noqa: BLE001 - containment is the point
+                error = str(e) or type(e).__name__
+            # Contained failure: tear down, record, back off, retry.
+            tick = None
+            consecutive += 1
+            comp.on_failure(error)
+            if consecutive >= self.max_consecutive_failures:
+                comp.park()
+                wait = self.degraded_retry_s
+            else:
+                wait = backoff * (1.0 + self._rng.random() * 0.25)
+                backoff = min(backoff * 2, self.backoff_max_s)
+            self._sleep(wait)
+
+
+class SinkBreaker:
+    """Mirror of src/core/RemoteLoggers.h SinkBreaker: per-sink circuit
+    breaker counting dropped intervals instead of stalling the caller."""
+
+    def __init__(
+        self,
+        what: str,
+        health: ComponentHealth | None = None,
+        *,
+        retry_initial_s: float = 1.0,
+        retry_max_s: float = 30.0,
+        breaker_failures: int = 3,
+        now=time.monotonic,
+    ):
+        self.what = what
+        self.health = health
+        self.retry_initial_s = retry_initial_s
+        self.retry_max_s = retry_max_s
+        self.breaker_failures = max(breaker_failures, 1)
+        self._now = now
+        self.consecutive = 0
+        self.dropped = 0
+        self.open = False
+        self._next_attempt = 0.0
+        self._backoff = 0.0
+
+    def holds(self) -> bool:
+        """True = inside the backoff window: drop without touching IO."""
+        if self.consecutive == 0 or self._now() >= self._next_attempt:
+            return False
+        self.dropped += 1
+        if self.health:
+            self.health.add_drop()
+        return True
+
+    def holds_quiet(self) -> bool:
+        """holds() without the drop accounting (mirror of the C++
+        windowHolding): the WAL-backed path parks intervals on disk
+        during the window — deferred, not dropped."""
+        return self.consecutive != 0 and self._now() < self._next_attempt
+
+    def failure(self, error: str, lost: bool = True) -> None:
+        """One delivery failure. lost=False (the WAL-backed path) keeps
+        the backoff/breaker machinery but skips the drop accounting —
+        the interval is parked on disk, not lost."""
+        self.consecutive += 1
+        self._backoff = (
+            self.retry_initial_s if self._backoff == 0
+            else min(self._backoff * 2, self.retry_max_s))
+        self._next_attempt = self._now() + self._backoff
+        if lost:
+            self.dropped += 1
+            if self.health:
+                self.health.add_drop(f"{self.what}: {error}")
+        elif self.health:
+            self.health.note_error(f"{self.what}: {error}")
+        if not self.open and self.consecutive >= self.breaker_failures:
+            self.open = True
+            if self.health:
+                self.health.breaker_opened(f"{self.what}: {error}")
+
+    def count_drop(self, error: str = "") -> None:
+        """Drop accounting WITHOUT the backoff/breaker side effects
+        (mirror of the C++ countDrop): the deferral queue's overflow
+        path — the loss is real and counted, but the backoff window was
+        already extended by the failure() that filled the queue."""
+        self.dropped += 1
+        if self.health:
+            self.health.add_drop(f"{self.what}: {error}" if error else "")
+
+    def success(self) -> None:
+        if self.open:
+            self.open = False
+            if self.health:
+                self.health.breaker_closed()
+        self.consecutive = 0
+        self._backoff = 0.0
+        if self.health:
+            self.health.tick_ok()
+
+
+# ---------------------------------------------------------------------------
+# Durability mirror: the sink spill queue (src/core/SinkWal.{h,cpp})
+# ---------------------------------------------------------------------------
+
+# Version constants — the Python mirror's half of the rolling-upgrade
+# contract (docs/COMPATIBILITY.md is the authoritative table; dynolint's
+# `compat` pass pins it against src/common/Version.h AND these, so the
+# two languages cannot drift).
+BUILD = "0.7.0"  # mirrors dynotpu::kVersion
+PROTO_VERSION = 1  # mirrors dynotpu::kWireProtoVersion
+WAL_RECORD_VERSION = 1  # mirrors dynotpu::kWalRecordVersion
+SNAPSHOT_VERSION = 2  # mirrors dynotpu::kSnapshotVersion
+SNAPSHOT_MIN_VERSION = 1  # mirrors dynotpu::kMinSnapshotVersion
+
+
+def default_compat_level() -> int:
+    """The mirror's --compat-level knob: 0 impersonates a pre-version
+    sender/relay (v0 WAL frames, no proto/build stamps, no hello ack —
+    byte-identical to the previous release's wire), >=1 is current.
+    Settable process-wide via $DYNO_COMPAT_LEVEL so one child process in
+    a mixed-version drill plays the old binary."""
+    try:
+        return max(int(os.environ.get("DYNO_COMPAT_LEVEL", "1")), 0)
+    except ValueError:
+        return 1
+
+
+# Record frame, byte-identical to the C++ WAL, two generations readable
+# side by side (mixed-version replay across a rolling upgrade):
+#   v0:  u32 len                      | u32 crc | u64 seq | payload
+#   v1:  u32 len|WAL_VERSIONED_FLAG   | u32 crc | u64 seq | u8 ver | payload
+# all little-endian; crc32(seq (+ ver) + payload). zlib.crc32 IS
+# CRC-32/IEEE (poly 0xEDB88320, reflected, init/xorout 0xFFFFFFFF) — the
+# same function crc32Ieee computes.
+WAL_HEADER = struct.Struct("<IIQ")
+WAL_SEQ = struct.Struct("<Q")
+_WAL_MAX_RECORD = 16 << 20
+# High bit of the length word marks a v1+ frame (a legal length can
+# never reach it); the version byte follows the seq.
+WAL_VERSIONED_FLAG = 0x80000000
+
+
+def _wal_segment_name(first_seq: int, open_: bool) -> str:
+    return f"wal-{first_seq:020d}" + (".open" if open_ else ".seg")
+
+
+class SinkWal:
+    """Per-endpoint durable spill queue — same on-disk format and
+    semantics as the C++ SinkWal: append() fsyncs a CRC-framed record
+    before returning its sequence number, ack() persists the delivery
+    watermark tmp+fsync+rename, recovery truncates torn tails, skips
+    (and counts) CRC damage, removes *.tmp debris, and reclaims
+    fully-acked segments. Bounded by max_bytes with oldest-segment
+    eviction (counted drops — the only loss this queue ever takes)."""
+
+    def __init__(self, dir_path: str, *, max_bytes: int = 64 << 20,
+                 segment_bytes: int = 1 << 20, fsync: bool = True,
+                 compat_level: int | None = None):
+        self.dir = dir_path
+        self.max_bytes = max_bytes
+        self.segment_bytes = segment_bytes
+        self.fsync = fsync
+        # 0 = write v0 (legacy) frames — the old-sender impersonation of
+        # the mixed-version drills; >=1 = write v1 frames. READING is
+        # always version-blind: both generations replay from one dir.
+        self.compat_level = (default_compat_level()
+                             if compat_level is None else compat_level)
+        self._lock = threading.Lock()
+        self._segments: list[dict] = []  # {path,first,last,bytes,records}
+        self._active_f = None
+        self.last_seq = 0
+        self.acked_seq = 0
+        self.epoch = 0  # sequence-space incarnation (see _recover_locked)
+        self.evicted_records = 0
+        self.corrupt_records = 0
+        self.recovered_records = 0
+        self.append_errors = 0
+        self._draining = False
+        os.makedirs(self.dir, exist_ok=True)
+        with self._lock:
+            self._recover_locked()
+
+    # -- recovery --------------------------------------------------------
+
+    @staticmethod
+    def scan_segment(path: str):
+        """(records, good_bytes, corrupt) for one segment file: every
+        intact (seq, payload) pair, the offset of the last intact record
+        (a shorter file size than this means a torn tail), and whether
+        mid-segment corruption cut the scan short."""
+        records: list[tuple[int, bytes]] = []
+        try:
+            with open(path, "rb") as f:
+                data = f.read()
+        except OSError:
+            return records, 0, True
+        off = 0
+        while off + WAL_HEADER.size <= len(data):
+            raw_len, crc, seq = WAL_HEADER.unpack_from(data, off)
+            # Mixed-version framing: high bit = v1+ frame with a version
+            # byte between seq and payload (C++ parity; replay of a
+            # spill dir spanning an upgrade is seamless).
+            versioned = bool(raw_len & WAL_VERSIONED_FLAG)
+            length = raw_len & (WAL_VERSIONED_FLAG - 1)
+            extra = 1 if versioned else 0
+            if length > _WAL_MAX_RECORD:
+                return records, off, True  # garbage header = corruption
+            if off + WAL_HEADER.size + extra + length > len(data):
+                break  # torn tail (crash mid-append)
+            body_at = off + WAL_HEADER.size + extra
+            payload = data[body_at:body_at + length]
+            ver = bytes(data[off + WAL_HEADER.size:body_at])
+            if zlib.crc32(WAL_SEQ.pack(seq) + ver + payload) != crc:
+                return records, off, True
+            records.append((seq, bytes(payload)))
+            off += WAL_HEADER.size + extra + length
+        return records, off, False
+
+    def _sync_dir(self) -> None:
+        if not self.fsync:
+            return
+        fd = os.open(self.dir, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+
+    def _recover_locked(self) -> None:
+        # Boot epoch (C++ parity): created once with the directory, so it
+        # lives exactly as long as the sequence space does — a wiped
+        # spill dir restarts seqs at 1 under a NEW epoch, a plain restart
+        # keeps both. (host, epoch, wal_seq) is the fleet dedup triple.
+        epoch_path = os.path.join(self.dir, "epoch")
+        try:
+            self.epoch = int(open(epoch_path).read().strip() or 0)
+        except (OSError, ValueError):
+            self.epoch = 0
+        if self.epoch == 0:
+            self.epoch = int(time.time() * 1000)
+            tmp = epoch_path + ".tmp"
+            try:
+                with open(tmp, "w") as f:
+                    f.write(f"{self.epoch}\n")
+                    f.flush()
+                    if self.fsync:
+                        os.fsync(f.fileno())
+                os.rename(tmp, epoch_path)
+                self._sync_dir()
+            except OSError:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+        try:
+            ack_text = open(os.path.join(self.dir, "ack")).read()
+            self.acked_seq = int(ack_text.strip() or 0)
+        except (OSError, ValueError):
+            self.acked_seq = 0
+        names = sorted(os.listdir(self.dir))
+        # Recovery-time damage is counted as the FULL stranded span (the
+        # truncate below destroys every record behind the corruption;
+        # C++ parity) — knowable only from the NEXT segment's first seq,
+        # so the count is deferred one segment; a damaged tail counts 1.
+        pending_corrupt_max = None
+        for name in names:
+            path = os.path.join(self.dir, name)
+            if name.endswith(".tmp"):
+                os.unlink(path)  # partial atomic-write debris
+                continue
+            if not name.startswith("wal-"):
+                continue
+            stem = name[4:].rsplit(".", 1)
+            if len(stem) != 2 or stem[1] not in ("open", "seg") \
+                    or not stem[0].isdigit():
+                continue
+            if pending_corrupt_max is not None:
+                self.corrupt_records += max(
+                    int(stem[0]) - 1 - pending_corrupt_max, 1)
+                pending_corrupt_max = None
+            records, good_bytes, corrupt = self.scan_segment(path)
+            if corrupt:
+                pending_corrupt_max = max(
+                    records[-1][0] if records else 0, int(stem[0]) - 1)
+            if not records:
+                os.unlink(path)
+                continue
+            size = os.path.getsize(path)
+            if size > good_bytes or corrupt:
+                with open(path, "r+b") as f:
+                    f.truncate(good_bytes)
+                    if self.fsync:
+                        os.fsync(f.fileno())
+            if stem[1] == "open":
+                # Seal recovered open segments: appends go to fresh files.
+                sealed = os.path.join(
+                    self.dir, _wal_segment_name(int(stem[0]), False))
+                os.rename(path, sealed)
+                self._sync_dir()
+                path = sealed
+            max_seq = records[-1][0]
+            if max_seq <= self.acked_seq:
+                os.unlink(path)  # fully delivered before the crash
+                continue
+            self._segments.append({
+                "path": path, "first": int(stem[0]), "last": max_seq,
+                "bytes": good_bytes, "records": len(records),
+            })
+            self.last_seq = max(self.last_seq, max_seq)
+            self.recovered_records += len(records)
+        if pending_corrupt_max is not None:
+            self.corrupt_records += 1  # damaged tail: span unknowable
+        self.last_seq = max(self.last_seq, self.acked_seq)
+
+    # -- append / peek / ack ---------------------------------------------
+
+    def append(self, build) -> int:
+        """Durably appends one record; `build(seq) -> bytes|str` so the
+        payload can embed its own sequence number. Returns the seq (0 on
+        an append error). A returned seq is on disk (fsync'd), which is
+        what makes ack() safe."""
+        with self._lock:
+            seq = self.last_seq + 1
+            payload = build(seq)
+            if isinstance(payload, str):
+                payload = payload.encode()
+            if len(payload) > _WAL_MAX_RECORD:
+                self.append_errors += 1
+                return 0
+            try:
+                # wal.append.write failpoint (errno: drill): raising
+                # OSError here IS the real full-disk append path — the
+                # except below truncates, counts, and defers exactly as
+                # a genuine ENOSPC would (C++ SinkWal::append parity).
+                failpoints.fire("wal.append.write")
+                if self._active_f is None:
+                    path = os.path.join(
+                        self.dir, _wal_segment_name(seq, True))
+                    self._active_f = open(path, "wb")
+                    self._sync_dir()
+                    self._segments.append({
+                        "path": path, "first": seq, "last": seq - 1,
+                        "bytes": 0, "records": 0,
+                    })
+                if self.compat_level >= 1:
+                    ver = bytes((WAL_RECORD_VERSION,))
+                    frame = WAL_HEADER.pack(
+                        len(payload) | WAL_VERSIONED_FLAG,
+                        zlib.crc32(WAL_SEQ.pack(seq) + ver + payload),
+                        seq) + ver + payload
+                else:
+                    # compat 0: the legacy v0 frame, byte-identical to
+                    # the previous release's writer.
+                    frame = WAL_HEADER.pack(
+                        len(payload),
+                        zlib.crc32(WAL_SEQ.pack(seq) + payload),
+                        seq) + payload
+                self._active_f.write(frame)
+                self._active_f.flush()
+                if self.fsync:
+                    # The durable barrier: ack() must never trim a record
+                    # the disk does not yet hold.
+                    os.fsync(self._active_f.fileno())
+            except OSError:
+                # Truncate back to the last intact record (C++ parity):
+                # a torn frame left mid-file would stop every later scan
+                # at the tear, stranding records appended behind it as
+                # forever-pending that no drain can ever deliver.
+                self.append_errors += 1
+                if self._active_f is not None and self._segments:
+                    try:
+                        good = self._segments[-1]["bytes"]
+                        self._active_f.truncate(good)
+                        # Unlike the C++ O_APPEND fd, this handle writes
+                        # at its position — park it at the new EOF or the
+                        # next frame would be written past a zero hole.
+                        self._active_f.seek(good)
+                    except OSError:
+                        pass
+                return 0
+            self.last_seq = seq
+            seg = self._segments[-1]
+            seg["last"] = seq
+            seg["bytes"] += len(frame)
+            seg["records"] += 1
+            if seg["bytes"] >= self.segment_bytes:
+                self._seal_active_locked()
+            self._evict_locked()
+            return seq
+
+    def _seal_active_locked(self) -> None:
+        if self._active_f is None:
+            return
+        if self.fsync:
+            os.fsync(self._active_f.fileno())
+        self._active_f.close()
+        self._active_f = None
+        seg = self._segments[-1]
+        sealed = os.path.join(
+            self.dir, _wal_segment_name(seg["first"], False))
+        try:
+            failpoints.fire("wal.seal.rename")
+            os.rename(seg["path"], sealed)
+        except OSError:
+            # C++ parity (sealActiveLocked): a failed seal rename (EIO,
+            # dir perms, errno: drill) seals the segment in place under
+            # its .open name — fully functional for trim/evict/replay;
+            # recovery re-attempts the rename at the next boot.
+            return
+        self._sync_dir()
+        seg["path"] = sealed
+
+    def _evict_locked(self) -> None:
+        while self._segments and \
+                sum(s["bytes"] for s in self._segments) > self.max_bytes:
+            if self._segments[0] is self._segments[-1] and self._active_f:
+                self._seal_active_locked()
+            victim = self._segments.pop(0)
+            lost = 0
+            if victim["last"] > self.acked_seq:
+                lost = victim["last"] - max(
+                    victim["first"], self.acked_seq + 1) + 1
+            self.evicted_records += lost
+            try:
+                os.unlink(victim["path"])
+            except OSError:
+                pass
+
+    def peek(self, max_records: int = 64) -> list[tuple[int, bytes]]:
+        """Oldest unacked (seq, payload) pairs; pure read."""
+        out: list[tuple[int, bytes]] = []
+        with self._lock:
+            for seg in self._segments:
+                if len(out) >= max_records:
+                    break
+                if seg["last"] <= self.acked_seq or seg["records"] == 0:
+                    continue
+                records, _, corrupt = self.scan_segment(seg["path"])
+                # Live bitrot is counted ONCE per segment, and as the
+                # full STRANDED span (the scan stops at the damage, so
+                # every unacked record behind it is lost), not 1 per
+                # event (C++ parity).
+                if corrupt and not seg.get("corrupt_counted"):
+                    last_good = max(
+                        records[-1][0] if records else 0, self.acked_seq)
+                    self.corrupt_records += max(seg["last"] - last_good, 1)
+                    seg["corrupt_counted"] = True
+                for seq, payload in records:
+                    if seq > self.acked_seq:
+                        out.append((seq, payload))
+                        if len(out) >= max_records:
+                            break
+        return out
+
+    def ack(self, up_to_seq: int) -> bool:
+        """Trims everything <= up_to_seq; the watermark is persisted
+        tmp+fsync+rename BEFORE trimming, so a crash right after an ack
+        can never replay the acked records."""
+        with self._lock:
+            if up_to_seq <= self.acked_seq:
+                return True
+            up_to_seq = min(up_to_seq, self.last_seq)
+            tmp = os.path.join(self.dir, "ack.tmp")
+            final = os.path.join(self.dir, "ack")
+            try:
+                # wal.ack.persist failpoint (errno: drill): a refused
+                # watermark persist leaves acked_seq UNMOVED — the next
+                # successful drain re-acks, never losing the invariant
+                # that a persisted watermark bounds every trim.
+                failpoints.fire("wal.ack.persist")
+                with open(tmp, "w") as f:
+                    f.write(f"{up_to_seq}\n")
+                    f.flush()
+                    if self.fsync:
+                        os.fsync(f.fileno())
+                os.rename(tmp, final)
+                self._sync_dir()
+            except OSError:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+                return False
+            self.acked_seq = up_to_seq
+            keep = []
+            for seg in self._segments:
+                is_active = (
+                    self._active_f is not None and seg is self._segments[-1]
+                    and seg["path"].endswith(".open"))
+                if not is_active and seg["last"] <= self.acked_seq:
+                    try:
+                        os.unlink(seg["path"])
+                    except OSError:
+                        pass
+                else:
+                    keep.append(seg)
+            self._segments = keep
+            return True
+
+    def try_begin_drain(self) -> bool:
+        with self._lock:
+            if self._draining:
+                return False
+            self._draining = True
+            return True
+
+    def end_drain(self) -> None:
+        with self._lock:
+            self._draining = False
+
+    def close(self) -> None:
+        with self._lock:
+            if self._active_f is not None:
+                if self.fsync:
+                    os.fsync(self._active_f.fileno())
+                self._active_f.close()
+                self._active_f = None
+
+    def stats(self) -> dict:
+        """Same keys as the C++ SinkWal::snapshot() (health durability)."""
+        with self._lock:
+            pending = 0
+            for seg in self._segments:
+                if seg["last"] > self.acked_seq:
+                    pending += seg["last"] - max(
+                        seg["first"], self.acked_seq + 1) + 1
+            return {
+                "dir": self.dir,
+                "last_seq": self.last_seq,
+                "acked_seq": self.acked_seq,
+                "epoch": self.epoch,
+                "pending_records": pending,
+                "pending_bytes": sum(s["bytes"] for s in self._segments),
+                "segments": len(self._segments),
+                "evicted_records": self.evicted_records,
+                "corrupt_records": self.corrupt_records,
+                "append_errors": self.append_errors,
+                "recovered_records": self.recovered_records,
+            }
+
+
+class DurableSink:
+    """Append-then-drain acknowledged transport: the mirror of the
+    WAL-backed RelayLogger finalize() path. `send(batch)` delivers a list
+    of (seq, payload) records and returns the highest seq confirmed (0 =
+    delivery failed); the queue is trimmed only on confirmation, so an
+    outage degrades to latency, never loss.
+
+    ENOSPC posture (resource governance, C++ flushDeferred parity): a
+    REFUSED append — full disk, quota, errno: drill — parks the build
+    callable in a bounded in-memory deferral queue instead of dropping
+    the interval; the next publish/drain re-appends (each with a fresh
+    seq) once the disk admits writes again. Only deferral-queue overflow
+    is loss, and it is counted through the breaker's drop accounting."""
+
+    DEFER_LIMIT = 256
+
+    def __init__(self, wal: SinkWal, send, *,
+                 breaker: SinkBreaker | None = None,
+                 replay_batch: int = 64):
+        self.wal = wal
+        self.send = send
+        self.breaker = breaker or SinkBreaker("DurableSink")
+        self.replay_batch = replay_batch
+        self.delivered = 0
+        self.deferred: list = []  # build callables awaiting the disk
+        self.deferred_drops = 0
+        # publish() and drain() both walk the deferral queue, and a tree
+        # relay drives them from two threads (the export loop +
+        # drain_upstream): unserialized, the same build could append
+        # twice under two seqs, or a racing pop could discard a record
+        # that never appended. wal.append never calls back into the
+        # sink, so holding this across the append is cycle-free.
+        self._defer_lock = threading.Lock()
+
+    def _flush_deferred(self) -> int:
+        """Appends parked intervals in arrival order; returns the last
+        seq appended this call (0 = the disk still refuses). A refusal
+        is classified ON the failure path (the healthy path pays no
+        extra serialization): an oversized payload fails
+        DETERMINISTICALLY — not a disk condition that can clear — and is
+        dropped as a poison record instead of wedging the queue head
+        forever (C++ flushDeferred parity)."""
+        last = 0
+        with self._defer_lock:
+            while self.deferred:
+                build = self.deferred[0]
+                seq = self.wal.append(build)
+                if seq == 0:
+                    payload = build(self.wal.last_seq + 1)
+                    if isinstance(payload, str):
+                        payload = payload.encode()
+                    if len(payload) > _WAL_MAX_RECORD:
+                        self.deferred.pop(0)
+                        self.deferred_drops += 1
+                        self.breaker.count_drop(
+                            "record exceeds the WAL max record size "
+                            "(deterministic, not deferrable)")
+                        continue
+                    self.breaker.failure("spill append failed", lost=False)
+                    while len(self.deferred) > self.DEFER_LIMIT:
+                        self.deferred.pop(0)
+                        self.deferred_drops += 1
+                        self.breaker.count_drop("deferral queue overflow")
+                    return 0
+                self.deferred.pop(0)
+                last = seq
+        return last
+
+    def publish(self, build) -> int:
+        """One interval: durably append (payload embeds its seq via
+        `build(seq)`), then drain as far as the breaker allows. Returns
+        the appended seq, or 0 when the interval was DEFERRED (disk
+        refused the append; it re-appends on a later publish/drain).
+        drain() runs regardless: the on-disk backlog is independent of
+        a refusing disk, and trimming acked segments is exactly what
+        frees the space the deferred appends wait for."""
+        with self._defer_lock:
+            self.deferred.append(build)
+        seq = self._flush_deferred()
+        self.drain()
+        return seq
+
+    def drain(self) -> None:
+        if self.deferred:
+            # A disk-refused backlog is NOT safe on disk yet: retry the
+            # deferred appends first — a disk probe is cheap, and the
+            # C++ finalize path likewise re-attempts every tick.
+            self._flush_deferred()
+        if self.breaker.holds_quiet():
+            return  # backlog is safe on disk
+        if not self.wal.try_begin_drain():
+            return
+        try:
+            while True:
+                batch = self.wal.peek(self.replay_batch)
+                if not batch:
+                    return
+                confirmed = self.send(batch)
+                if not confirmed:
+                    self.breaker.failure("delivery failed", lost=False)
+                    return
+                self.wal.ack(confirmed)
+                self.delivered += sum(
+                    1 for seq, _ in batch if seq <= confirmed)
+                self.breaker.success()
+                if len(batch) < self.replay_batch:
+                    return
+        finally:
+            self.wal.end_drain()
+
+
+class AckedTcpSender:
+    """Reusable ``send(batch)`` callable for :class:`DurableSink` over
+    the acked newline-framed TCP wire (the protocol RelayLogger speaks
+    with --sink_relay_ack): deliver the burst on a persistent
+    connection, wait (bounded) for ``ACK <seq>`` covering it, return the
+    highest seq confirmed (0 = failed; the sink's breaker backs off and
+    the WAL keeps the backlog). One definition for every mirror harness
+    (upstream relay legs, tests) so the sender half cannot drift between
+    them."""
+
+    def __init__(self, host: str, port: int, *, timeout_s: float = 2.0):
+        self.host = host
+        self.port = port
+        self.timeout_s = timeout_s
+        self._sock: socket.socket | None = None
+        self._carry = b""
+
+    def close(self) -> None:
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+            self._carry = b""
+
+    def __call__(self, batch) -> int:
+        try:
+            if self._sock is None:
+                self._sock = socket.create_connection(
+                    (self.host, self.port), timeout=self.timeout_s)
+                self._sock.settimeout(self.timeout_s)
+                self._sock.setsockopt(
+                    socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                self._carry = b""
+            self._sock.sendall(b"".join(p + b"\n" for _, p in batch))
+            want = batch[-1][0]
+            acked = 0
+            deadline = time.monotonic() + self.timeout_s * 4
+            while acked < want and time.monotonic() < deadline:
+                try:
+                    chunk = self._sock.recv(4096)
+                except socket.timeout:
+                    continue
+                if not chunk:
+                    break
+                self._carry += chunk
+                lines = self._carry.split(b"\n")
+                self._carry = lines.pop()
+                for line in lines:
+                    if line.startswith(b"ACK "):
+                        acked = max(acked, int(line[4:]))
+            return acked
+        except (OSError, ValueError):
+            self.close()
+            return 0
+
+
+class AckingRelay:
+    """The receiving half of the acknowledged sink transport: a TCP
+    listener that parses ``wal_seq`` off every newline-framed JSON line
+    and replies ``ACK <seq>`` per burst — the ``--sink_relay_ack``
+    protocol RelayLogger speaks.
+
+    The ONE implementation behind the port's durability harnesses
+    (tests/test_torch_durability.py, tests/test_torch_fleet.py), so the
+    ack protocol they check cannot drift between them. ``sever()`` closes
+    the listener and stops serving (the outage of the chaos scenario); a
+    new instance on the same port restores service.
+
+    ``drop_acks=N`` drills the duplicate-delivery hole: the first N
+    bursts are received and recorded, but the connection dies before the
+    ACK reaches the sender — the sender MUST re-deliver (at-least-once),
+    and the fleet relay's dedup is what makes ingest effectively-once."""
+
+    def __init__(self, port: int = 0, *, drop_acks: int = 0):
+        self.seen: list[int] = []
+        self._drop_acks = drop_acks
+        self.lock = threading.Lock()
+        self._stop = threading.Event()
+        self.listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self.listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self.listener.bind(("127.0.0.1", port))
+        self.listener.listen(8)
+        self.port = self.listener.getsockname()[1]
+        self.listener.settimeout(0.2)
+        self._thread = threading.Thread(target=self._serve, daemon=True)
+        self._thread.start()
+
+    def _serve(self):
+        while not self._stop.is_set():
+            try:
+                conn, _ = self.listener.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            threading.Thread(
+                target=self._conn, args=(conn,), daemon=True).start()
+
+    def _conn(self, conn):
+        conn.settimeout(0.5)
+        buf = b""
+        try:
+            while not self._stop.is_set():
+                try:
+                    chunk = conn.recv(65536)
+                except socket.timeout:
+                    continue
+                if not chunk:
+                    return
+                buf += chunk
+                lines = buf.split(b"\n")
+                buf = lines.pop()
+                high = 0
+                for raw in lines:
+                    try:
+                        seq = json.loads(raw).get("wal_seq")
+                    except ValueError:
+                        continue
+                    if seq is None:
+                        continue
+                    with self.lock:
+                        self.seen.append(seq)
+                    high = max(high, seq)
+                if high:
+                    with self.lock:
+                        lost = self._drop_acks > 0
+                        if lost:
+                            self._drop_acks -= 1
+                    if lost:
+                        return  # ack lost in flight: conn dies first
+                    conn.sendall(f"ACK {high}\n".encode())
+        except OSError:
+            pass
+        finally:
+            conn.close()
+
+    def unique(self) -> set[int]:
+        with self.lock:
+            return set(self.seen)
+
+    def sever(self):
+        self._stop.set()
+        self.listener.close()
+        self._thread.join(timeout=2)
+
+    # The drill-teardown spelling of the same operation.
+    close = sever
+
+
+# ---------------------------------------------------------------------------
+# Fleet aggregation mirror (src/relay/FleetRelay.{h,cpp})
+# ---------------------------------------------------------------------------
+
+FLEET_LIVE = "live"
+FLEET_STALE = "stale"
+FLEET_LOST = "lost"
+
+# Payload keys that are transport/identity framing, not fleet metrics
+# (C++ reservedPayloadKey). The _V0 sets are the PREVIOUS release's —
+# a compat_level=0 relay impersonation must treat "proto" as an
+# ordinary numeric metric, exactly as the old binary does.
+_FLEET_RESERVED_V0 = {
+    "wal_seq", "boot_epoch", "host", "fleet_hello", "fleet_query",
+    "timestamp", "pod", "health_degraded", "fleet_rollup", "rpc_port",
+    "rpc_host", "depth", "relays",
+}
+_FLEET_RESERVED = _FLEET_RESERVED_V0 | {"proto", "build"}
+# Transport identity stripped off a stored child rollup (C++
+# rollupIdentityKey) — the merge-able core is everything else.
+_ROLLUP_IDENTITY_V0 = {
+    "wal_seq", "boot_epoch", "host", "fleet_rollup", "timestamp",
+}
+_ROLLUP_IDENTITY = _ROLLUP_IDENTITY_V0 | {"proto", "build"}
+
+
+def _version_label(proto: int, build: str) -> str:
+    # C++ versionLabel parity: the announced build string, or v<proto>
+    # for a proto-only (or pre-version, "v0") peer.
+    return build if build else f"v{proto}"
+
+
+def _as_int(value, default: int = 0) -> int:
+    """C++ json::Value::asInt parity for hostile payload fields: numbers
+    (and bools) coerce, anything else — a string "yes", a list, null —
+    is the default. int("abc") raising out of the ingest path is exactly
+    the containment failure the hostile-input battery exists to catch."""
+    if isinstance(value, bool):
+        return int(value)
+    if isinstance(value, (int, float)):
+        return int(value)
+    return default
+_FLEET_FLAP_FORGIVE_FACTOR = 4
+# Straggler-merge bound (C++ kStragglerMergeCap): folding top-k lists
+# keeps the global top-k exact for any rendered k <= this.
+_STRAGGLER_MERGE_CAP = 64
+
+
+def _merge_numeric(a, b) -> dict:
+    """Sum-merge of two flat numeric objects (rollup hosts/ingest
+    sections, pod counter fields). C++ mergeNumericObjects parity."""
+    out: dict = {}
+    for side in (a, b):
+        if not isinstance(side, dict):
+            continue
+        for key, value in side.items():
+            if isinstance(value, bool) or not isinstance(value, (int, float)):
+                continue
+            out[key] = out.get(key, 0) + value
+    return out
+
+
+def _merge_pod_aggs(a, b) -> dict:
+    """Fold of two per-pod aggregates: counters sum, per-metric
+    {count,sum,min,max} combine (C++ mergePodAggs parity)."""
+    out = _merge_numeric(a, b)
+    metrics: dict = {}
+    for side in (a, b):
+        if not isinstance(side, dict) or \
+                not isinstance(side.get("metrics"), dict):
+            continue
+        for name, agg in side["metrics"].items():
+            have = metrics.get(name)
+            if have is None:
+                metrics[name] = dict(agg)
+            else:
+                metrics[name] = {
+                    "count": have["count"] + agg["count"],
+                    "sum": have["sum"] + agg["sum"],
+                    "min": min(have["min"], agg["min"]),
+                    "max": max(have["max"], agg["max"]),
+                }
+    out["metrics"] = metrics
+    return out
+
+
+def _straggler_key(row):
+    # Canonical order (gap desc, host asc) so top-k folding stays
+    # associative: ties resolve identically regardless of merge order.
+    return (-row.get("seconds_since_ingest", -1.0), row.get("host", ""))
+
+
+def degrade_lost_rollup(rollup: dict) -> dict:
+    """A LOST child relay's last rollup is still merged (its subtree's
+    history — records/watermarks — remains fact), but its liveness
+    claims are stale by definition: every "live"/"stale" host it
+    reported is reclassified as lost, so `dyno fleet` exits nonzero
+    instead of reading a frozen snapshot as a healthy fleet (C++
+    degradeLostChildRollup parity)."""
+    out = dict(rollup)
+    hosts = dict(out.get("hosts") or {})
+    if hosts:
+        dark = int(hosts.get("live") or 0) + int(hosts.get("stale") or 0)
+        hosts["lost"] = int(hosts.get("lost") or 0) + dark
+        hosts["live"] = 0
+        hosts["stale"] = 0
+        out["hosts"] = hosts
+    if out.get("pods"):
+        out["pods"] = {name: {**agg, "live": 0}
+                       for name, agg in out["pods"].items()}
+    return out
+
+
+def merge_rollups(a, b) -> dict:
+    """Merge two fleet rollup documents (the ``{"fleet_rollup": 1}``
+    payload a relay exports upstream, minus transport identity). The
+    tier's backbone algebra — associative, commutative, identity = {} —
+    property-pinned by tests/test_torch_fleet.py against the JAX mirror
+    and, on the C++ side (mergeRollupDocs), by FleetRelayTest."""
+    if not isinstance(a, dict):
+        return dict(b) if isinstance(b, dict) else {}
+    if not isinstance(b, dict):
+        return dict(a)
+    out = {
+        "hosts": _merge_numeric(a.get("hosts"), b.get("hosts")),
+        "ingest": _merge_numeric(a.get("ingest"), b.get("ingest")),
+        # Version cohorts sum like any counter map; a pre-version
+        # rollup contributes nothing (absent -> {}).
+        "versions": _merge_numeric(a.get("versions"), b.get("versions")),
+        "health_degraded": int(a.get("health_degraded") or 0)
+        + int(b.get("health_degraded") or 0),
+        "depth": max(int(a.get("depth") or 0), int(b.get("depth") or 0)),
+        "relays": int(a.get("relays") or 0) + int(b.get("relays") or 0),
+    }
+    pods: dict = {}
+    for side in (a, b):
+        for name, agg in (side.get("pods") or {}).items():
+            pods[name] = _merge_pod_aggs(pods[name], agg) \
+                if name in pods else dict(agg)
+    out["pods"] = pods
+    rows = list(a.get("stragglers") or []) + list(b.get("stragglers") or [])
+    rows.sort(key=_straggler_key)
+    out["stragglers"] = rows[:_STRAGGLER_MERGE_CAP]
+    return out
+
+
+class FleetView:
+    """Socket-free mirror of the C++ FleetRelay ingest core: the same
+    (host, boot epoch, wal_seq) dedup watermarks, live/stale/lost
+    liveness machine with flap damping, per-host rollups, durable-ack
+    discipline and snapshot-section schema — so the tests and
+    chip_smoke.py's fleet straggler loop pin the relay semantics without
+    a C++ toolchain."""
+
+    def __init__(self, *, stale_after_ms: int = 15000,
+                 lost_after_ms: int = 60000, flap_threshold: int = 3,
+                 flap_damp_ms: int = 10000, max_hosts: int = 16384,
+                 max_metrics_per_host: int = 64, now_ms=None,
+                 compat_level: int | None = None):
+        self.stale_after_ms = stale_after_ms
+        self.lost_after_ms = max(lost_after_ms, stale_after_ms)
+        self.flap_threshold = flap_threshold
+        self.flap_damp_ms = max(flap_damp_ms, 1)
+        self.max_hosts = max_hosts
+        self.max_metrics_per_host = max_metrics_per_host
+        # 0 = impersonate the previous release (no version tracking,
+        # "proto" rolls up as a metric, hellos get no negotiation reply)
+        # for mixed-version drills; >=1 = current behavior.
+        self.compat_level = (default_compat_level()
+                             if compat_level is None else compat_level)
+        self._reserved = (_FLEET_RESERVED if self.compat_level >= 1
+                          else _FLEET_RESERVED_V0)
+        self._rollup_identity = (_ROLLUP_IDENTITY if self.compat_level >= 1
+                                 else _ROLLUP_IDENTITY_V0)
+        self._now_ms = now_ms or (lambda: int(time.time() * 1000))
+        self._lock = threading.Lock()
+        self._hosts: dict[str, dict] = {}
+        self.durable_acks = False
+        self.counters = {
+            "records": 0, "duplicates": 0, "untracked": 0,
+            "shed_rollups": 0, "stale_epoch": 0, "seq_gaps": 0,
+            "parse_errors": 0, "bytes": 0, "epoch_changes": 0,
+            "overflow_hosts": 0, "hellos": 0, "rollup_records": 0,
+            "merge_failures": 0, "exports_skipped": 0,
+            "fields_skipped": 0,
+        }
+
+    # -- liveness --------------------------------------------------------
+
+    def _set_state(self, st: dict, state: str, now: int) -> None:
+        if st["state"] != state:
+            st["state"] = state
+            st["last_state_change_ms"] = now
+
+    def _touch(self, st: dict, now: int) -> None:
+        st["last_ingest_ms"] = now
+        if st["state"] == FLEET_LIVE:
+            return
+        if st["live_since_ms"] == 0:
+            st["live_since_ms"] = now
+            st["flaps"] += 1
+            st["recent_flaps"] += 1
+        if st["recent_flaps"] <= self.flap_threshold:
+            self._set_state(st, FLEET_LIVE, now)
+            st["live_since_ms"] = 0
+        elif now - st["live_since_ms"] >= self.flap_damp_ms:
+            self._set_state(st, FLEET_LIVE, now)
+            st["live_since_ms"] = 0
+            st["recent_flaps"] = 0
+        else:
+            self._set_state(st, FLEET_STALE, now)
+
+    def sweep(self, now_ms: int | None = None) -> None:
+        now = self._now_ms() if now_ms is None else now_ms
+        with self._lock:
+            for st in self._hosts.values():
+                gap = now - st["last_ingest_ms"]
+                if gap > self.lost_after_ms:
+                    self._set_state(st, FLEET_LOST, now)
+                    st["live_since_ms"] = 0
+                elif gap > self.stale_after_ms:
+                    if st["state"] == FLEET_LIVE:
+                        self._set_state(st, FLEET_STALE, now)
+                    st["live_since_ms"] = 0
+                elif (st["state"] == FLEET_STALE
+                        and st["live_since_ms"] != 0
+                        and now - st["live_since_ms"] >= self.flap_damp_ms):
+                    self._set_state(st, FLEET_LIVE, now)
+                    st["live_since_ms"] = 0
+                    st["recent_flaps"] = 0
+                elif (st["state"] == FLEET_LIVE and st["recent_flaps"] > 0
+                        and now - st["last_state_change_ms"] >=
+                        self.flap_damp_ms * _FLEET_FLAP_FORGIVE_FACTOR):
+                    st["recent_flaps"] = 0
+
+    # -- ingest ----------------------------------------------------------
+
+    def _new_host(self, now: int) -> dict:
+        return {
+            "epoch": 0, "applied_seq": 0, "staged_seq": 0,
+            "durable_seq": 0, "records": 0, "duplicates": 0,
+            "stale_epoch": 0, "shed_rollups": 0, "seq_gaps": 0,
+            "flaps": 0, "recent_flaps": 0, "last_ingest_ms": 0,
+            "last_state_change_ms": now, "live_since_ms": 0,
+            "health_degraded": -1, "state": FLEET_LIVE, "pod": "",
+            "metrics": {}, "rollup": None, "rpc_port": 0, "rpc_host": "",
+            "proto": 0, "build": "", "fields_skipped": 0,
+        }
+
+    def _ackable(self, st: dict) -> int:
+        return st["durable_seq"] if self.durable_acks else st["applied_seq"]
+
+    def ackable(self, host: str) -> int:
+        with self._lock:
+            st = self._hosts.get(host)
+            return self._ackable(st) if st else 0
+
+    def hello_ack_doc(self, hello_doc) -> dict | None:
+        """The negotiation reply for one versioned fleet_hello (C++
+        parity: sent as a one-line JSON ahead of the ACK). None when
+        the hello announced no proto (a v0 peer gets exactly the old
+        reply — the ACK line alone) or at compat 0 (the impersonated
+        old relay knows no negotiation)."""
+        if self.compat_level < 1 or not isinstance(hello_doc, dict) \
+                or "proto" not in hello_doc:
+            return None
+        # C++ parity: a line whose fleet_hello does not coerce to a
+        # nonzero NUMBER is not a hello at all (the real relay treats
+        # {"fleet_hello":"yes"} as a seq-less rollup and replies
+        # nothing) — the impersonation must match it byte for byte.
+        if _as_int(hello_doc.get("fleet_hello")) == 0:
+            return None
+        theirs = max(_as_int(hello_doc.get("proto")), 0)
+        return {"fleet_hello_ack": 1,
+                "proto": min(theirs, PROTO_VERSION),
+                "build": BUILD}
+
+    @staticmethod
+    def _rpc_advertise(st: dict, doc: dict) -> None:
+        if "rpc_port" in doc:
+            st["rpc_port"] = _as_int(doc["rpc_port"])
+        if "rpc_host" in doc:
+            st["rpc_host"] = str(doc["rpc_host"] or "")
+
+    def _apply_version(self, st: dict, doc: dict) -> None:
+        """C++ applyVersionLocked parity: capture the payload's announced
+        proto/build, wrong types degrading to defaults (hostile input is
+        contained, never raised). No-op at compat 0."""
+        if self.compat_level < 1:
+            return
+        if "proto" in doc:
+            st["proto"] = max(_as_int(doc["proto"]), 0)
+        if "build" in doc:
+            st["build"] = doc["build"][:64] \
+                if isinstance(doc["build"], str) else ""
+
+    def _rollup(self, st: dict, doc: dict) -> None:
+        if doc.get("pod"):
+            st["pod"] = doc["pod"]
+        if "health_degraded" in doc:
+            st["health_degraded"] = _as_int(doc["health_degraded"], -1)
+        self._rpc_advertise(st, doc)
+        self._apply_version(st, doc)
+        # Forward tolerance (C++ parity): a NEWER-minor record is never
+        # refused — known numeric fields apply, the rest is counted.
+        newer_minor = self.compat_level >= 1 and \
+            _as_int(doc.get("proto")) > PROTO_VERSION
+        for key, value in doc.items():
+            if key in self._reserved:
+                continue
+            if isinstance(value, bool) or \
+                    not isinstance(value, (int, float)):
+                if newer_minor:
+                    st["fields_skipped"] += 1
+                    self.counters["fields_skipped"] += 1
+                continue
+            if key in st["metrics"] or \
+                    len(st["metrics"]) < self.max_metrics_per_host:
+                st["metrics"][key] = float(value)
+
+    def _apply_child_rollup(self, st: dict, doc: dict) -> None:
+        # A child relay's rollup REPLACES its previous one (snapshot,
+        # not delta): re-export and at-least-once replay are idempotent
+        # by construction (C++ applyChildRollupLocked parity).
+        if doc.get("pod"):
+            st["pod"] = doc["pod"]
+        if "health_degraded" in doc:
+            st["health_degraded"] = _as_int(doc["health_degraded"], -1)
+        self._rpc_advertise(st, doc)
+        self._apply_version(st, doc)
+        st["rollup"] = {k: v for k, v in doc.items()
+                        if k not in self._rollup_identity}
+
+    def ingest_line(self, line, shed_rollups: bool = False,
+                    hello_reply: list | None = None):
+        """One newline-framed payload -> (ack_seq, host, applied); the
+        exact C++ ingestLine semantics (see FleetRelay.h).
+
+        `hello_reply`, when a list, collects the negotiation reply doc
+        for a versioned hello — appended ONLY when the hello survives
+        every ingest gate (identity present, host-table admission,
+        epoch), exactly where C++ ingestLine builds IngestResult
+        .helloReply; a hello refused by a gate gets no reply there and
+        none here."""
+        if isinstance(line, bytes):
+            line = line.decode(errors="replace")
+        with self._lock:
+            self.counters["bytes"] += len(line)
+            try:
+                doc = json.loads(line)
+            except ValueError:
+                doc = None
+            if not isinstance(doc, dict):
+                self.counters["parse_errors"] += 1
+                return 0, "", False
+            now = self._now_ms()
+            host = doc.get("host") if isinstance(doc.get("host"), str) \
+                else ""
+            # _as_int everywhere (C++ asInt parity): a wrong-typed field
+            # — {"wal_seq": "abc"}, {"fleet_hello": "yes"} — degrades to
+            # its default instead of raising out of the ingest path.
+            epoch = max(_as_int(doc.get("boot_epoch")), 0)
+            seq = max(_as_int(doc.get("wal_seq")), 0)
+            hello = _as_int(doc.get("fleet_hello")) != 0
+            # Schema tag distinguishing a child RELAY's merge-able
+            # rollup from a leaf host's metric record; dedup/ack/
+            # liveness are identical, only the apply differs.
+            child_rollup = _as_int(doc.get("fleet_rollup")) != 0
+            if not host:
+                self.counters["untracked"] += 1
+                return 0, "", False
+            st = self._hosts.get(host)
+            if st is None:
+                if len(self._hosts) >= self.max_hosts:
+                    # Admission: table full. NOT acked (C++ parity) —
+                    # acking would trim a record no relay state holds;
+                    # the sender's WAL keeps it until capacity opens.
+                    self.counters["overflow_hosts"] += 1
+                    return 0, host, False
+                st = self._hosts[host] = self._new_host(now)
+            if epoch and epoch < st["epoch"]:
+                st["stale_epoch"] += 1
+                self.counters["stale_epoch"] += 1
+                return 0, host, False
+            if epoch > st["epoch"]:
+                if st["epoch"]:
+                    self.counters["epoch_changes"] += 1
+                st["epoch"] = epoch
+                st["applied_seq"] = st["staged_seq"] = st["durable_seq"] = 0
+            if hello:
+                self.counters["hellos"] += 1
+                self._apply_version(st, doc)
+                if hello_reply is not None:
+                    ack_doc = self.hello_ack_doc(doc)
+                    if ack_doc is not None:
+                        hello_reply.append(ack_doc)
+                self._touch(st, now)
+                return self._ackable(st), host, False
+            if seq == 0:
+                self.counters["untracked"] += 1
+                if child_rollup and \
+                        failpoints.fire("relay.merge.apply"):
+                    # Chaos drill: simulated merge failure — the rollup
+                    # stays unapplied (and unacked on the sequenced
+                    # path below); counted so drills can assert.
+                    self.counters["merge_failures"] += 1
+                    return 0, host, False
+                if shed_rollups:
+                    st["shed_rollups"] += 1
+                    self.counters["shed_rollups"] += 1
+                elif child_rollup:
+                    self._apply_child_rollup(st, doc)
+                    self.counters["rollup_records"] += 1
+                else:
+                    self._rollup(st, doc)
+                self._touch(st, now)
+                return 0, host, False
+            if seq <= st["applied_seq"]:
+                # Effectively-once: the replay is suppressed, counted,
+                # and STILL acknowledged so the sender trims.
+                st["duplicates"] += 1
+                self.counters["duplicates"] += 1
+                self._touch(st, now)
+                return self._ackable(st), host, False
+            if child_rollup and failpoints.fire("relay.merge.apply"):
+                # Chaos drill: simulated merge failure BEFORE the
+                # watermark moves — the record stays unapplied and
+                # unacked, so the child's durable sender re-delivers it
+                # (C++ parity: latency, never loss).
+                self.counters["merge_failures"] += 1
+                return 0, host, False
+            if st["applied_seq"] and seq > st["applied_seq"] + 1:
+                gap = seq - st["applied_seq"] - 1
+                st["seq_gaps"] += gap
+                self.counters["seq_gaps"] += gap
+            st["applied_seq"] = seq
+            st["records"] += 1
+            self.counters["records"] += 1
+            if shed_rollups:
+                st["shed_rollups"] += 1
+                self.counters["shed_rollups"] += 1
+            elif child_rollup:
+                self._apply_child_rollup(st, doc)
+                self.counters["rollup_records"] += 1
+            else:
+                self._rollup(st, doc)
+            self._touch(st, now)
+            return self._ackable(st), host, True
+
+    # -- fleet view / snapshot ------------------------------------------
+
+    def _host_detail(self, name: str, st: dict, gap_s: float) -> dict:
+        out = {
+            "state": st["state"], "epoch": st["epoch"],
+            "applied_seq": st["applied_seq"],
+            "durable_seq": st["durable_seq"],
+            "records": st["records"],
+            "duplicates": st["duplicates"],
+            "stale_epoch": st["stale_epoch"],
+            "shed_rollups": st["shed_rollups"],
+            "seq_gaps": st["seq_gaps"],
+            "flaps": st["flaps"],
+            "proto": st["proto"],
+            "version": _version_label(st["proto"], st["build"]),
+            **({"fields_skipped": st["fields_skipped"]}
+               if st["fields_skipped"] > 0 else {}),
+            "seconds_since_ingest": gap_s,
+            **({"health_degraded": st["health_degraded"]}
+               if st["health_degraded"] >= 0 else {}),
+            **({"pod": st["pod"]} if st["pod"] else {}),
+            **({"rpc_port": st["rpc_port"]} if st["rpc_port"] else {}),
+            **({"rpc_host": st["rpc_host"]} if st["rpc_host"] else {}),
+        }
+        if isinstance(st["rollup"], dict):
+            out["child"] = True
+            out["child_hosts"] = \
+                (st["rollup"].get("hosts") or {}).get("total", 0)
+            out["child_depth"] = st["rollup"].get("depth", 0)
+        return out
+
+    def _collect_local_rollup(self, top_k: int, now: int) -> dict:
+        """The local-leaf half of this relay's subtree rollup (depth 0 /
+        relays 0 — export advances both one level); child entries fold
+        in via merge_rollups. Caller holds the lock."""
+        hosts = {"total": 0, "live": 0, "stale": 0, "lost": 0}
+        ingest = {"records": 0, "duplicates": 0, "seq_gaps": 0,
+                  "shed_rollups": 0, "stale_epoch": 0, "applied_sum": 0,
+                  "fields_skipped": 0}
+        health = 0
+        versions: dict = {}
+        pods: dict = {}
+        rows = []
+        for name, st in self._hosts.items():
+            if isinstance(st["rollup"], dict):
+                continue
+            hosts["total"] += 1
+            hosts[st["state"]] += 1
+            if st["health_degraded"] > 0:
+                health += st["health_degraded"]
+            ingest["records"] += st["records"]
+            ingest["duplicates"] += st["duplicates"]
+            ingest["seq_gaps"] += st["seq_gaps"]
+            ingest["shed_rollups"] += st["shed_rollups"]
+            ingest["stale_epoch"] += st["stale_epoch"]
+            ingest["applied_sum"] += st["applied_seq"]
+            ingest["fields_skipped"] += st["fields_skipped"]
+            label = _version_label(st["proto"], st["build"])
+            versions[label] = versions.get(label, 0) + 1
+            agg = pods.setdefault(st["pod"] or "-", {
+                "hosts": 0, "live": 0, "applied_sum": 0,
+                "records_sum": 0, "seq_gaps": 0, "duplicates": 0,
+                "metrics": {}})
+            agg["hosts"] += 1
+            agg["live"] += st["state"] == FLEET_LIVE
+            agg["applied_sum"] += st["applied_seq"]
+            agg["records_sum"] += st["records"]
+            agg["seq_gaps"] += st["seq_gaps"]
+            agg["duplicates"] += st["duplicates"]
+            for metric, value in st["metrics"].items():
+                m = agg["metrics"].get(metric)
+                if m is None:
+                    agg["metrics"][metric] = {
+                        "count": 1, "sum": value, "min": value,
+                        "max": value}
+                else:
+                    m["count"] += 1
+                    m["sum"] += value
+                    m["min"] = min(m["min"], value)
+                    m["max"] = max(m["max"], value)
+            rows.append({
+                "host": name, "state": st["state"],
+                "seconds_since_ingest": (
+                    -1.0 if st["last_ingest_ms"] == 0
+                    else (now - st["last_ingest_ms"]) / 1000.0),
+            })
+        rows.sort(key=_straggler_key)
+        if self.compat_level < 1:
+            # Faithful v0 impersonation: the old binary's rollup had no
+            # version keys at all.
+            ingest.pop("fields_skipped", None)
+            return {
+                "hosts": hosts, "ingest": ingest,
+                "health_degraded": health, "depth": 0, "relays": 0,
+                "pods": pods, "stragglers": rows[:max(top_k, 0)],
+            }
+        return {
+            "hosts": hosts, "ingest": ingest, "health_degraded": health,
+            # Canary visibility: leaf-host count per announced version,
+            # merged up the tree through the numeric fold.
+            "versions": versions,
+            "depth": 0, "relays": 0, "pods": pods,
+            "stragglers": rows[:max(top_k, 0)],
+        }
+
+    def export_rollup(self, top_k: int = 16) -> dict | None:
+        """The merge-able rollup document this relay exports upstream:
+        local leaf hosts folded with every child's last rollup (depth/
+        relays advanced one level). Identity is stamped by the durable
+        sender. Fires relay.upstream.export: error mode returns None
+        (the export round skips — the upstream-link chaos drill)."""
+        if failpoints.fire("relay.upstream.export"):
+            with self._lock:
+                self.counters["exports_skipped"] += 1
+            return None
+        now = self._now_ms()
+        with self._lock:
+            doc = self._collect_local_rollup(top_k, now)
+            children = [
+                degrade_lost_rollup(st["rollup"])
+                if st["state"] == FLEET_LOST else st["rollup"]
+                for st in self._hosts.values()
+                if isinstance(st["rollup"], dict)]
+        for child in children:
+            doc = merge_rollups(doc, child)
+        doc["depth"] = int(doc.get("depth") or 0) + 1
+        doc["relays"] = int(doc.get("relays") or 0) + 1
+        doc["fleet_rollup"] = 1
+        return doc
+
+    def query(self, top_k: int = 10, detail: bool = False,
+              metrics=(), skew_metric: str = "", depth: int = 0,
+              pod: str = "") -> dict:
+        now = self._now_ms()
+        with self._lock:
+            table, rollup = {}, {}
+            hosts_detail = {}
+            pod_hosts = {}
+            children = {}
+            for name, st in self._hosts.items():
+                gap_s = (-1.0 if st["last_ingest_ms"] == 0
+                         else (now - st["last_ingest_ms"]) / 1000.0)
+                if isinstance(st["rollup"], dict):
+                    children[name] = {
+                        "state": st["state"], "gap_s": gap_s,
+                        "epoch": st["epoch"],
+                        "applied_seq": st["applied_seq"],
+                        "records": st["records"],
+                        "rollup": st["rollup"],
+                    }
+                    if detail:
+                        hosts_detail[name] = \
+                            self._host_detail(name, st, gap_s)
+                    continue
+                if metrics:
+                    per_host = {m: st["metrics"][m] for m in metrics
+                                if m in st["metrics"]}
+                    if per_host:
+                        table[name] = per_host
+                        for m, v in per_host.items():
+                            agg = rollup.setdefault(
+                                m, {"hosts": 0, "min": v, "max": v,
+                                    "_sum": 0.0})
+                            agg["hosts"] += 1
+                            agg["min"] = min(agg["min"], v)
+                            agg["max"] = max(agg["max"], v)
+                            agg["_sum"] += v
+                if pod and (st["pod"] or "-") == pod:
+                    pod_hosts[name] = {
+                        "state": st["state"],
+                        "applied_seq": st["applied_seq"],
+                        "records": st["records"],
+                        "metrics": dict(st["metrics"]),
+                    }
+                if detail:
+                    hosts_detail[name] = self._host_detail(name, st, gap_s)
+            # Global view = local leaf hosts folded with every child's
+            # last subtree rollup — the same algebra the upstream export
+            # uses, so what a parent would see of this relay IS what
+            # this relay reports. A LOST child's subtree is reclassified
+            # as lost — its snapshot's liveness claims are older than
+            # the lost threshold by definition.
+            global_doc = self._collect_local_rollup(max(top_k, 0), now)
+            for child in children.values():
+                global_doc = merge_rollups(
+                    global_doc,
+                    degrade_lost_rollup(child["rollup"])
+                    if child["state"] == FLEET_LOST else child["rollup"])
+            ingest = dict(self.counters)
+            ingest["duplicates_suppressed"] = ingest.pop("duplicates")
+            if self.compat_level < 1:
+                ingest.pop("fields_skipped", None)
+            out = {
+                "counts": {
+                    "hosts": global_doc["hosts"].get("total", 0),
+                    "live": global_doc["hosts"].get("live", 0),
+                    "stale": global_doc["hosts"].get("stale", 0),
+                    "lost": global_doc["hosts"].get("lost", 0),
+                },
+                "health_degraded_components":
+                    global_doc.get("health_degraded", 0),
+                "ingest": ingest,
+                "durable_acks": self.durable_acks,
+                # Per-version host cohort, tree-wide (`dyno fleet
+                # --versions` parity); absent at compat 0.
+                **({"versions": global_doc.get("versions", {}),
+                    "proto": PROTO_VERSION, "build": BUILD}
+                   if self.compat_level >= 1 else {}),
+                "global": {
+                    "ingest": global_doc["ingest"],
+                    "hosts": global_doc["hosts"],
+                },
+                "stragglers":
+                    list(global_doc["stragglers"])[:max(top_k, 0)],
+                "pods": {},
+            }
+            for name, agg in global_doc["pods"].items():
+                entry = {"hosts": agg["hosts"], "live": agg["live"],
+                         "applied_sum": agg["applied_sum"],
+                         "records_sum": agg["records_sum"],
+                         "seq_gaps": agg["seq_gaps"],
+                         "duplicates": agg["duplicates"]}
+                skew_agg = (agg.get("metrics") or {}).get(skew_metric) \
+                    if skew_metric else None
+                if skew_agg:
+                    entry["skew"] = {
+                        "metric": skew_metric,
+                        "hosts": skew_agg["count"],
+                        "min": skew_agg["min"], "max": skew_agg["max"],
+                        "spread": skew_agg["max"] - skew_agg["min"],
+                        "mean": skew_agg["sum"] / skew_agg["count"]
+                        if skew_agg["count"] else 0.0,
+                    }
+                out["pods"][name] = entry
+            tree = {
+                "relays": int(global_doc.get("relays") or 0) + 1,
+                "depth": int(global_doc.get("depth") or 0) + 1,
+                "children_count": len(children),
+            }
+            if depth >= 1 and children:
+                tree["children"] = {
+                    name: {
+                        "state": c["state"],
+                        "seconds_since_export": c["gap_s"],
+                        "epoch": c["epoch"],
+                        "applied_seq": c["applied_seq"],
+                        "rollup_records": c["records"],
+                        "hosts":
+                            (c["rollup"].get("hosts") or {})
+                            .get("total", 0),
+                        "live":
+                            (c["rollup"].get("hosts") or {})
+                            .get("live", 0),
+                        "records_sum":
+                            (c["rollup"].get("ingest") or {})
+                            .get("records", 0),
+                        "applied_sum":
+                            (c["rollup"].get("ingest") or {})
+                            .get("applied_sum", 0),
+                        "seq_gaps":
+                            (c["rollup"].get("ingest") or {})
+                            .get("seq_gaps", 0),
+                        "depth": c["rollup"].get("depth", 0),
+                        "relays": c["rollup"].get("relays", 0),
+                    }
+                    for name, c in children.items()
+                }
+            out["tree"] = tree
+            if pod:
+                drill = {"pod": pod, "hosts": pod_hosts, "children": {}}
+                if pod in global_doc["pods"]:
+                    drill["rollup"] = global_doc["pods"][pod]
+                for name, c in children.items():
+                    child_pod = (c["rollup"].get("pods") or {}).get(pod)
+                    if child_pod:
+                        drill["children"][name] = child_pod
+                out["pod_detail"] = drill
+            if metrics:
+                out["metrics"] = table
+                out["rollup"] = {
+                    m: {"hosts": agg["hosts"], "min": agg["min"],
+                        "max": agg["max"],
+                        "mean": agg["_sum"] / agg["hosts"]}
+                    for m, agg in rollup.items()
+                }
+            if detail:
+                out["hosts_detail"] = hosts_detail
+            return out
+
+    def snapshot_state(self) -> dict:
+        """The StateSnapshot 'fleet' section (same schema as the C++
+        snapshotState); collecting it STAGES the durable-ack candidates
+        the next commit_durable() promotes."""
+        with self._lock:
+            hosts = {}
+            for name, st in self._hosts.items():
+                st["staged_seq"] = st["applied_seq"]
+                hosts[name] = {
+                    "epoch": st["epoch"], "applied_seq": st["applied_seq"],
+                    "records": st["records"],
+                    "duplicates": st["duplicates"],
+                    "stale_epoch": st["stale_epoch"],
+                    "shed_rollups": st["shed_rollups"],
+                    "seq_gaps": st["seq_gaps"], "flaps": st["flaps"],
+                    "last_ingest_ms": st["last_ingest_ms"],
+                    "health_degraded": st["health_degraded"],
+                    "proto": st["proto"],
+                    **({"build": st["build"]} if st["build"] else {}),
+                    **({"fields_skipped": st["fields_skipped"]}
+                       if st["fields_skipped"] > 0 else {}),
+                    "state": st["state"],
+                    **({"pod": st["pod"]} if st["pod"] else {}),
+                    # Child relay: its whole last subtree rollup travels
+                    # with the watermark, so a restart rewinds both to
+                    # one consistent point (C++ parity).
+                    **({"rollup": st["rollup"]}
+                       if isinstance(st["rollup"], dict) else {}),
+                    **({"rpc_port": st["rpc_port"]}
+                       if st["rpc_port"] else {}),
+                    **({"rpc_host": st["rpc_host"]}
+                       if st["rpc_host"] else {}),
+                    "metrics": dict(st["metrics"]),
+                }
+            c = self.counters
+            return {
+                "hosts": hosts,
+                "ingest": {
+                    "records": c["records"], "duplicates": c["duplicates"],
+                    "untracked": c["untracked"],
+                    "shed_rollups": c["shed_rollups"],
+                    "stale_epoch": c["stale_epoch"],
+                    "seq_gaps": c["seq_gaps"], "bytes": c["bytes"],
+                    "epoch_changes": c["epoch_changes"],
+                },
+            }
+
+    def commit_durable(self) -> None:
+        with self._lock:
+            for st in self._hosts.values():
+                st["durable_seq"] = max(st["durable_seq"], st["staged_seq"])
+
+    def restore(self, section: dict) -> int:
+        """Rebuilds the view from a recovered 'fleet' section (the C++
+        daemon's StateSnapshot section restores identically). Restored
+        watermarks are durable by construction."""
+        if not isinstance(section, dict) or \
+                not isinstance(section.get("hosts"), dict):
+            return 0
+        restored = 0
+        now = self._now_ms()
+        with self._lock:
+            for name, h in section["hosts"].items():
+                if name in self._hosts or not isinstance(h, dict):
+                    continue
+                st = self._new_host(now)
+                # _as_int (C++ asInt parity): a hand-edited or
+                # wrong-typed snapshot field degrades to its default —
+                # restore fails closed per FIELD, never raises out of
+                # relay startup.
+                applied = _as_int(h.get("applied_seq"))
+                st.update({
+                    "epoch": _as_int(h.get("epoch")),
+                    "applied_seq": applied, "staged_seq": applied,
+                    "durable_seq": applied,
+                    "records": _as_int(h.get("records")),
+                    "duplicates": _as_int(h.get("duplicates")),
+                    "stale_epoch": _as_int(h.get("stale_epoch")),
+                    "shed_rollups": _as_int(h.get("shed_rollups")),
+                    "seq_gaps": _as_int(h.get("seq_gaps")),
+                    "flaps": _as_int(h.get("flaps")),
+                    "last_ingest_ms": _as_int(h.get("last_ingest_ms")),
+                    "health_degraded": _as_int(
+                        h.get("health_degraded", -1), -1),
+                    "proto": _as_int(h.get("proto")),
+                    "build": h.get("build")
+                    if isinstance(h.get("build"), str) else "",
+                    "fields_skipped": _as_int(h.get("fields_skipped")),
+                    # C++ livenessFromName parity: anything unknown
+                    # (wrong type included) reads as live.
+                    "state": h.get("state")
+                    if h.get("state") in (FLEET_LIVE, FLEET_STALE,
+                                          FLEET_LOST) else FLEET_LIVE,
+                    "pod": h.get("pod")
+                    if isinstance(h.get("pod"), str) else "",
+                    "rollup": h.get("rollup")
+                    if isinstance(h.get("rollup"), dict) else None,
+                    "rpc_port": _as_int(h.get("rpc_port")),
+                    "rpc_host": str(h.get("rpc_host") or ""),
+                    "metrics": {
+                        k: float(v) for k, v in
+                        (h.get("metrics") if isinstance(
+                            h.get("metrics"), dict) else {}).items()
+                        if isinstance(v, (int, float))
+                        and not isinstance(v, bool)
+                    },
+                })
+                self._hosts[name] = st
+                restored += 1
+            for key, value in (section.get("ingest") or {}).items():
+                if key in self.counters:
+                    self.counters[key] = _as_int(value)
+        return restored
+
+
+class FleetRelay:
+    """TCP half of the mirror: AckingRelay's listener shape around a
+    FleetView, speaking the exact sender protocol (newline-framed JSON
+    in, per-burst ``ACK <ackable>`` out, hello answered with the
+    watermark) plus one mirror-only convenience: a ``{"fleet_query":
+    {...}}`` line is answered with a one-line JSON fleet document, so
+    harnesses query the view in-band without an RPC server.
+
+    ``snapshot_path`` arms durable-ack mode: the fleet section is
+    persisted (tmp+fsync+rename) every ``snapshot_interval_s`` and ONLY
+    committed watermarks are ever acknowledged — crash-restart a relay
+    by constructing a new instance on the same path/port. ``sever()``
+    stops service, leaving the snapshot for the successor.
+
+    Hierarchical tier (C++ --relay_upstream parity): ``upstream=(host,
+    port)`` + ``upstream_wal_dir`` + ``host_id`` make this relay a tree
+    NODE — every ``export_interval_s`` it publishes its merged fleet
+    view upstream as a ``{"fleet_rollup":1}`` record over its own
+    durable acked sink (SinkWal + AckedTcpSender), identity-stamped
+    (host_id, wal epoch, wal_seq) so the parent dedupes replay exactly
+    like any sender's. Crash-restart a mid-tree relay by constructing a
+    new instance on the same snapshot path, port AND upstream_wal_dir:
+    the fleet view, the upstream backlog and the sequence space all
+    recover."""
+
+    def __init__(self, port: int = 0, *, snapshot_path: str | None = None,
+                 snapshot_interval_s: float = 0.5,
+                 upstream: tuple | None = None,
+                 upstream_wal_dir: str | None = None,
+                 host_id: str = "",
+                 export_interval_s: float = 0.2,
+                 export_top_k: int = 16,
+                 **view_kwargs):
+        self.view = FleetView(**view_kwargs)
+        self.compat_level = self.view.compat_level
+        # Forward tolerance (C++ adoptForeignSections parity): snapshot
+        # sections a NEWER version wrote that this relay does not own
+        # ride along into every snapshot it writes.
+        self._foreign_sections: dict = {}
+        self.snapshot_path = snapshot_path
+        self.snapshot_interval_s = snapshot_interval_s
+        self.host_id = host_id
+        self.export_interval_s = export_interval_s
+        self.export_top_k = export_top_k
+        self._stop = threading.Event()
+        self._snap_lock = threading.Lock()
+        self._upstream_sink = None
+        self._upstream_sender = None
+        self._export_thread = None
+        if upstream is not None:
+            if not upstream_wal_dir or not host_id:
+                raise ValueError(
+                    "upstream relays need upstream_wal_dir + host_id "
+                    "(the durable identity the parent dedupes on)")
+            self._upstream_wal = SinkWal(upstream_wal_dir, fsync=False,
+                                         compat_level=self.compat_level)
+            self._upstream_sender = AckedTcpSender(
+                upstream[0], int(upstream[1]))
+            self._upstream_sink = DurableSink(
+                self._upstream_wal, self._upstream_sender,
+                breaker=SinkBreaker(
+                    f"upstream {host_id}", retry_initial_s=0.05,
+                    retry_max_s=0.5))
+        if snapshot_path:
+            self.view.durable_acks = True
+            if os.path.exists(snapshot_path):
+                try:
+                    doc = json.loads(open(snapshot_path).read())
+                except (OSError, ValueError):
+                    doc = None  # fail closed to an empty view (C++ parity)
+                if isinstance(doc, dict) and self.compat_level >= 1:
+                    # _as_int: a wrong-typed version field reads as 0 —
+                    # out of range, refused + quarantined, exactly like
+                    # the C++ asInt(-1) path. Never raises out of relay
+                    # startup.
+                    ver = _as_int(doc.get("version"))
+                    if not (SNAPSHOT_MIN_VERSION <= ver
+                            <= SNAPSHOT_VERSION):
+                        # Cross-version refusal preserves the evidence
+                        # (C++ .incompat parity): fail closed to an
+                        # empty view, but never let the next periodic
+                        # snapshot clobber the other version's state.
+                        try:
+                            os.replace(snapshot_path,
+                                       snapshot_path + ".incompat")
+                        except OSError:
+                            pass
+                        doc = None
+                    else:
+                        self._foreign_sections = {
+                            k: v for k, v in doc.items()
+                            if k not in ("version", "build", "proto",
+                                         "written_unix_ms", "fleet")}
+                if isinstance(doc, dict):
+                    self.view.restore(doc.get("fleet") or {})
+        self.listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self.listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self.listener.bind(("127.0.0.1", port))
+        self.listener.listen(64)
+        self.port = self.listener.getsockname()[1]
+        self.listener.settimeout(0.2)
+        self._accept_thread = threading.Thread(
+            target=self._serve, daemon=True)
+        self._accept_thread.start()
+        self._snap_thread = None
+        if snapshot_path:
+            self._snap_thread = threading.Thread(
+                target=self._snapshot_loop, daemon=True)
+            self._snap_thread.start()
+        if self._upstream_sink is not None:
+            self._export_thread = threading.Thread(
+                target=self._export_loop, daemon=True)
+            self._export_thread.start()
+
+    # -- upstream re-export (tree node) ---------------------------------
+
+    def export_once(self) -> int:
+        """One rollup export to the parent: build the merged subtree
+        snapshot, durably append it (identity-stamped), drain. Returns
+        the record's wal_seq (0 = skipped by the relay.upstream.export
+        failpoint or append failure). Harnesses call this directly for
+        deterministic trees; the background loop uses it too."""
+        if self._upstream_sink is None:
+            return 0
+        doc = self.view.export_rollup(self.export_top_k)
+        if doc is None:
+            return 0
+        return self._upstream_sink.publish(lambda seq: json.dumps({
+            **doc,
+            "host": self.host_id,
+            "boot_epoch": self._upstream_wal.epoch,
+            # Version stamp (C++ RelayLogger parity): every durable
+            # payload announces what wrote it; absent at compat 0.
+            **({"proto": PROTO_VERSION, "build": BUILD}
+               if self.compat_level >= 1 else {}),
+            "wal_seq": seq,
+        }))
+
+    def _export_loop(self):
+        while not self._stop.wait(self.export_interval_s):
+            self.export_once()
+
+    def drain_upstream(self, deadline_s: float = 5.0) -> bool:
+        """Push the upstream WAL backlog until empty or deadline; True =
+        everything this relay ever exported is parent-acked."""
+        if self._upstream_sink is None:
+            return True
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline:
+            if self._upstream_wal.stats()["pending_records"] == 0:
+                return True
+            self._upstream_sink.drain()
+            time.sleep(0.02)
+        return self._upstream_wal.stats()["pending_records"] == 0
+
+    # -- durable snapshot loop ------------------------------------------
+
+    def write_snapshot(self) -> bool:
+        # Serialized: a harness-forced snapshot racing the background
+        # loop on the SHARED tmp path would lose its rename — and the
+        # collect -> write -> commit sequence must pair up anyway (a
+        # commit may only promote watermarks its own write persisted).
+        with self._snap_lock:
+            section = self.view.snapshot_state()
+            tmp = self.snapshot_path + ".tmp"
+            try:
+                # state.snapshot.write failpoint (errno: drill): the
+                # failure path below leaves the PREVIOUS snapshot
+                # authoritative (tmp unlinked, final name untouched,
+                # watermarks NOT committed) — the full-disk episode a
+                # relay must survive without over-acking.
+                failpoints.fire("state.snapshot.write")
+                if self.compat_level >= 1:
+                    doc = {"version": SNAPSHOT_VERSION, "build": BUILD,
+                           "proto": PROTO_VERSION,
+                           **self._foreign_sections, "fleet": section}
+                else:
+                    # Faithful v0 impersonation: the previous release's
+                    # v1 snapshot, byte layout unchanged.
+                    doc = {"version": 1, "fleet": section}
+                with open(tmp, "w") as f:
+                    f.write(json.dumps(doc))
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.rename(tmp, self.snapshot_path)
+            except OSError:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+                return False
+            self.view.commit_durable()
+            return True
+
+    def _snapshot_loop(self):
+        while not self._stop.wait(self.snapshot_interval_s):
+            self.write_snapshot()
+
+    # -- transport -------------------------------------------------------
+
+    def _serve(self):
+        while not self._stop.is_set():
+            try:
+                conn, _ = self.listener.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            threading.Thread(
+                target=self._conn, args=(conn,), daemon=True).start()
+
+    def _conn(self, conn):
+        conn.settimeout(0.2)
+        # Acks are tiny and latency-bound (the sender parks in
+        # readRelayAcks on them): never Nagle them (C++ parity).
+        conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        buf = b""
+        conn_host = ""
+        last_acked = 0
+        try:
+            while not self._stop.is_set():
+                try:
+                    chunk = conn.recv(65536)
+                except socket.timeout:
+                    # Durable-ack push: a sender parked in readRelayAcks
+                    # gets its watermark as soon as a snapshot commits.
+                    if conn_host:
+                        a = self.view.ackable(conn_host)
+                        if a > last_acked:
+                            last_acked = a
+                            conn.sendall(f"ACK {a}\n".encode())
+                    continue
+                if not chunk:
+                    return
+                buf += chunk
+                lines = buf.split(b"\n")
+                buf = lines.pop()
+                burst_ack = 0
+                for raw in lines:
+                    if not raw:
+                        continue
+                    query = None
+                    try:
+                        parsed = json.loads(raw)
+                        # Non-dict JSON (a bare list/number) must fall
+                        # through to ingest_line's parse-error counting
+                        # (C++ parity), not kill this conn thread.
+                        if isinstance(parsed, dict):
+                            query = parsed.get("fleet_query")
+                    except ValueError:
+                        pass
+                    if query is not None:
+                        params = query if isinstance(query, dict) else {}
+                        doc = self.view.query(
+                            top_k=int(params.get("top_k", 10)),
+                            detail=bool(params.get("detail")),
+                            metrics=params.get("metrics") or (),
+                            skew_metric=params.get("skew_metric") or "")
+                        conn.sendall((json.dumps(doc) + "\n").encode())
+                        continue
+                    # Versioned hello: the negotiation reply is built
+                    # INSIDE ingest_line's hello branch (after the
+                    # identity/admission/epoch gates — C++ serviceConn
+                    # parity) and rides ahead of the ACK; old senders
+                    # skip any non-"ACK " line.
+                    replies: list = []
+                    ack, host, _ = self.view.ingest_line(
+                        raw, hello_reply=replies)
+                    for ack_doc in replies:
+                        conn.sendall(
+                            (json.dumps(ack_doc) + "\n").encode())
+                    if host:
+                        conn_host = host
+                    burst_ack = max(burst_ack, ack)
+                if burst_ack > last_acked:
+                    last_acked = burst_ack
+                    conn.sendall(f"ACK {burst_ack}\n".encode())
+        except OSError:
+            pass
+        finally:
+            conn.close()
+
+    def sever(self):
+        self._stop.set()
+        self.listener.close()
+        self._accept_thread.join(timeout=2)
+        if self._snap_thread is not None:
+            self._snap_thread.join(timeout=2)
+        if self._export_thread is not None:
+            self._export_thread.join(timeout=2)
+        if self._upstream_sender is not None:
+            self._upstream_sender.close()
+        if self._upstream_sink is not None:
+            self._upstream_wal.close()
+
+    close = sever
+
+
+# ---------------------------------------------------------------------------
+# Fleet-driven automated diagnosis (src/relay/FleetWatcher.{h,cpp} mirror)
+# ---------------------------------------------------------------------------
+
+
+def _dialable(state: str) -> bool:
+    # live or stale (a straggler is usually stale); lost = nothing
+    # listening.
+    return state in (FLEET_LIVE, FLEET_STALE)
+
+
+def pick_diagnosis(doc: dict, *, metric: str = "", spread: float = 0.0,
+                   dwell_ms: int = 0, skip_pods=()) -> dict | None:
+    """Pure decision core of the fleet watcher (C++
+    FleetWatcher::pickCandidate parity): evaluate one fleet query
+    document (the ``query(detail=True, metrics=[metric],
+    skew_metric=metric)`` shape) against the thresholds and return the
+    (outlier, healthy peer) pair to diagnose, or None. Only LOCAL leaf
+    hosts are actionable — they carry per-host values and rpc
+    coordinates; child-relay entries are skipped (each relay watches
+    its own pods). Pods in ``skip_pods`` (the watcher's cooling set)
+    are excluded by BOTH rules, so one persistent breach cannot starve
+    a fresh breach elsewhere."""
+    skip_pods = set(skip_pods)
+    detail = doc.get("hosts_detail") or {}
+    table = doc.get("metrics") or {}
+    by_pod: dict = {}
+    for name, h in detail.items():
+        if h.get("child"):
+            continue
+        value = (table.get(name) or {}).get(metric)
+        by_pod.setdefault(h.get("pod") or "-", []).append({
+            "name": name, "state": h.get("state") or "",
+            "gap_s": float(h.get("seconds_since_ingest", -1.0)),
+            "value": value,
+            "rpc_host": h.get("rpc_host") or name,
+            "rpc_port": int(h.get("rpc_port") or 0),
+        })
+
+    def candidate(reason, pod, outlier, peer, spread_val):
+        return {
+            "reason": reason, "pod": pod,
+            "outlier": outlier["name"], "peer": peer["name"],
+            "outlier_value": outlier["value"]
+            if outlier["value"] is not None else outlier["gap_s"],
+            "peer_value": peer["value"]
+            if peer["value"] is not None else peer["gap_s"],
+            "spread": spread_val,
+            "outlier_rpc": (outlier["rpc_host"], outlier["rpc_port"]),
+            "peer_rpc": (peer["rpc_host"], peer["rpc_port"]),
+        }
+
+    # Rule 1 — per-pod skew spread on the watched metric.
+    if metric and spread > 0:
+        for pod in sorted(by_pod):
+            if pod in skip_pods:
+                continue
+            rows = [r for r in by_pod[pod]
+                    if r["value"] is not None and _dialable(r["state"])]
+            if len(rows) < 2:
+                continue
+            values = [r["value"] for r in rows]
+            if max(values) - min(values) < spread:
+                continue
+            mean = sum(values) / len(rows)
+            # Ties break to the smallest host name (C++ parity — in a
+            # two-host pod both hosts tie on distance-from-mean, so the
+            # tie path is the NORMAL case, not an edge case).
+            outlier = min(
+                rows, key=lambda r: (-abs(r["value"] - mean), r["name"]))
+            peers = [r for r in rows
+                     if r is not outlier and r["state"] == FLEET_LIVE]
+            if not peers:
+                continue
+            peer = min(
+                peers, key=lambda r: (abs(r["value"] - mean), r["name"]))
+            return candidate("skew_spread", pod, outlier, peer,
+                             max(values) - min(values))
+
+    # Rule 2 — straggler dwell: a host gone quiet past the dwell while a
+    # pod-mate stays live (the healthy baseline).
+    if dwell_ms > 0:
+        for pod in sorted(by_pod):
+            if pod in skip_pods:
+                continue
+            rows = by_pod[pod]
+            stragglers = [r for r in rows
+                          if r["gap_s"] * 1000.0 >= dwell_ms
+                          and _dialable(r["state"])]
+            if not stragglers:
+                continue
+            straggler = max(stragglers, key=lambda r: r["gap_s"])
+            peers = [r for r in rows
+                     if r is not straggler and r["state"] == FLEET_LIVE]
+            if not peers:
+                continue
+            peer = min(peers, key=lambda r: r["gap_s"])
+            return candidate("straggler_dwell", pod, straggler, peer,
+                             straggler["gap_s"] - peer["gap_s"])
+    return None
+
+
+def run_diagnosis_engine(target: str, baseline: str,
+                         trace_ctx: str = "", *, top: int = 10) -> dict:
+    """Default diagnosis leg of the mirror watcher: resolve both
+    artifacts (any shape dynolog_tpu_torch.diagnose accepts — saved
+    summary envelopes, shim manifests of kineto captures, trace dirs),
+    diff them with the healthy peer as baseline, and write the ranked
+    report next to the target (``<target minus .json>.fleet_diagnosis.json``)
+    stamped with the fleet trace context so `selftrace`/`diagnose
+    --trace_id` join the whole closed loop. ``top`` is the engine's cut of
+    the ranked findings (its default, as the JAX mirror calls it)."""
+    from dynolog_tpu_torch import diagnose as engine
+
+    base_summary, base_meta = engine.resolve_summary(baseline)
+    cur_summary, cur_meta = engine.resolve_summary(target)
+    report = engine.diagnose(base_summary, cur_summary, top=top)
+    report["target"] = cur_meta.get("target", target)
+    report["baseline"] = base_meta.get("target", baseline)
+    if trace_ctx:
+        report["trace_ctx"] = trace_ctx
+    out_path = (target[:-5] if target.endswith(".json") else target) + \
+        ".fleet_diagnosis.json"
+    tmp = out_path + ".tmp"
+    try:
+        # diagnose.report.write failpoint (errno: drill): a refused
+        # report write cleans its tmp and raises — the caller's
+        # containment (FleetWatcher under a Supervisor) records the
+        # failure; no partial report is ever published.
+        failpoints.fire("diagnose.report.write")
+        with open(tmp, "w") as f:
+            json.dump(report, f, indent=1)
+        os.replace(tmp, out_path)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    report["report_path"] = out_path
+    return report
+
+
+class FleetWatcher:
+    """Mirror of the C++ in-relay watcher: rides a :class:`FleetView`,
+    fires when per-pod skew spread or straggler dwell crosses the
+    thresholds, picks the outlier + healthy peer, triggers captures on
+    both through the injected ``trigger`` hook (production: the framed
+    RPC client against each host's advertised rpc coordinates;
+    harnesses: any callable producing an artifact), and hands the pair
+    to the diagnosis engine with the peer as baseline — one ranked
+    report under one trace-id, no human in the loop. Per-pod cooldown
+    damps persistent breaches."""
+
+    def __init__(self, view: FleetView, *, metric: str = "",
+                 spread: float = 0.0, dwell_ms: int = 0,
+                 cooldown_s: float = 300.0, trigger=None,
+                 diagnose=run_diagnosis_engine, now=None):
+        self.view = view
+        self.metric = metric
+        self.spread = spread
+        self.dwell_ms = dwell_ms
+        self.cooldown_s = cooldown_s
+        self.trigger = trigger
+        self.diagnose = diagnose
+        self._now = now or time.monotonic
+        self._last_fire: dict[str, float] = {}
+        self.fires = 0
+        self.reports: list[dict] = []
+
+    def tick(self) -> dict | None:
+        """One evaluation: query -> pick -> capture both -> diagnose.
+        Returns the report dict when a diagnosis ran, else None."""
+        doc = self.view.query(
+            top_k=64, detail=True,
+            metrics=[self.metric] if self.metric else (),
+            skew_metric=self.metric)
+        now = self._now()
+        # Cooling pods are excluded from the PICK, not used to veto the
+        # tick (C++ parity): a persistent breach in one pod cannot
+        # starve a fresh breach elsewhere.
+        cooling = {pod for pod, fired in self._last_fire.items()
+                   if now - fired < self.cooldown_s}
+        cand = pick_diagnosis(
+            doc, metric=self.metric, spread=self.spread,
+            dwell_ms=self.dwell_ms, skip_pods=cooling)
+        if cand is None:
+            return None
+        # Cooldown charges on the ATTEMPT (C++ parity): an unreachable
+        # pod must not be re-dialed every tick.
+        self._last_fire[cand["pod"]] = now
+        trace_ctx = "%016x/%016x" % (
+            random.getrandbits(64) or 1, random.getrandbits(64) or 1)
+        target = self.trigger(cand["outlier"], cand["outlier_rpc"],
+                              trace_ctx)
+        baseline = self.trigger(cand["peer"], cand["peer_rpc"],
+                                trace_ctx)
+        if not target or not baseline:
+            return None
+        report = self.diagnose(target, baseline, trace_ctx)
+        if isinstance(report, dict):
+            report.setdefault("trace_ctx", trace_ctx)
+            report["candidate"] = cand
+            self.reports.append(report)
+        self.fires += 1
+        return report if isinstance(report, dict) else {
+            "trace_ctx": trace_ctx, "candidate": cand}
+
+
+# ---------------------------------------------------------------------------
+# Resource governance mirror (src/core/ResourceGovernor.{h,cpp})
+# ---------------------------------------------------------------------------
+
+PRESSURE_OK = "ok"
+PRESSURE_SOFT = "soft"
+PRESSURE_HARD = "hard"
+_PRESSURE_LEVEL = {PRESSURE_OK: 0, PRESSURE_SOFT: 1, PRESSURE_HARD: 2}
+
+
+def dir_usage(root: str) -> tuple[int, int]:
+    """Recursive (bytes, files) of every regular file under ``root``
+    ((0, 0) when absent) — the default usage probe for a directory-
+    rooted artifact class (C++ dirUsage parity)."""
+    bytes_ = files = 0
+    for dirpath, _dirnames, filenames in os.walk(root):
+        for name in filenames:
+            try:
+                st = os.lstat(os.path.join(dirpath, name))
+            except OSError:
+                continue
+            bytes_ += st.st_size
+            files += 1
+    return bytes_, files
+
+
+def reclaim_oldest_files(root: str, target_bytes: int,
+                         grace_s: float = 60.0) -> int:
+    """Reclaims ~target_bytes under ``root``, oldest mtime first,
+    skipping files younger than ``grace_s`` (a family mid-write must not
+    be deleted under its writer). Returns the bytes freed; empty
+    subdirectories left behind are removed best-effort (C++
+    reclaimOldestFiles parity)."""
+    candidates = []
+    for dirpath, _dirnames, filenames in os.walk(root):
+        for name in filenames:
+            path = os.path.join(dirpath, name)
+            try:
+                st = os.lstat(path)
+            except OSError:
+                continue
+            candidates.append((st.st_mtime, st.st_size, path))
+    candidates.sort()
+    now = time.time()
+    freed = 0
+    for mtime, size, path in candidates:
+        if freed >= target_bytes:
+            break
+        if now - mtime < grace_s:
+            break  # mtime-sorted: everything later is younger still
+        try:
+            os.unlink(path)
+            freed += size
+        except OSError:
+            pass
+    if freed:
+        for dirpath, dirnames, filenames in os.walk(root, topdown=False):
+            if dirpath != root and not dirnames and not filenames:
+                try:
+                    os.rmdir(dirpath)
+                except OSError:
+                    pass
+    return freed
+
+
+def atomic_artifact_write(path: str, data,
+                          failpoint: str = "trace.artifact.write") -> bool:
+    """The artifact-write discipline every streaming writer follows
+    (C++ PushTraceCapturer / the shim's manifest write): tmp + rename,
+    and on ANY failure — including an errno:-drilled one at the armed
+    failpoint — the tmp is unlinked and nothing is ever renamed, so a
+    partial artifact can never be published. Returns False on failure
+    (callers abort the capture cleanly and report the refusal)."""
+    if isinstance(data, str):
+        data = data.encode()
+    tmp = path + ".tmp"
+    try:
+        failpoints.fire(failpoint)
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.rename(tmp, path)
+        return True
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        return False
+
+
+def _default_fd_probe() -> int:
+    try:
+        return len(os.listdir("/proc/self/fd")) - 1
+    except OSError:
+        return -1
+
+
+def _default_rss_probe() -> int:
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) // 1024
+    except (OSError, ValueError, IndexError):
+        pass
+    return -1
+
+
+class ResourceGovernor:
+    """Mirror of src/core/ResourceGovernor: per-class registration with
+    priorities and never-evict flags, a global disk budget plus a
+    statvfs free-space floor, prioritized eviction, fd/RSS watermark
+    self-checks, ok/soft/hard pressure published to a health component,
+    typed admission refusal under hard pressure, and write-failure
+    escalation that is loud within one tick. Same snapshot keys as the
+    C++ governor's `resources` health-verb section. Probes are
+    injectable so tests drive fd/rss/statvfs synthetically."""
+
+    def __init__(self, *, disk_budget_bytes: int = 0,
+                 disk_min_free_pct: float = 0.0,
+                 soft_fraction: float = 0.85,
+                 max_fds: int = 0, rss_soft_mb: int = 0,
+                 health: ComponentHealth | None = None,
+                 statvfs=os.statvfs,
+                 fd_probe=_default_fd_probe,
+                 rss_probe=_default_rss_probe):
+        self.disk_budget_bytes = disk_budget_bytes
+        self.disk_min_free_pct = disk_min_free_pct
+        self.soft_fraction = soft_fraction
+        if max_fds == 0:
+            # C++ configure() parity: 0 = self-derive from the process's
+            # own RLIMIT_NOFILE soft limit — the daemon must notice ITS
+            # fd exhaustion even when nobody configured a watermark.
+            try:
+                import resource as _resource
+
+                soft, _hard = _resource.getrlimit(_resource.RLIMIT_NOFILE)
+                if soft != _resource.RLIM_INFINITY:
+                    max_fds = soft
+            except (ImportError, OSError, ValueError):
+                pass
+        self.max_fds = max_fds
+        self.rss_soft_mb = rss_soft_mb
+        self.health = health
+        self._statvfs = statvfs
+        self._fd_probe = fd_probe
+        self._rss_probe = rss_probe
+        self._lock = threading.Lock()
+        self._classes: dict[str, dict] = {}
+        self.pressure = PRESSURE_OK
+        self.refusals = 0
+        self.write_failures = 0
+        self.reclaim_failures = 0
+        self.ticks = 0
+        self.last_error = ""
+        self._write_failure_pending = False
+        self._root_free_pct: dict[str, float] = {}
+        self._open_fds = -1
+        self._rss_mb = -1
+        self._total_usage = 0
+
+    def register(self, name: str, *, priority: int,
+                 never_evict: bool = False, root: str = "",
+                 usage=None, reclaim=None, grace_s: float = 60.0) -> None:
+        """Registers one artifact class (lower priority = reclaimed
+        first). With a ``root`` and no explicit callbacks, the default
+        dir-usage probe and oldest-first reclaimer apply."""
+        if usage is None and root:
+            usage = lambda: dir_usage(root)  # noqa: E731
+        if reclaim is None and root and not never_evict:
+            reclaim = lambda target: reclaim_oldest_files(  # noqa: E731
+                root, target, grace_s)
+        with self._lock:
+            cls = self._classes.setdefault(name, {
+                "reclaims": 0, "reclaimed_bytes": 0,
+                "usage_bytes": 0, "files": 0,
+            })
+            cls.update({
+                "priority": priority, "never_evict": never_evict,
+                "root": root, "usage": usage, "reclaim": reclaim,
+            })
+
+    # -- escalation hooks ------------------------------------------------
+
+    def note_write_failure(self, site: str, err: int) -> None:
+        with self._lock:
+            self.write_failures += 1
+            self._write_failure_pending = True
+            self.last_error = f"{site}: {os.strerror(err)}"
+            if self.pressure != PRESSURE_HARD:
+                self.pressure = PRESSURE_HARD
+            self._publish_locked()
+
+    def note_reclaim_failure(self, site: str, what: str) -> None:
+        with self._lock:
+            self.reclaim_failures += 1
+            self.last_error = (
+                f"{site}: cannot reclaim {what} — the artifact class may "
+                "grow without bound")
+            if self.health:
+                self.health.note_error(self.last_error)
+
+    # -- the governor tick ----------------------------------------------
+
+    def _free_pct(self, root: str) -> float | None:
+        try:
+            vfs = self._statvfs(root)
+        except OSError:
+            return None
+        if vfs.f_blocks <= 0:
+            return None
+        return 100.0 * vfs.f_bavail / vfs.f_blocks
+
+    def tick(self) -> str:
+        with self._lock:
+            # Per-class WORKING COPIES (C++ tick() copies ClassState by
+            # value for the same reason): the probe/reclaim phase below
+            # runs outside the lock, and a concurrent snapshot() must
+            # never observe a torn half-refreshed class entry.
+            classes = {name: dict(cls)
+                       for name, cls in self._classes.items()}
+            observe_only = (self.disk_budget_bytes <= 0
+                            and not self.disk_min_free_pct > 0)
+            probe_usage = not observe_only or self.ticks % 30 == 0
+        total = 0
+        for name, cls in classes.items():
+            # Unconfigured (observe-only) governors stretch the usage
+            # walk to every 30th tick: an unconditional per-second
+            # recursive stat of every artifact tree would tax the very
+            # always-on budget this daemon exists to protect. With a
+            # budget or floor armed the walk IS the enforcement input
+            # and runs every tick.
+            if cls["usage"] and probe_usage:
+                try:
+                    cls["usage_bytes"], cls["files"] = cls["usage"]()
+                except OSError:
+                    pass
+            total += cls["usage_bytes"]
+        free_pct = {}
+        for cls in classes.values():
+            root = cls["root"]
+            if root and root not in free_pct:
+                pct = self._free_pct(root)
+                if pct is not None:
+                    free_pct[root] = pct
+        min_free = min(free_pct.values()) if free_pct else 100.0
+        floor_armed = self.disk_min_free_pct > 0 and bool(free_pct)
+
+        def overage():
+            over = 0
+            if self.disk_budget_bytes > 0 and total > self.disk_budget_bytes:
+                over = total - self.disk_budget_bytes
+            if floor_armed and min_free < self.disk_min_free_pct:
+                over = max(over, self.disk_budget_bytes // 10
+                           if self.disk_budget_bytes > 0 else 1 << 20)
+            return over
+
+        if overage() > 0:
+            for name, cls in sorted(
+                    classes.items(), key=lambda kv: kv[1]["priority"]):
+                need = overage()
+                if need <= 0:
+                    break
+                if cls["never_evict"] or not cls["reclaim"] or \
+                        cls["usage_bytes"] <= 0:
+                    continue
+                target = min(cls["usage_bytes"], need + need // 10)
+                try:
+                    freed = cls["reclaim"](target)
+                except OSError:
+                    freed = 0
+                if freed > 0:
+                    cls["reclaims"] += 1
+                    cls["reclaimed_bytes"] += freed
+                    cls["usage_bytes"] = max(cls["usage_bytes"] - freed, 0)
+                    total = max(total - freed, 0)
+                    if cls["root"]:
+                        pct = self._free_pct(cls["root"])
+                        if pct is not None:
+                            free_pct[cls["root"]] = pct
+                            min_free = min(free_pct.values())
+
+        fds = self._fd_probe() if self._fd_probe else -1
+        rss = self._rss_probe() if self._rss_probe else -1
+
+        level, reason = PRESSURE_OK, ""
+
+        def escalate(new_level, why):
+            nonlocal level, reason
+            if _PRESSURE_LEVEL[new_level] > _PRESSURE_LEVEL[level]:
+                level, reason = new_level, why
+
+        if self.disk_budget_bytes > 0:
+            if total >= self.disk_budget_bytes:
+                escalate(PRESSURE_HARD,
+                         f"disk budget exhausted ({total}B of "
+                         f"{self.disk_budget_bytes}B)")
+            elif total >= self.disk_budget_bytes * self.soft_fraction:
+                escalate(PRESSURE_SOFT,
+                         f"disk budget {total * 100 // self.disk_budget_bytes}"
+                         "% used")
+        if floor_armed:
+            if min_free < self.disk_min_free_pct:
+                escalate(PRESSURE_HARD,
+                         f"disk free-space floor: {min_free:.1f}% free "
+                         f"(floor {self.disk_min_free_pct:.1f}%)")
+            elif min_free < self.disk_min_free_pct * 2:
+                escalate(PRESSURE_SOFT, "disk free space nearing the floor")
+        if self.max_fds > 0 and fds >= 0:
+            if fds * 100 >= self.max_fds * 95:
+                escalate(PRESSURE_HARD,
+                         f"fd watermark: {fds} of {self.max_fds}")
+            elif fds * 100 >= self.max_fds * 80:
+                escalate(PRESSURE_SOFT,
+                         f"fd watermark: {fds} of {self.max_fds}")
+        if self.rss_soft_mb > 0 and rss >= 0:
+            if rss * 2 >= self.rss_soft_mb * 3:  # 1.5x soft = hard
+                escalate(PRESSURE_HARD,
+                         f"rss {rss}MB (soft watermark {self.rss_soft_mb}MB)")
+            elif rss >= self.rss_soft_mb:
+                escalate(PRESSURE_SOFT,
+                         f"rss {rss}MB (soft watermark {self.rss_soft_mb}MB)")
+
+        with self._lock:
+            if self._write_failure_pending:
+                self._write_failure_pending = False
+                if _PRESSURE_LEVEL[level] < _PRESSURE_LEVEL[PRESSURE_HARD]:
+                    level = PRESSURE_HARD
+                    reason = f"persistence write failed: {self.last_error}"
+            for name, refreshed in classes.items():
+                cls = self._classes.get(name)
+                if cls is None:
+                    continue
+                cls["usage_bytes"] = refreshed["usage_bytes"]
+                cls["files"] = refreshed["files"]
+                cls["reclaims"] = max(cls["reclaims"],
+                                      refreshed["reclaims"])
+                cls["reclaimed_bytes"] = max(cls["reclaimed_bytes"],
+                                             refreshed["reclaimed_bytes"])
+            self._total_usage = total
+            self._root_free_pct = free_pct
+            self._open_fds = fds
+            self._rss_mb = rss
+            self.ticks += 1
+            self.pressure = level
+            if reason:
+                self.last_error = reason
+            self._publish_locked()
+            return level
+
+    def _publish_locked(self) -> None:
+        if not self.health:
+            return
+        if self.pressure == PRESSURE_OK:
+            self.health.tick_ok()
+        else:
+            self.health.note_error(
+                f"resource pressure {self.pressure}"
+                + (f": {self.last_error}" if self.last_error else ""))
+            self.health.park()
+
+    # -- admission -------------------------------------------------------
+
+    def admit(self, what: str) -> tuple[bool, str]:
+        """(admitted, error). Refused — with the typed operator-facing
+        reason — only under HARD pressure; soft pressure admits (the
+        shed is eviction + loud health, not refusal)."""
+        with self._lock:
+            if self.pressure != PRESSURE_HARD:
+                return True, ""
+            self.refusals += 1
+            return False, (
+                f"{what} refused under hard resource pressure ("
+                + (self.last_error
+                   or "see the health verb's resources section")
+                + "); retry after the governor reports ok")
+
+    def snapshot(self) -> dict:
+        """Same keys as the C++ governor's health-verb `resources`
+        section."""
+        with self._lock:
+            out = {
+                "pressure": self.pressure,
+                "disk": {
+                    "budget_bytes": self.disk_budget_bytes,
+                    "usage_bytes": self._total_usage,
+                    "min_free_pct": self.disk_min_free_pct,
+                    "roots": dict(self._root_free_pct),
+                },
+                "fds": {"open": self._open_fds, "max": self.max_fds},
+                "rss_mb": self._rss_mb,
+                "rss_soft_mb": self.rss_soft_mb,
+                "classes": {
+                    name: {
+                        "priority": cls["priority"],
+                        "never_evict": cls["never_evict"],
+                        "usage_bytes": cls["usage_bytes"],
+                        "files": cls["files"],
+                        "reclaims": cls["reclaims"],
+                        "reclaimed_bytes": cls["reclaimed_bytes"],
+                    }
+                    for name, cls in self._classes.items()
+                },
+                "refusals": self.refusals,
+                "write_failures": self.write_failures,
+                "reclaim_failures": self.reclaim_failures,
+                "ticks": self.ticks,
+            }
+            if self.last_error:
+                out["last_error"] = self.last_error
+            return out
