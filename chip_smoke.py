@@ -82,6 +82,20 @@ if any phase fails:
    live, no sequence gap, records equal to the applied sequence; the
    capture latencies of phases 5, 7 and 14 rendered as a histogram
    exposition, and h2 sampled with the perf CLI where `perf` is on PATH;
+15. capture knobs: phase 4's trainer under one shim, captured three
+   times in turns through the dyno CLI (`dyno gputrace --iterations=2`)
+   at the default levels (the JAX capture's: Python frames, host ops
+   with shapes, device), with --python_tracer_level=0,
+   --host_tracer_level=0, --device_tracer_level=0, --host_tracer_level=3
+   and --notrace_json, and with the host and device tracers both off;
+   each capture's
+   timing, events by category, steps and flash rows are logged (and
+   each setting's median and range of stop, export and bytes), and
+   each must hold Python frames only with the Python and host tracers
+   on, cpu_ops only with the host tracer, kernels (and the three flash
+   kernels at their call counts) only with the device tracer, two steps,
+   a summary file unless --notrace_json, and, with no tracer left, an
+   error manifest naming both knobs;
 
 then, with two cards or more, phase 10's model trained expert-parallel
 over NCCL (data x expert, one process per card) for two steps, held in
@@ -108,16 +122,16 @@ and the daemon, and runs phase 12 and the checks (a), (b), (d), (e) and
 The launch counters are zeroed just before each main path (phases 4-5,
 the dense trainer; phase 10, the MoE trainer; phase 12's ring run; phase
 13's pipeline run; phase 14's three trainers, each in its own process;
-in each rank of a multi-card check, its steps) and read just after;
-phases 7 and 8 drive the dense trainer again, each with the counters
-zeroed before it and read after it. The last lines are the
+phase 15's trainer; in each rank of a multi-card check, its steps) and
+read just after; phases 7 and 8 drive the dense trainer again, each with
+the counters zeroed before it and read after it. The last lines are the
 card's name and power limit, a JSON object with one entry per kernel
 (launches: phases 4-5 and 10 together, and in launches_by_path each
 path's own: ring and pp (phase 13), whose plain products launch no
-kernel, fleet (phase 14's trainers together), the expert-parallel
-ranks' total as moe_ep, the ranks' totals of (a), (b), (d), (e) and (c)
-as tp, moe_tp, sp, moe_sp and pp_mesh, or null where a check did not
-run), and {"ok": true, "device": ...}.
+kernel, fleet (phase 14's trainers together), knobs (phase 15), the
+expert-parallel ranks' total as moe_ep, the ranks' totals of (a), (b),
+(d), (e) and (c) as tp, moe_tp, sp, moe_sp and pp_mesh, or null where a
+check did not run), and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -238,6 +252,11 @@ ITERATIONS = 2  # steps per daemon-triggered capture
 # The capture latency (RPC -> manifest) of earlier runs of this script on
 # an H100 80GB HBM3 at 700 W, logged beside this run's.
 EARLIER_LATENCY_MS = "680-1145"
+# Phases 5 and 10's captures at the shim's earlier fixed levels (CPU and
+# CUDA activities with input shapes, no Python frames) on an H100 80GB
+# HBM3 at 700 W: profiler stop ms, export ms, trace MB; logged beside
+# this run's, taken at the JAX capture's default levels.
+EARLIER_CAPTURE = {"dense": (96, 30, 2.4), "moe": (121, 44, 4.2)}
 
 
 def log(msg: str) -> None:
@@ -794,11 +813,16 @@ def phase_train_and_capture(F, daemon, trainer, client, job_id: int,
     if not cpu_ops:
         raise AssertionError("no cpu_op events from the training thread")
     log("  " + device_breakdown(events))
+    frames = sum(e.get("cat") == "python_function" for e in events)
+    if not frames:
+        raise AssertionError("no Python frames at the default levels")
+    stop, export, mb = EARLIER_CAPTURE["moe" if cfg.n_experts else "dense"]
     log(f"  capture: status ok, {len(kernel_names)} kernel events, "
-        f"{len(cpu_ops)} training-thread cpu_ops, "
+        f"{len(cpu_ops)} training-thread cpu_ops, {frames} Python frames, "
         f"{manifest['timing'].get('trace_bytes', 0) / 1e6:.1f} MB trace; "
         f"latency RPC->manifest {latency:.0f} ms; timing "
-        f"{manifest['timing']}")
+        f"{manifest['timing']} (without Python frames, earlier runs: stop "
+        f"{stop} ms, export {export} ms, {mb} MB)")
     return {"counts": counts, "manifest": manifest, "latency_ms": latency,
             "manifest_path": manifest_path(trace_base), "step_ms": median_ms}
 
@@ -1763,7 +1787,11 @@ FLEET_METRIC_S = 240  # bound for every host's step rate to reach the relay
 FLEET_CAPTURE_S = 120  # bound for one capture's manifest
 FLEET_BREACH_S = 30  # bound for the watcher to see the straggler
 FLEET_TRAIN_S = 600  # a trainer stops by itself after this long
-FLEET_DIAGNOSE_TOP = 50  # the engine's cut of ranked findings, as phase 7
+# The engine's cut of ranked findings: every one. A finding ranks by its
+# impact, per-call time times calls, and under time-slicing a flash
+# kernel's per-call time is noise: a run of this phase had 80 findings,
+# and a cut at 50 dropped dQ's, whose impact was 0.1 ms.
+FLEET_DIAGNOSE_TOP = 1000
 
 
 def fleet_trainer(spec: dict) -> int:
@@ -2036,14 +2064,20 @@ def phase_fleet(smi: str, latencies: dict) -> dict:
                 or on_disk.get("trace_ctx") != ctx):
             failures.append(f"trace contexts: captures {ids}, watcher "
                             f"{ctx}, report {on_disk.get('trace_ctx')}")
-        log(f"  verdict {on_disk['verdict']}: {on_disk['headline']}")
+        log(f"  verdict {on_disk['verdict']}: {on_disk['headline']}; "
+            f"{len(on_disk['findings'])} of {on_disk['finding_count']} "
+            f"findings in the report")
         if on_disk["verdict"] != "regressed":
             failures.append(f"h2 diagnosed {on_disk['verdict']}")
         for name in PRODUCTS:
             op = f"flash_tc::{name}_kernel<128>"
             found = [(f["kind"], f["severity_pct"])
                      for f in on_disk["findings"] if f["op"] == op]
-            log(f"  {op}: (kind, severity %) {found}")
+            ranks = [(i + 1, f["impact_ms"])
+                     for i, f in enumerate(on_disk["findings"])
+                     if f["op"] == op]
+            log(f"  {op}: (kind, severity %) {found}; (rank, impact ms) "
+                f"{ranks}")
             if not {"compute_regression", "fusion_shape_change"} & {
                     kind for kind, _ in found}:
                 failures.append(f"no regression finding for {op}")
@@ -2126,6 +2160,205 @@ def phase_fleet(smi: str, latencies: dict) -> dict:
         for daemon in daemons.values():
             daemon.stop()
         relay.sever()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------------------ phase 15
+
+# `dyno gputrace`'s per-capture knobs, captures of ITERATIONS steps in
+# this order on one shim: a knob must not outlast its capture.
+KNOB_CAPTURES = {
+    "default": [],
+    "python_0": ["--python_tracer_level=0"],
+    "host_0": ["--host_tracer_level=0"],
+    "device_0": ["--device_tracer_level=0"],
+    "host_3": ["--host_tracer_level=3"],
+    "notrace_json": ["--notrace_json"],
+    "no_tracer": ["--host_tracer_level=0", "--device_tracer_level=0"],
+}
+KNOB_ROUNDS = 3  # captures of each entry: a stop's spread is tens of ms
+KNOB_FLAGS = {"--python_tracer_level": "python_tracer_level",
+              "--host_tracer_level": "host_tracer_level",
+              "--device_tracer_level": "device_tracer_level"}
+
+
+def dyno_gputrace(daemon, job_id: int, log_file: str, flags: list) -> str:
+    """Runs the dyno CLI's gputrace against `daemon`; returns its output."""
+    out = subprocess.run(
+        [str(BIN_DIR / "dyno"), "--hostname=localhost",
+         f"--port={daemon.port}", "gputrace", f"--job_id={job_id}",
+         f"--iterations={ITERATIONS}", f"--log_file={log_file}", *flags],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0 or "Matched 1 processes" not in out.stdout:
+        raise RuntimeError(f"dyno gputrace {flags}: rc {out.returncode}: "
+                           f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    return out.stdout
+
+
+def knob_check(name: str, levels: dict, trace_json: bool, manifest: dict,
+               summary: dict, cats: dict) -> list[str]:
+    """What a capture at these levels must hold: Python frames only with
+    the Python and host tracers on (torch traces Python beside the CPU
+    activity alone), cpu_ops only with the host tracer, kernels only with
+    the device tracer, the three flash kernels at their call counts and
+    the window's steps wherever a tracer ran."""
+    python, host, device = (levels["python_tracer_level"],
+                            levels["host_tracer_level"],
+                            levels["device_tracer_level"])
+    failures = []
+    if manifest["status"] != "ok":
+        return [f"{name}: manifest {manifest.get('error')}"]
+    if ("python_function" in cats) != (python >= 1 and host >= 1):
+        failures.append(f"{name}: {cats.get('python_function')} "
+                        "python_function events")
+    if ("cpu_op" in cats) != (host >= 1):
+        failures.append(f"{name}: cpu_op {cats.get('cpu_op')}")
+    if ("kernel" in cats) != (device >= 1):
+        failures.append(f"{name}: kernel {cats.get('kernel')}")
+    want = N_LAYERS * ITERATIONS
+    for kernel, row in flash_rows(summary).items():
+        if (device >= 1) != (row is not None and row["count"] == want):
+            failures.append(f"{name}: {kernel} row {row}")
+    if summary.get("steps", {}).get("count") != ITERATIONS:
+        failures.append(f"{name}: steps {summary.get('steps')}")
+    if manifest["config"].get("TRACE_JSON") != (None if trace_json else "0"):
+        failures.append(f"{name}: config {manifest['config']}")
+    return failures
+
+
+def knob_levels(flags: list) -> dict:
+    """The tracer levels a capture with these dyno flags runs at."""
+    from dynolog_tpu_torch.client.shim import DEFAULT_TRACER_LEVELS
+
+    levels = dict(DEFAULT_TRACER_LEVELS)
+    for flag in flags:
+        key, _, value = flag.partition("=")
+        if key in KNOB_FLAGS:
+            levels[KNOB_FLAGS[key]] = int(value)
+    return levels
+
+
+def phase_knobs(F, daemon, smi: str) -> dict:
+    """Phase 15: phase 4's trainer under one shim, captured KNOB_ROUNDS
+    times for each entry of KNOB_CAPTURES (in turns) through the dyno
+    CLI, so the CLI's config text reaches the shim. Each capture's timing,
+    events by category, steps, flash rows and summary file are logged and
+    checked (knob_check; no summary file with --notrace_json; an error
+    manifest naming both knobs when no tracer is left), then each
+    setting's median and range of stop, export and bytes. Returns the
+    kernels' launches."""
+    from dynolog_tpu_torch import trace
+    from dynolog_tpu_torch.client import TraceClient
+
+    trainer = Trainer(dense_config())
+    job_id = 5600 + os.getpid() % 1000
+    tmp = Path(tempfile.mkdtemp(prefix="dynotpu_knobs_"))
+    client = TraceClient(job_id=job_id, endpoint=daemon.endpoint,
+                         poll_interval_s=0.2, report_interval_s=1.0)
+    if not client.start():
+        raise RuntimeError("the knob phase's shim could not register")
+    failures, landed = [], []
+    timings: dict = {name: [] for name in KNOB_CAPTURES}
+    try:
+        torch.cuda.synchronize()
+        F.reset_launches()
+        n_steps, step_ms = 0, []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            trainer.step()
+            client.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            n_steps += 1
+        uncaptured = statistics.median(step_ms[1:])
+        for rnd in range(KNOB_ROUNDS):
+            for name, flags in KNOB_CAPTURES.items():
+                levels = knob_levels(flags)
+                trace_json = "--notrace_json" not in flags
+                log_file = str(tmp / f"{name}_{rnd}.json")
+                prev = client.last_manifest
+                dyno_gputrace(daemon, job_id, log_file, flags)
+                deadline = time.time() + 120
+                while (client.last_manifest is prev
+                       and time.time() < deadline):
+                    trainer.step()
+                    client.step()
+                    n_steps += 1
+                torch.cuda.synchronize()
+                manifest = json.loads(manifest_path(log_file).read_text())
+                if levels["host_tracer_level"] < 1 and levels[
+                        "device_tracer_level"] < 1:
+                    error = manifest.get("error", "")
+                    log(f"  {smi}: {name} {flags}: status "
+                        f"{manifest['status']}, error {error!r}")
+                    knobs = ("PROFILE_HOST_TRACER_LEVEL=0",
+                             "PROFILE_DEVICE_TRACER_LEVEL=0")
+                    if manifest["status"] != "error" or not all(
+                            k in error for k in knobs):
+                        failures.append(f"{name}: manifest {manifest}")
+                    continue
+                timing = {k: manifest["timing"].get(k) for k in (
+                    "profiler_start_ms", "window_ms", "profiler_stop_ms",
+                    "export_ms", "trace_bytes")}
+                cats: dict = {}
+                summary: dict = {"top_ops": []}
+                if manifest["status"] == "ok":
+                    with open(manifest["trace_file"]) as f:
+                        for e in json.load(f)["traceEvents"]:
+                            cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+                    summary = trace.summarize(manifest["trace_file"],
+                                              group=False)
+                    landed.append((name, manifest, trace_json))
+                    timings[name].append(timing)
+                failures += knob_check(name, levels, trace_json, manifest,
+                                       summary, cats)
+                steps = summary.get("steps", {})
+                flash = {k: (r["count"], r["total_ms"]) if r else None
+                         for k, r in flash_rows(summary).items()}
+                log(f"  {smi}: {name} {flags} (python, host, device levels "
+                    f"{levels['python_tracer_level']}, "
+                    f"{levels['host_tracer_level']}, "
+                    f"{levels['device_tracer_level']}): timing {timing}; "
+                    f"events by category {cats}; steps "
+                    f"{steps.get('count')}, p50 {steps.get('p50_ms')} ms "
+                    f"against the uncaptured {uncaptured:.1f} ms; flash "
+                    f"(calls, ms) {flash}")
+        # The summary files, read after every capture: by the time the
+        # others have landed, a --notrace_json capture's would have too.
+        for name, manifest, trace_json in landed:
+            trace_file = manifest["trace_file"]
+            path = Path(trace_file[: -len(trace.TRACE_SUFFIX)]
+                        + trace.SUMMARY_SUFFIX)
+            ok = wait_for(path, manifest["ended_ms"] / 1000 + 120) if (
+                trace_json) else path.exists()
+            if ok != trace_json:
+                failures.append(f"{name}: summary file {path.exists()} "
+                                f"with TRACE_JSON {trace_json}")
+        log(f"  summary files checked for {len(landed)} captures: present"
+            " where TRACE_JSON is on, absent where it is off")
+        for name, rows in timings.items():
+            if not rows:
+                continue
+            cols = {k: sorted(r[k] for r in rows) for k in (
+                "profiler_stop_ms", "export_ms", "trace_bytes")}
+            log(f"  {smi}: {name}, {len(rows)} captures: " + "; ".join(
+                f"{k} median {statistics.median(v)} ({v[0]}-{v[-1]})"
+                for k, v in cols.items()))
+        counts = dict(F.launches)
+        for kernel, count in counts.items():
+            if count < N_LAYERS * n_steps:
+                failures.append(f"{kernel} launched {count} times in "
+                                f"{n_steps} steps")
+        log(f"  {n_steps} steps, launches {counts}")
+        if failures:
+            raise AssertionError("\n".join(failures))
+        return counts
+    finally:
+        client.stop()
+        for proc in client.summary_procs:
+            proc.wait(timeout=120)
+        del trainer
+        free_cache()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -2269,6 +2502,8 @@ def main() -> int:
         free_cache()
         fleet_counts = phase_fleet(smi, {"5": cap["latency_ms"] / 1000,
                                          "7": b2_latency_ms / 1000})
+        log("phase 15: capture knobs through dyno gputrace")
+        knob_counts = phase_knobs(F, daemon, smi)
         log("multi-card expert parallelism")
         ep_counts = phase_multicard_ep()
         log("multi-card tensor, sequence and expert parallelism")
@@ -2295,6 +2530,7 @@ def main() -> int:
                 "dense": counts[name], "moe": moe_counts[name],
                 "ring": ring["launches"][name],
                 "pp": pipe["launches"][name], "fleet": fleet_counts[name],
+                "knobs": knob_counts[name],
                 "moe_ep": ep_counts and ep_counts[name],
                 **{path: mesh_counts[path][name] if mesh_counts else None
                    for path in MESH_CASES},

@@ -4,10 +4,12 @@ The counterpart of ``dynolog_tpu/client/shim.py``: at app start it
 registers with the local dynologd over the IPC fabric, then polls for
 on-demand configs (and wakes early on the daemon's config "kick"
 datagrams). When the operator runs ``dyno gputrace``, the received
-key=value config is parsed and a torch.profiler capture (CPU and CUDA
-activities, input shapes) is taken and written as a kineto Chrome-trace
-JSON, with a manifest next to it. If the app calls step(), the shim also
-reports step rate and step-time percentiles to the daemon ("pstat").
+key=value config is parsed and a torch.profiler capture at the config's
+tracer levels (by default the JAX capture's: CPU and CUDA activities,
+input shapes, Python frames) is taken and written as a kineto
+Chrome-trace JSON, with a manifest next to it. If the app calls step(),
+the shim also reports step rate and step-time percentiles to the daemon
+("pstat").
 
 The one design divergence from the JAX shim: torch.profiler records the
 CPU ops of the thread that starts it, and kineto insists that start and
@@ -33,6 +35,23 @@ Config keys understood (the text the dyno CLI emits):
     ACTIVITIES_ITERATIONS=<n>               (iteration mode)
     PROFILE_START_ITERATION_ROUNDUP=<r>
     TRACE_CONTEXT=<trace-id/span-id>
+
+and the per-capture profiler knobs (``dyno gputrace --python_tracer_level
+--host_tracer_level --device_tracer_level --notrace_json``), which hold
+for one capture only; an absent key is the JAX capture's default
+(``jax.profiler.ProfileOptions()``: Python 1, host 2, device 1):
+
+    PROFILE_PYTHON_TRACER_LEVEL=<n>   0 no Python frames; >=1 with_stack
+                                      (torch traces Python only beside
+                                      the host tracer)
+    PROFILE_HOST_TRACER_LEVEL=<n>     0 no CPU activity (the shim then
+                                      writes the ProfilerStep#N spans
+                                      itself); 1 CPU ops; 2 with input
+                                      shapes; 3 also memory and modules
+    PROFILE_DEVICE_TRACER_LEVEL=<n>   0 no CUDA activity; >=1 CUDA where a
+                                      card is present
+    TRACE_JSON=0                      no summary child (the trace and its
+                                      manifest are still written)
 
 Usage::
 
@@ -476,50 +495,172 @@ class TraceConfig:
         return f"{self._base()}_{pid}.json"
 
 
-class TorchProfiler:
-    """Default profiler backend: a torch.profiler capture with CPU and CUDA
-    activities (CUDA where a card is present) and input shapes recorded.
+# The per-capture tracer-level keys of the on-demand config and the
+# levels a capture runs at when its config omits them: those of
+# jax.profiler.ProfileOptions(), so a plain `dyno gputrace` records what
+# it records of a JAX job (the JAX device tracer is always on).
+TRACER_LEVEL_KEYS = (
+    ("PROFILE_PYTHON_TRACER_LEVEL", "python_tracer_level"),
+    ("PROFILE_HOST_TRACER_LEVEL", "host_tracer_level"),
+    ("PROFILE_DEVICE_TRACER_LEVEL", "device_tracer_level"),
+)
+DEFAULT_TRACER_LEVELS = {"python_tracer_level": 1, "host_tracer_level": 2,
+                         "device_tracer_level": 1}
+
+
+def profile_options(levels: dict, cuda: bool) -> dict:
+    """torch.profiler.profile's keyword arguments for a capture at these
+    tracer levels, `cuda` saying whether a card is present: the host level
+    sets the CPU activity (1), input shapes (2), memory and module
+    hierarchy (3); the device level the CUDA activity; the Python level
+    with_stack, torch's Python tracer, which records only beside the CPU
+    activity."""
+    from torch.profiler import ProfilerActivity
+
+    host = levels["host_tracer_level"]
+    activities = []
+    if host >= 1:
+        activities.append(ProfilerActivity.CPU)
+    if levels["device_tracer_level"] >= 1 and cuda:
+        activities.append(ProfilerActivity.CUDA)
+    return {"activities": activities, "record_shapes": host >= 2,
+            "with_stack": levels["python_tracer_level"] >= 1,
+            "profile_memory": host >= 3, "with_modules": host >= 3}
+
+
+class CaptureKnobs:
+    """The per-capture knobs of the config text, parsed as the JAX
+    package's JaxProfiler.configure parses them. ``tracer_levels`` holds
+    the levels this capture's config set; ``levels`` the ones it runs at;
+    ``export_trace_json`` whether the capture gets its summary child."""
+
+    def __init__(self):
+        self.export_trace_json = True
+        self.tracer_levels: dict[str, int] = {}
+
+    def configure(self, raw: dict) -> None:
+        """Applies one capture's knobs. Absent keys revert to the
+        defaults, so no knob leaks into the next capture; a level that is
+        not an integer is ignored."""
+        self.tracer_levels = {}
+        self.export_trace_json = True
+        for key, attr in TRACER_LEVEL_KEYS:
+            if key in raw:
+                try:
+                    self.tracer_levels[attr] = int(raw[key])
+                except ValueError:
+                    pass
+        if "TRACE_JSON" in raw:
+            self.export_trace_json = raw["TRACE_JSON"].lower() not in (
+                "0", "false", "no")
+
+    @property
+    def levels(self) -> dict:
+        """The levels the capture runs at: the defaults, overridden by
+        the levels its config set (a negative one keeps the default, as
+        the CLI's -1 does)."""
+        return {**DEFAULT_TRACER_LEVELS,
+                **{k: v for k, v in self.tracer_levels.items() if v >= 0}}
+
+
+class _StepClock:
+    """The wall-clock times (epoch ns) of a capture's start, each step()
+    and its stop on the training thread. Span N runs from the N-th time
+    to the next, as torch.profiler's ProfilerStep#N spans do, so the
+    summarizer reads them alike: the last span, from the last step() to
+    the stop, is not a step."""
+
+    def __init__(self):
+        self.tid = threading.get_native_id()
+        self.times = [time.time_ns()]
+
+    def mark(self) -> None:
+        self.times.append(time.time_ns())
+
+    def events(self, base_ns: int) -> list[dict]:
+        """The spans as Chrome-trace events on a time base of `base_ns`
+        (a kineto trace's baseTimeNanoseconds: its ts plus the base is
+        epoch time in microseconds)."""
+        pid = os.getpid()
+        return [{"ph": "X", "cat": "user_annotation",
+                 "name": f"{trace.STEP_PREFIX}{n}", "pid": pid,
+                 "tid": self.tid, "ts": (t0 - base_ns) / 1e3,
+                 "dur": (t1 - t0) / 1e3, "args": {"source": "shim"}}
+                for n, (t0, t1) in enumerate(zip(self.times,
+                                                 self.times[1:]))]
+
+
+def _write_steps(tmp: str, clock: _StepClock) -> None:
+    """Adds the clock's step spans to the Chrome trace at `tmp`, or
+    writes a trace holding only them where the profiler wrote none."""
+    if os.path.exists(tmp):
+        with open(tmp) as f:
+            doc = json.load(f)
+    else:
+        doc = {"schemaVersion": 1, "traceEvents": [],
+               "displayTimeUnit": "ms",
+               "baseTimeNanoseconds": clock.times[0] // 10**9 * 10**9}
+    doc["traceEvents"].extend(clock.events(doc.get("baseTimeNanoseconds", 0)))
+    with open(tmp, "w") as f:
+        f.write(json.dumps(doc))  # one-shot: the C encoder
+
+
+class TorchProfiler(CaptureKnobs):
+    """Default profiler backend: a torch.profiler capture at the tracer
+    levels of the capture's config (``configure``; see profile_options).
 
     start(), step() and stop() must run on the training thread (the
     TraceClient calls them from its step()); export() may run on any
     thread after stop() — the TraceClient's poll thread calls it.
-    step() marks ProfilerStep#N spans in the trace."""
+    step() marks ProfilerStep#N spans in the trace: torch.profiler's own
+    where the host tracer runs; where it does not, torch records no span
+    and export() writes the training thread's step times as those spans.
+    With the host tracer off and no card, torch.profiler has nothing to
+    record: the trace then holds the steps alone."""
 
     def __init__(self):
+        super().__init__()
         self._prof = None
         self._stopped = None
-
-    @staticmethod
-    def _activities():
-        import torch
-        from torch.profiler import ProfilerActivity
-
-        acts = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(ProfilerActivity.CUDA)
-        return acts
+        self._clock: _StepClock | None = None
+        self._host_on = True
 
     def start(self, trace_dir: str) -> None:
+        import torch
         from torch.profiler import ProfilerAction, profile
 
-        # A schedule that always records is what makes step() emit the
-        # ProfilerStep#N spans; without one, profile.step() records none.
-        # No acc_events: with it, stop() parses every kineto event into
-        # FunctionEvents on the training thread, which nothing here reads
-        # (export() saves kineto's own results).
-        self._prof = profile(
-            activities=self._activities(),
-            record_shapes=True,
-            schedule=lambda _step: ProfilerAction.RECORD,
-        )
-        self._prof.start()
+        levels = self.levels
+        opts = profile_options(levels, torch.cuda.is_available())
+        if levels["host_tracer_level"] < 1 and levels[
+                "device_tracer_level"] < 1:
+            raise RuntimeError(
+                "no tracer left to run: PROFILE_HOST_TRACER_LEVEL=0 and "
+                "PROFILE_DEVICE_TRACER_LEVEL=0 leave torch.profiler no "
+                "activity")
+        self._host_on = levels["host_tracer_level"] >= 1
+        if opts["activities"]:
+            # A schedule that always records is what makes step() emit
+            # the ProfilerStep#N spans; without one, profile.step()
+            # records none. No acc_events: with it, stop() parses every
+            # kineto event into FunctionEvents on the training thread,
+            # which nothing here reads (export() saves kineto's own
+            # results).
+            self._prof = profile(
+                schedule=lambda _step: ProfilerAction.RECORD, **opts)
+            self._prof.start()
+        # Step 0 opens once the profiler records, as torch's span does.
+        self._clock = _StepClock()
 
     def step(self) -> None:
-        self._prof.step()
+        self._clock.mark()
+        if self._prof is not None:
+            self._prof.step()
 
     def stop(self) -> None:
         prof, self._prof = self._prof, None
-        prof.stop()
+        self._clock.mark()
+        if prof is not None:
+            prof.stop()
         self._stopped = prof
 
     def export(self, trace_dir: str) -> str:
@@ -529,13 +670,52 @@ class TorchProfiler:
         path = os.path.join(trace_dir, _unique_run_name() + TRACE_SUFFIX)
         tmp = path + ".tmp"
         try:
-            prof.export_chrome_trace(tmp)
+            if prof is not None:
+                prof.export_chrome_trace(tmp)
+            if not self._host_on:
+                _write_steps(tmp, self._clock)
             os.replace(tmp, path)
         finally:
             try:
                 os.unlink(tmp)  # no-op after a successful rename
             except OSError:
                 pass
+        return path
+
+
+class RecordingProfiler(CaptureKnobs):
+    """Test backend: records the shim's calls (``calls``: ("configure",
+    raw), ("start", trace_dir), ("step", None), ("stop", None),
+    ("export", trace_dir)) instead of tracing, and exports a trace that
+    holds only the ProfilerStep#N spans of the steps it saw, so a capture
+    completes with its manifest and summary."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls: list[tuple[str, object]] = []
+        self._clock: _StepClock | None = None
+
+    def configure(self, raw: dict) -> None:
+        self.calls.append(("configure", dict(raw)))
+        super().configure(raw)
+
+    def start(self, trace_dir: str) -> None:
+        self.calls.append(("start", trace_dir))
+        self._clock = _StepClock()
+
+    def step(self) -> None:
+        self.calls.append(("step", None))
+        self._clock.mark()
+
+    def stop(self) -> None:
+        self.calls.append(("stop", None))
+        self._clock.mark()
+
+    def export(self, trace_dir: str) -> str:
+        self.calls.append(("export", trace_dir))
+        path = os.path.join(trace_dir, _unique_run_name() + TRACE_SUFFIX)
+        _write_steps(path + ".tmp", self._clock)
+        os.replace(path + ".tmp", path)
         return path
 
 
@@ -924,6 +1104,10 @@ class TraceClient:
             except Exception as e:  # noqa: BLE001 - never costs the capture
                 _log.warning("artifact sweep of %s failed: %s", base, e)
         os.makedirs(trace_dir, exist_ok=True)
+        if hasattr(self.profiler, "configure"):
+            # This capture's knobs (tracer levels, TRACE_JSON), before its
+            # window is armed; unknown keys are ignored.
+            self.profiler.configure(cfg.raw)
         ctx = obs.TraceContext.parse(cfg.trace_ctx) or obs.TraceContext.mint()
         received_ms = int(time.time() * 1000)
         if cfg.start_time_ms > 0:
@@ -1030,7 +1214,8 @@ class TraceClient:
         self.last_manifest = manifest
         if wrote and not error:
             self.traces_completed += 1
-            self._spawn_summary(trace_file, ctx)
+            if getattr(self.profiler, "export_trace_json", True):
+                self._spawn_summary(trace_file, ctx)
         # Ship this capture's spans to the daemon (fire-and-forget).
         try:
             self._client.send_spans(obs.JOURNAL.drain(), dest=self.endpoint)

@@ -13,7 +13,9 @@ imports nothing of the JAX package:
 - ``SpanJournal`` / ``span()``: a bounded ring of completed spans plus a
   context manager that times a section and records it. The shim flushes
   the ring to the daemon over the fire-and-forget ``"span"`` IPC datagram,
-  so ``dyno selftrace`` shows the daemon's and the shim's spans together.
+  so ``dyno selftrace`` shows the daemon's and the shim's spans together;
+  ``SpanJournal.chrome_trace`` renders the ring as a Chrome trace, byte
+  for byte as the JAX package's journal does.
 - ``from_env`` / ``flush_spans`` / ``maybe_flush_env``: how a child process
   (the diagnose CLI, the shim's summary child) joins the request that
   started it. It reads its parent's context from ``$DYNO_TRACE_CTX`` and
@@ -112,6 +114,21 @@ class Span:
     dur_us: int
     pid: int = field(default_factory=os.getpid)
 
+    def chrome_event(self) -> dict:
+        return {
+            "name": self.name,
+            "ph": "X",
+            "ts": self.start_us,
+            "dur": self.dur_us,
+            "pid": self.pid,
+            "tid": self.pid,
+            "args": {
+                "trace_id": f"{self.trace_id:016x}",
+                "span_id": f"{self.span_id:016x}",
+                "parent_id": f"{self.parent_id:016x}",
+            },
+        }
+
 
 class SpanJournal:
     """Bounded ring of completed spans. Thread-safe; oldest entries are
@@ -133,10 +150,21 @@ class SpanJournal:
             if len(self._spans) > self._capacity:
                 del self._spans[: len(self._spans) - self._capacity]
 
+    def snapshot(self) -> list[Span]:
+        with self._lock:
+            return list(self._spans)
+
     def drain(self) -> list[Span]:
         with self._lock:
             spans, self._spans = self._spans, []
             return spans
+
+    def chrome_trace(self) -> dict:
+        """A valid Chrome-trace JSON document of the ring's contents
+        (chrome://tracing / Perfetto load it directly)."""
+        events = [s.chrome_event() for s in self.snapshot()]
+        events.sort(key=lambda e: e["ts"])
+        return {"displayTimeUnit": "ms", "traceEvents": events}
 
 
 #: Process-wide journal — the shim records here and drains it toward the

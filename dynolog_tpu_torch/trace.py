@@ -8,10 +8,14 @@ summarizer, so the diff and the diagnosis engine read either one:
 
 - every device's kernels, memcpys and memsets become one plane per device,
   ``/device:GPU:<n>``, with one line per stream;
-- the host's ``cpu_op`` events become the plane ``/host:CPU``, with one
-  line per thread;
+- the host's ``cpu_op`` events and the Python tracer's
+  ``python_function`` frames become the plane ``/host:CPU``, with one
+  line per thread, as the JAX package's host plane holds XLA's host
+  events and the Python frames on the line of the thread that ran them;
+  a frame's row is its whole name (``train.py(12): step``);
 - steps come from the ``ProfilerStep#N`` spans ``TraceClient.step()``
-  marks on the host. Only spans a later ``step()`` closed are steps; the
+  marks on the host (torch.profiler's, or the shim's own where the host
+  tracer was off). Only spans a later ``step()`` closed are steps; the
   last one runs from the last ``step()`` to ``stop()``. Where the device
   ran work launched inside a step's span, the step's time is the device's
   — from the first such kernel's start to the last one's end, the
@@ -226,6 +230,8 @@ def summarize_trace_events(events: list, group: bool = True
             shape = _input_shapes(args)
             if shape and "External id" in args:
                 shapes_by_ext[args["External id"]] = shape
+        elif cat == "python_function":
+            host_lines.setdefault(e.get("tid"), []).append(e)
         elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
             ext_by_corr[args["correlation"]] = args.get("External id")
             launches[args["correlation"]] = _ps(e.get("ts", 0))
@@ -254,7 +260,8 @@ def summarize_trace_events(events: list, group: bool = True
                 dur = _ps(e.get("dur", 0))
                 t0 = start if t0 is None else min(t0, start)
                 t1 = start + dur if t1 is None else max(t1, start + dur)
-                key = _op_key(e.get("name", ""), group)
+                key = (e.get("name", "") if e.get("cat") == "python_function"
+                       else _op_key(e.get("name", ""), group))
                 agg = p.ops.setdefault(key, OpAggregate(key))
                 agg.total_ps += dur
                 agg.count += 1

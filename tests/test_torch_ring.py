@@ -239,12 +239,14 @@ def test_trace_client_ring_via_poll_loop(tmp_path):
     """End to end through the real TraceClient: steps arm the ring, the
     poll thread arms a window, step() opens and closes torch.profiler on
     this (training) thread, and the poll thread promotes the trace."""
+    # The window records Python frames (the JAX capture's default levels),
+    # and on a CPU capture their rows outrank the ops: keep every row.
     client = TraceClient(
         job_id=7, endpoint=f"ring_test_{os.getpid()}", poll_interval_s=0.05,
         profiler=TorchProfiler(), report_interval_s=0,
         ring=RingConfig(every_n_steps=5, keep=2, window_ms=30,
                         dir=str(tmp_path / "ring"), model="m",
-                        min_interval_s=0.0))
+                        min_interval_s=0.0, top_ops=100_000))
     client._client = _NoDaemonIpc()
     client.start()
     a = torch.randn(32, 32)
