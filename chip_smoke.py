@@ -39,7 +39,9 @@ if any phase fails:
    a finding for each flash kernel;
 8. ring: a short run under the capture ring (RingConfig), whose stored
    profile names the three flash kernels and diagnoses against the
-   baseline;
+   baseline; the sample is a duration window on the shim's poll thread,
+   whose trace must hold the training thread's cpu_ops (the steps that
+   overlap its profiler stop are logged);
 9. exporter: NVML's snapshot for the daemon's file backend, read back
    through a second dynologd with `dyno query`;
 10. MoE trainer: the dense trainer freed, the MoE family at the same
@@ -64,9 +66,11 @@ if any phase fails:
    microbatches, on a one-rank NCCL mesh MeshSpec(pipe=1), trained under a
    capture that the port's unitrace (python -m
    dynolog_tpu_torch.cluster.unitrace --hosts localhost:<port>) triggers
-   in duration mode: the capture must begin at or after the
-   PROFILE_START_TIME unitrace printed and within one step of it, and its
-   summary must name the steps; its losses and per-leaf gradient norms
+   in duration mode (on the shim's poll thread): the capture must begin
+   at or after the PROFILE_START_TIME unitrace printed and within one
+   step of it, its trace must hold the training thread's cpu_ops and its
+   summary must name the steps (the steps that overlap its profiler stop
+   are logged); its losses and per-leaf gradient norms
    and projections are held against the dense trainer with reference
    attention on one process on the same batch;
 14. fleet straggler loop: the port's FleetRelay (durable acks) takes the
@@ -87,15 +91,27 @@ if any phase fails:
    at the default levels (the JAX capture's: Python frames, host ops
    with shapes, device), with --python_tracer_level=0,
    --host_tracer_level=0, --device_tracer_level=0, --host_tracer_level=3
-   and --notrace_json, and with the host and device tracers both off;
-   each capture's
-   timing, events by category, steps and flash rows are logged (and
-   each setting's median and range of stop, export and bytes), and
-   each must hold Python frames only with the Python and host tracers
-   on, cpu_ops only with the host tracer, kernels (and the three flash
-   kernels at their call counts) only with the device tracer, two steps,
-   a summary file unless --notrace_json, and, with no tracer left, an
-   error manifest naming both knobs;
+   and --notrace_json, with the host and device tracers both off, and
+   with all three tracers off; each capture's timing, events by
+   category, steps and flash rows are logged (and each setting's median
+   and range of stop, export and bytes), and each must hold Python
+   frames only with the Python tracer on (at host level 0 too, as in the
+   JAX capture), cpu_ops only with the host tracer, kernels (and the
+   three flash kernels at their call counts) only with the device
+   tracer, two steps, a summary file unless --notrace_json, and, with no
+   tracer left, an error manifest naming the three knobs;
+16. first capture and a step-less app: phase 4's trainer in fresh
+   processes (`chip_smoke.py --first-capture SPEC`), one at a time under
+   the one dynologd, (a) four with the shim's profiler warmup off and on
+   in turns, each taking 3 steps, then (with the warmup) training until
+   warmup_done, then captured twice through `dyno gputrace
+   --iterations=2`: each capture's profiler start, stop, export and
+   bytes, the warmup's own ms and the steps that overlapped it are
+   logged, and every manifest must be ok and name the three flash
+   kernels; (b) one whose loop never calls client.step(), captured
+   through `dyno gputrace --duration_ms=500`: an ok manifest whose trace
+   names the three flash kernels and holds the training thread's
+   cpu_ops, and a summary that names no step;
 
 then, with two cards or more, phase 10's model trained expert-parallel
 over NCCL (data x expert, one process per card) for two steps, held in
@@ -122,13 +138,15 @@ and the daemon, and runs phase 12 and the checks (a), (b), (d), (e) and
 The launch counters are zeroed just before each main path (phases 4-5,
 the dense trainer; phase 10, the MoE trainer; phase 12's ring run; phase
 13's pipeline run; phase 14's three trainers, each in its own process;
-phase 15's trainer; in each rank of a multi-card check, its steps) and
+phase 15's trainer; phase 16's processes, each from its start; in each
+rank of a multi-card check, its steps) and
 read just after; phases 7 and 8 drive the dense trainer again, each with
 the counters zeroed before it and read after it. The last lines are the
 card's name and power limit, a JSON object with one entry per kernel
 (launches: phases 4-5 and 10 together, and in launches_by_path each
 path's own: ring and pp (phase 13), whose plain products launch no
-kernel, fleet (phase 14's trainers together), knobs (phase 15), the
+kernel, fleet (phase 14's trainers together), knobs (phase 15),
+first_capture (phase 16's processes together), the
 expert-parallel ranks' total as moe_ep, the ranks' totals of (a), (b),
 (d), (e) and (c) as tp, moe_tp, sp, moe_sp and pp_mesh, or null where a
 check did not run), and {"ok": true, "device": ...}.
@@ -840,6 +858,27 @@ def wait_for(path: Path, deadline: float) -> bool:
     return path.exists()
 
 
+def stop_span(started_ms: float, timing: dict) -> tuple[float, float]:
+    """The wall-clock span (ms) of a capture's profiler stop, from its
+    start time and its manifest timing."""
+    t0 = (started_ms + timing.get("profiler_start_ms", 0)
+          + timing.get("window_ms", 0))
+    return t0, t0 + timing.get("profiler_stop_ms", 0)
+
+
+def overlapping(spans: list, t0_ms: float, t1_ms: float) -> list:
+    """The times (ms) of the steps whose wall-clock (begin, end) span in
+    ms meets [t0_ms, t1_ms]."""
+    return [round(e - b, 1) for b, e in spans if b < t1_ms and e > t0_ms]
+
+
+def thread_cpu_ops(trace_file: str, tid: int) -> int:
+    """The cpu_op events of thread `tid` in a Chrome trace."""
+    with open(trace_file) as f:
+        return sum(e.get("cat") == "cpu_op" and e.get("tid") == tid
+                   for e in json.load(f)["traceEvents"])
+
+
 def phase_summary(cap: dict, results: dict, n_layers: int) -> dict:
     """A capture (phase 5's, or phase 10's) through the port's
     summarizer, and the summary the shim's child wrote beside it; returns
@@ -985,7 +1024,10 @@ def phase_diagnosis(F, daemon, trainer, client, job_id: int, tmp: Path,
 
 def phase_ring(F, daemon, trainer, tmp: Path, base: Path) -> None:
     """A short run under the capture ring: a stored profile naming the
-    three flash kernels, diagnosable against the baseline."""
+    three flash kernels, diagnosable against the baseline. The sample is
+    a duration window on the shim's poll thread: its trace must hold the
+    training thread's cpu_ops (read before the ring deletes it), and the
+    steps that overlap its profiler stop are logged."""
     from dynolog_tpu_torch.client import RingConfig, TraceClient
 
     ring_dir = tmp / "ring"
@@ -994,21 +1036,40 @@ def phase_ring(F, daemon, trainer, tmp: Path, base: Path) -> None:
         poll_interval_s=0.2, report_interval_s=1.0,
         ring=RingConfig(every_n_steps=2, window_ms=200, min_interval_s=0,
                         dir=str(ring_dir)))
+    me, samples, take = threading.get_native_id(), [], client._ring_sample
+
+    def inspected(trace_dir: str):
+        t0 = time.time() * 1000
+        path, timing = take(trace_dir)
+        samples.append((t0, timing, thread_cpu_ops(path, me)))
+        return path, timing
+
+    client._ring_sample = inspected
     if not client.start():
         raise RuntimeError("the ring's shim could not register")
     F.reset_launches()
-    n, t0 = 0, time.time()
+    n, t0, spans = 0, time.time(), []
     try:
         while client.ring.captures == 0 and time.time() - t0 < 120:
+            b = time.time() * 1000
             trainer.step()
             client.step()
+            torch.cuda.synchronize()
+            spans.append((b, time.time() * 1000))
             n += 1
-        torch.cuda.synchronize()
     finally:
         client.stop()
     counts = dict(F.launches)
     if client.ring.captures == 0:
         raise AssertionError(f"no ring profile: {client.ring.last_error}")
+    for started, timing, cpu_ops in samples:
+        log(f"  ring sample: {cpu_ops} training-thread cpu_ops; stop "
+            f"{timing.get('profiler_stop_ms')} ms, overlapping steps "
+            f"{overlapping(spans, *stop_span(started, timing))} ms against "
+            f"the run's median {statistics.median(e - b for b, e in spans):.1f}")
+        if not cpu_ops:
+            raise AssertionError("a ring sample's trace holds no cpu_op of "
+                                 "the training thread")
     for name, count in counts.items():
         if count < trainer.cfg.n_layers * n:
             raise AssertionError(f"{name} launched {count} times in {n} "
@@ -1509,9 +1570,10 @@ def _pipe_rank(rank: int, world: int, cfg, spec: dict, rows: int,
     rank's TraceClient registers with its own daemon (endpoints[rank]),
     rank 0 runs the port's unitrace over every daemon (ports) after the
     first step, and the ranks train on, in step, until every rank's
-    capture has completed. Each rank then also returns its manifest and
-    the wall-clock ms at which each of its client.step() calls began;
-    rank 0 returns unitrace's exit code and output. Off the card
+    capture has completed. Each rank then also returns its manifest, the
+    wall-clock ms at which each of its client.step() calls began, each
+    step's wall-clock (begin, end) ms and its training thread's id; rank
+    0 returns unitrace's exit code and output. Off the card
     (`device`) the times are the host's and the peak is None."""
     import torch.distributed as dist
 
@@ -1540,7 +1602,7 @@ def _pipe_rank(rank: int, world: int, cfg, spec: dict, rows: int,
             raise RuntimeError(f"rank {rank}'s shim could not register")
         dist.barrier()  # every shim registered before the trigger
     F.reset_launches()
-    losses, leaves, step_ms, peaks, marks = [], {}, [], [], []
+    losses, leaves, step_ms, peaks, marks, spans = [], {}, [], [], [], []
     flag = torch.zeros((), dtype=torch.int32, device=device)
     deadline = time.time() + 180
     try:
@@ -1548,9 +1610,10 @@ def _pipe_rank(rank: int, world: int, cfg, spec: dict, rows: int,
             if cuda:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
+            t0, wall = time.perf_counter(), time.time() * 1000
             losses.append(float(step(params, opt, tokens)))
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            spans.append((wall, wall + step_ms[-1]))
             if cuda:
                 peaks.append(torch.cuda.max_memory_allocated() / 2**30)
             for n, path, leaf in (named_leaves(params, first)
@@ -1594,7 +1657,8 @@ def _pipe_rank(rank: int, world: int, cfg, spec: dict, rows: int,
         if client.traces_completed < 1:
             raise RuntimeError(f"rank {rank}: no capture in {len(losses)} "
                                f"steps: {client.last_error}")
-        got.update(manifest=client.last_manifest, marks=marks)
+        got.update(manifest=client.last_manifest, marks=marks, spans=spans,
+                   tid=threading.get_native_id())
     if unitrace is not None:
         got["unitrace"] = (unitrace.returncode, out)
     return got
@@ -1649,9 +1713,11 @@ def check_pipe_capture(ranks: list, n_hosts: int) -> list:
     """Failure messages for the capture of a pipeline run: unitrace must
     have triggered every host, every rank's manifest must carry the start
     time unitrace printed, its window must open at or after it and within
-    one step of it, its summary must name the steps and, with more than
-    one stage, its trace must hold the handoffs' NCCL send/recv
-    kernels."""
+    one step of it, its trace must hold the training thread's cpu_ops
+    (the window runs on the shim's poll thread), its summary must name
+    the steps and, with more than one stage, its trace must hold the
+    handoffs' NCCL send/recv kernels. Logs the steps that overlap each
+    rank's profiler stop."""
     from dynolog_tpu_torch import trace
 
     rc, out = ranks[0]["unitrace"]
@@ -1668,6 +1734,15 @@ def check_pipe_capture(ranks: list, n_hosts: int) -> list:
         summary = trace.summarize(m["trace_file"], group=False)
         steps = summary.get("steps", {})
         split = trace_split(m["trace_file"], steps.get("count", 0))
+        cpu_ops = thread_cpu_ops(m["trace_file"], got["tid"])
+        log(f"  rank {r}: {cpu_ops} training-thread cpu_ops; stop "
+            f"{m['timing'].get('profiler_stop_ms')} ms, overlapping steps "
+            f"{overlapping(got['spans'], *stop_span(m['started_ms'], m['timing']))}"
+            f" ms against the median "
+            f"{statistics.median(e - b for b, e in got['spans']):.1f}")
+        if not cpu_ops:
+            failures.append(f"rank {r}'s trace holds no cpu_op of its "
+                            "training thread")
         log(f"  rank {r}: capture {m['status']}, PROFILE_START_TIME "
             f"{m['config'].get('PROFILE_START_TIME')}, began "
             f"{m['started_ms'] - start} ms after it, at step {opened + 1} of "
@@ -2174,7 +2249,9 @@ KNOB_CAPTURES = {
     "device_0": ["--device_tracer_level=0"],
     "host_3": ["--host_tracer_level=3"],
     "notrace_json": ["--notrace_json"],
-    "no_tracer": ["--host_tracer_level=0", "--device_tracer_level=0"],
+    "python_only": ["--host_tracer_level=0", "--device_tracer_level=0"],
+    "no_tracer": ["--python_tracer_level=0", "--host_tracer_level=0",
+                  "--device_tracer_level=0"],
 }
 KNOB_ROUNDS = 3  # captures of each entry: a stop's spread is tens of ms
 KNOB_FLAGS = {"--python_tracer_level": "python_tracer_level",
@@ -2182,12 +2259,14 @@ KNOB_FLAGS = {"--python_tracer_level": "python_tracer_level",
               "--device_tracer_level": "device_tracer_level"}
 
 
-def dyno_gputrace(daemon, job_id: int, log_file: str, flags: list) -> str:
-    """Runs the dyno CLI's gputrace against `daemon`; returns its output."""
+def dyno_gputrace(port: int, job_id: int, log_file: str, flags: list,
+                  window: str = f"--iterations={ITERATIONS}") -> str:
+    """Runs the dyno CLI's gputrace against the dynologd at `port` for a
+    window of ITERATIONS steps (or `window`); returns its output."""
     out = subprocess.run(
-        [str(BIN_DIR / "dyno"), "--hostname=localhost",
-         f"--port={daemon.port}", "gputrace", f"--job_id={job_id}",
-         f"--iterations={ITERATIONS}", f"--log_file={log_file}", *flags],
+        [str(BIN_DIR / "dyno"), "--hostname=localhost", f"--port={port}",
+         "gputrace", f"--job_id={job_id}", window, f"--log_file={log_file}",
+         *flags],
         capture_output=True, text=True, timeout=60)
     if out.returncode != 0 or "Matched 1 processes" not in out.stdout:
         raise RuntimeError(f"dyno gputrace {flags}: rc {out.returncode}: "
@@ -2198,17 +2277,17 @@ def dyno_gputrace(daemon, job_id: int, log_file: str, flags: list) -> str:
 def knob_check(name: str, levels: dict, trace_json: bool, manifest: dict,
                summary: dict, cats: dict) -> list[str]:
     """What a capture at these levels must hold: Python frames only with
-    the Python and host tracers on (torch traces Python beside the CPU
-    activity alone), cpu_ops only with the host tracer, kernels only with
-    the device tracer, the three flash kernels at their call counts and
-    the window's steps wherever a tracer ran."""
+    the Python tracer on (at host level 0 too, as in the JAX capture),
+    cpu_ops only with the host tracer, kernels only with the device
+    tracer, the three flash kernels at their call counts and the window's
+    steps wherever a tracer ran."""
     python, host, device = (levels["python_tracer_level"],
                             levels["host_tracer_level"],
                             levels["device_tracer_level"])
     failures = []
     if manifest["status"] != "ok":
         return [f"{name}: manifest {manifest.get('error')}"]
-    if ("python_function" in cats) != (python >= 1 and host >= 1):
+    if ("python_function" in cats) != (python >= 1):
         failures.append(f"{name}: {cats.get('python_function')} "
                         "python_function events")
     if ("cpu_op" in cats) != (host >= 1):
@@ -2244,7 +2323,7 @@ def phase_knobs(F, daemon, smi: str) -> dict:
     CLI, so the CLI's config text reaches the shim. Each capture's timing,
     events by category, steps, flash rows and summary file are logged and
     checked (knob_check; no summary file with --notrace_json; an error
-    manifest naming both knobs when no tracer is left), then each
+    manifest naming the three knobs when no tracer is left), then each
     setting's median and range of stop, export and bytes. Returns the
     kernels' launches."""
     from dynolog_tpu_torch import trace
@@ -2277,7 +2356,7 @@ def phase_knobs(F, daemon, smi: str) -> dict:
                 trace_json = "--notrace_json" not in flags
                 log_file = str(tmp / f"{name}_{rnd}.json")
                 prev = client.last_manifest
-                dyno_gputrace(daemon, job_id, log_file, flags)
+                dyno_gputrace(daemon.port, job_id, log_file, flags)
                 deadline = time.time() + 120
                 while (client.last_manifest is prev
                        and time.time() < deadline):
@@ -2286,12 +2365,12 @@ def phase_knobs(F, daemon, smi: str) -> dict:
                     n_steps += 1
                 torch.cuda.synchronize()
                 manifest = json.loads(manifest_path(log_file).read_text())
-                if levels["host_tracer_level"] < 1 and levels[
-                        "device_tracer_level"] < 1:
+                if max(levels.values()) < 1:
                     error = manifest.get("error", "")
                     log(f"  {smi}: {name} {flags}: status "
                         f"{manifest['status']}, error {error!r}")
-                    knobs = ("PROFILE_HOST_TRACER_LEVEL=0",
+                    knobs = ("PROFILE_PYTHON_TRACER_LEVEL=0",
+                             "PROFILE_HOST_TRACER_LEVEL=0",
                              "PROFILE_DEVICE_TRACER_LEVEL=0")
                     if manifest["status"] != "error" or not all(
                             k in error for k in knobs):
@@ -2362,6 +2441,171 @@ def phase_knobs(F, daemon, smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase 16
+
+# Phase 16: phase 4's dense trainer in fresh processes, one at a time,
+# under the one dynologd: FIRST_CAPTURE_RUNS alternate the shim's profiler
+# warmup off and on (two iteration captures each), then one process that
+# never calls client.step(), captured in duration mode.
+FIRST_CAPTURE_RUNS = (False, True, False, True)  # warmup_profiler
+FIRST_CAPTURE_WARM_STEPS = 3
+WARMUP_WAIT_S = 120  # as bench.py waits on warmup_done
+STEPLESS_MS = 500
+TIMING_KEYS = ("profiler_start_ms", "window_ms", "profiler_stop_ms",
+               "export_ms", "trace_bytes")
+
+
+def first_capture_trainer(spec: dict) -> int:
+    """`chip_smoke.py --first-capture SPEC`: one process of phase 16. The
+    dense flash trainer takes FIRST_CAPTURE_WARM_STEPS uncaptured steps,
+    starts a TraceClient (spec["warmup"]: warmup_profiler) on the
+    dynologd at spec["endpoint"] and trains until warmup_done, then is
+    captured through the dyno CLI: twice for ITERATIONS steps, or, with
+    spec["stepless"], once for STEPLESS_MS while it never calls
+    client.step(). Writes the warmup's timing, the steps that overlapped
+    it, each capture's timing and what its trace holds, and the launches
+    to spec["result"]."""
+    from dynolog_tpu_torch import trace
+    from dynolog_tpu_torch.client import TraceClient
+
+    F = importlib.import_module("dynolog_tpu_torch.ops.flash_attention")
+    trainer = Trainer(dense_config())
+    me, spans, stepless = threading.get_native_id(), [], spec["stepless"]
+
+    def timed_step(client=None) -> None:
+        b = time.time() * 1000
+        trainer.step()
+        if client is not None:
+            client.step()
+        torch.cuda.synchronize()
+        spans.append((b, time.time() * 1000))
+
+    def facts(m: dict) -> dict:
+        out = {"status": m["status"], "error": m.get("error"),
+               "mode": m["mode"],
+               "timing": {k: m["timing"].get(k) for k in TIMING_KEYS}}
+        if m["status"] != "ok":
+            return out
+        with open(m["trace_file"]) as f:
+            kernels = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+        out.update(
+            flash={name: any(f"flash_tc::{name}_kernel" in k for k in kernels)
+                   for name in F.launches},
+            cpu_ops=thread_cpu_ops(m["trace_file"], me),
+            steps=trace.summarize(m["trace_file"]).get("steps"),
+            stop_overlap=overlapping(spans, *stop_span(m["started_ms"],
+                                                       m["timing"])))
+        return out
+
+    F.reset_launches()
+    for _ in range(FIRST_CAPTURE_WARM_STEPS):
+        timed_step()
+    client = TraceClient(job_id=spec["job_id"], endpoint=spec["endpoint"],
+                         poll_interval_s=0.2, report_interval_s=1.0,
+                         warmup_profiler=spec["warmup"])
+    stepper = None if stepless else client
+    if not client.start():
+        raise RuntimeError("the shim could not register with dynologd")
+    captures = []
+    try:
+        n0, deadline = len(spans), time.time() + WARMUP_WAIT_S
+        while not client.warmup_done.is_set():
+            if time.time() > deadline:
+                raise RuntimeError(f"no warmup_done in {WARMUP_WAIT_S} s")
+            timed_step(stepper)
+        during = [round(e - b, 1) for b, e in spans[n0:]]
+        for i in range(1 if stepless else 2):
+            log_file = f"{spec['tmp']}/first_{spec['run']}_{i}.json"
+            prev = client.last_manifest
+            dyno_gputrace(spec["port"], spec["job_id"], log_file, [],
+                          f"--duration_ms={STEPLESS_MS}" if stepless
+                          else f"--iterations={ITERATIONS}")
+            deadline = time.time() + 120
+            while client.last_manifest is prev and time.time() < deadline:
+                timed_step(stepper)
+            captures.append(facts(json.loads(
+                manifest_path(log_file).read_text())))
+    finally:
+        client.stop()
+        for proc in client.summary_procs:
+            proc.wait(timeout=120)
+    Path(spec["result"]).write_text(json.dumps({
+        "warmup_timing": client.warmup_timing, "during_warmup": during,
+        "uncaptured_ms": round(spans[FIRST_CAPTURE_WARM_STEPS - 1][1]
+                               - spans[FIRST_CAPTURE_WARM_STEPS - 1][0], 1),
+        "captures": captures, "steps": len(spans),
+        "launches": dict(F.launches), "last_error": client.last_error}))
+    return 0
+
+
+def phase_first_capture(daemon, smi: str) -> dict:
+    """Phase 16: (a) fresh processes of phase 4's trainer, warmup off and
+    on in turns (FIRST_CAPTURE_RUNS), each captured twice through `dyno
+    gputrace --iterations`: every manifest ok and naming the three flash
+    kernels; each capture's profiler start, stop, export and bytes, the
+    warmup's own ms and the steps that overlapped it are logged. (b) A
+    process that never calls client.step(), captured with `dyno gputrace
+    --duration_ms`: an ok manifest whose trace names the three flash
+    kernels and holds the training thread's cpu_ops, and a summary with
+    no steps. Returns the processes' launches together."""
+    tmp = Path(tempfile.mkdtemp(prefix="dynotpu_first_"))
+    runs = [(w, False) for w in FIRST_CAPTURE_RUNS] + [(True, True)]
+    launches: dict = {}
+    failures, firsts = [], {False: [], True: []}
+    try:
+        for run, (warmup, stepless) in enumerate(runs):
+            spec = {"run": run, "warmup": warmup, "stepless": stepless,
+                    "job_id": 7000 + 10 * (os.getpid() % 100) + run,
+                    "endpoint": daemon.endpoint, "port": daemon.port,
+                    "tmp": str(tmp),
+                    "result": str(tmp / f"run{run}.result.json")}
+            proc = subprocess.run(
+                [sys.executable, str(REPO / "chip_smoke.py"),
+                 "--first-capture", json.dumps(spec)], cwd=REPO, timeout=300)
+            if proc.returncode != 0:
+                raise RuntimeError(f"run {run}'s trainer exited "
+                                   f"{proc.returncode}")
+            got = json.loads(Path(spec["result"]).read_text())
+            for k, v in got["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+                if v < N_LAYERS * got["steps"]:
+                    failures.append(f"run {run}: {k} launched {v} times in "
+                                    f"{got['steps']} steps")
+            kind = "stepless" if stepless else "iterations"
+            log(f"  {smi}: run {run} ({kind}, warmup_profiler={warmup}): "
+                f"warmup {got['warmup_timing']}; steps during it "
+                f"{got['during_warmup']} ms against the uncaptured "
+                f"{got['uncaptured_ms']} ms; last_error {got['last_error']}")
+            if warmup and not got["warmup_timing"]:
+                failures.append(f"run {run}: the warmup did not run: "
+                                f"{got['last_error']}")
+            for i, cap in enumerate(got["captures"]):
+                log(f"  run {run} capture {i + 1}: {cap['status']} "
+                    f"({cap['mode']}); timing {cap['timing']}; flash "
+                    f"{cap.get('flash')}; {cap.get('cpu_ops')} training-"
+                    f"thread cpu_ops; steps {cap.get('steps')}; steps "
+                    f"overlapping the stop {cap.get('stop_overlap')} ms")
+                if cap["status"] != "ok" or not all(cap["flash"].values()):
+                    failures.append(f"run {run} capture {i + 1}: {cap}")
+                    continue
+                if not stepless:
+                    firsts[warmup].append(
+                        (cap["timing"]["profiler_start_ms"], i))
+                elif cap["mode"] != "duration" or not cap["cpu_ops"] or (
+                        cap["steps"] is not None):
+                    failures.append(f"stepless capture: {cap}")
+        for warmup, starts in firsts.items():
+            log(f"  {smi}: warmup_profiler={warmup}: profiler_start_ms of "
+                f"the first captures {[ms for ms, i in starts if i == 0]}, "
+                f"of the second {[ms for ms, i in starts if i == 1]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError("\n".join(failures))
+    return launches
+
+
 def main_alone(_build, mode: str) -> int:
     """`chip_smoke.py --ep` (two cards or more): the kernels built and the
     expert-parallel check alone. `chip_smoke.py --mesh` (four cards or
@@ -2415,6 +2659,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--fleet-trainer"] and len(sys.argv) == 3:
         return fleet_trainer(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--first-capture"] and len(sys.argv) == 3:
+        return first_capture_trainer(json.loads(sys.argv[2]))
     if sys.argv[1:] in (["--ep"], ["--mesh"]):
         return main_alone(_build, sys.argv[1])
     if sys.argv[1:]:
@@ -2504,6 +2750,8 @@ def main() -> int:
                                          "7": b2_latency_ms / 1000})
         log("phase 15: capture knobs through dyno gputrace")
         knob_counts = phase_knobs(F, daemon, smi)
+        log("phase 16: first capture and a step-less app")
+        first_counts = phase_first_capture(daemon, smi)
         log("multi-card expert parallelism")
         ep_counts = phase_multicard_ep()
         log("multi-card tensor, sequence and expert parallelism")
@@ -2531,6 +2779,7 @@ def main() -> int:
                 "ring": ring["launches"][name],
                 "pp": pipe["launches"][name], "fleet": fleet_counts[name],
                 "knobs": knob_counts[name],
+                "first_capture": first_counts[name],
                 "moe_ep": ep_counts and ep_counts[name],
                 **{path: mesh_counts[path][name] if mesh_counts else None
                    for path in MESH_CASES},

@@ -11,16 +11,22 @@ Chrome-trace JSON, with a manifest next to it. If the app calls step(),
 the shim also reports step rate and step-time percentiles to the daemon
 ("pstat").
 
-The one design divergence from the JAX shim: torch.profiler records the
-CPU ops of the thread that starts it, and kineto insists that start and
-stop happen on one thread. So the capture cannot run on the poll thread.
-The poll thread receives and parses the config and *arms* a window; the
-training thread's next ``step()`` starts the profiler, and the ``step()``
-at which the window ends (duration or iterations) stops it. The poll
-thread then exports the trace and writes the manifest, and a child process
-at low priority writes the trace's summary (``<run>.summary.json``) beside
-it. An app that never calls ``step()`` can register and report, but cannot
-be traced.
+A duration capture runs on the poll thread, as in the JAX shim: it starts
+the profiler there with ``profile_all_threads`` (torch.profiler otherwise
+records the CPU ops of the starting thread only), sleeps the window and
+stops it, so an app that never calls ``step()`` is traced too; the
+``step()`` calls that fall in the window only mark its ProfilerStep#N
+spans. An iteration capture's edges are steps: the poll thread *arms* a
+window, the training thread's ``step()`` at its first iteration starts the
+profiler and the ``step()`` at its end stops it. Either way the poll
+thread then exports the trace and writes the manifest, and a child
+process at low priority writes the trace's summary
+(``<run>.summary.json``) beside it.
+
+``TraceClient(warmup_profiler=True)`` pays the profiler's one-time
+start-up cost with a throwaway start/stop on the poll thread before its
+first poll, and sets ``warmup_done`` when it is over (at once without a
+warmup), so the first capture starts as fast as later ones.
 
 The continuous-capture ring (``CaptureRing``, opted into with
 ``DYNO_TPU_RING_EVERY_N`` or ``ring=RingConfig(...)``) samples a short
@@ -43,11 +49,14 @@ for one capture only; an absent key is the JAX capture's default
 
     PROFILE_PYTHON_TRACER_LEVEL=<n>   0 no Python frames; >=1 with_stack
                                       (torch traces Python only beside
-                                      the host tracer)
-    PROFILE_HOST_TRACER_LEVEL=<n>     0 no CPU activity (the shim then
-                                      writes the ProfilerStep#N spans
-                                      itself); 1 CPU ops; 2 with input
-                                      shapes; 3 also memory and modules
+                                      the CPU activity, which then runs
+                                      at host level 0 too)
+    PROFILE_HOST_TRACER_LEVEL=<n>     0 no host ops (the export drops
+                                      the CPU activity's ops and the
+                                      shim writes the ProfilerStep#N
+                                      spans itself); 1 CPU ops; 2 with
+                                      input shapes; 3 also memory and
+                                      modules
     PROFILE_DEVICE_TRACER_LEVEL=<n>   0 no CUDA activity; >=1 CUDA where a
                                       card is present
     TRACE_JSON=0                      no summary child (the trace and its
@@ -61,7 +70,7 @@ Usage::
     client.start()
     for batch in data:
         train_step(batch)
-        client.step()   # required: captures start and stop here
+        client.step()   # iteration captures start and stop here
 """
 
 from __future__ import annotations
@@ -201,6 +210,38 @@ def sweep_stale_artifacts(
             if (sep and head == prefix and pid_part.isdigit()
                     and not _pid_alive(int(pid_part))):
                 _reclaim(path, cutoff, reclaimed)
+    return reclaimed
+
+
+WARMUP_PREFIX = "dynolog_tpu_torch_warmup_"
+
+
+def _sweep_warmup_dirs(ttl_s: float) -> list[str]:
+    """Startup sweep of SIGKILL'd warmup leftovers in the system tempdir
+    (WARMUP_PREFIX dirs are created per process and removed in a finally:
+    only a killed process leaves one behind). The JAX package's warmup
+    dirs carry another prefix: neither sweep touches the other's."""
+    if ttl_s <= 0:
+        return []
+    cutoff = time.time() - ttl_s
+    reclaimed = []
+    tmpdir = tempfile.gettempdir()
+    try:
+        entries = os.listdir(tmpdir)
+    except OSError:
+        return []
+    for name in entries:
+        if not name.startswith(WARMUP_PREFIX):
+            continue
+        path = os.path.join(tmpdir, name)
+        try:
+            if not os.path.isdir(path) or os.path.getmtime(path) >= cutoff:
+                continue
+        except OSError:
+            continue
+        shutil.rmtree(path, ignore_errors=True)
+        _log.info("reclaimed stale warmup dir: %s", path)
+        reclaimed.append(path)
     return reclaimed
 
 
@@ -513,19 +554,21 @@ def profile_options(levels: dict, cuda: bool) -> dict:
     tracer levels, `cuda` saying whether a card is present: the host level
     sets the CPU activity (1), input shapes (2), memory and module
     hierarchy (3); the device level the CUDA activity; the Python level
-    with_stack, torch's Python tracer, which records only beside the CPU
-    activity."""
+    with_stack, torch's Python tracer. That tracer records only beside the
+    CPU activity, so at host level 0 the CPU activity runs for the Python
+    frames alone, and the export drops its host ops (_write_steps)."""
     from torch.profiler import ProfilerActivity
 
     host = levels["host_tracer_level"]
+    python = levels["python_tracer_level"] >= 1
     activities = []
-    if host >= 1:
+    if host >= 1 or python:
         activities.append(ProfilerActivity.CPU)
     if levels["device_tracer_level"] >= 1 and cuda:
         activities.append(ProfilerActivity.CUDA)
     return {"activities": activities, "record_shapes": host >= 2,
-            "with_stack": levels["python_tracer_level"] >= 1,
-            "profile_memory": host >= 3, "with_modules": host >= 3}
+            "with_stack": python, "profile_memory": host >= 3,
+            "with_modules": host >= 3}
 
 
 class CaptureKnobs:
@@ -564,17 +607,23 @@ class CaptureKnobs:
 
 
 class _StepClock:
-    """The wall-clock times (epoch ns) of a capture's start, each step()
-    and its stop on the training thread. Span N runs from the N-th time
+    """The wall-clock times (epoch ns) of a capture's step() calls and its
+    stop, and the thread that called step(). Span N runs from the N-th time
     to the next, as torch.profiler's ProfilerStep#N spans do, so the
     summarizer reads them alike: the last span, from the last step() to
-    the stop, is not a step."""
+    the stop, is not a step. A window that step() opens (an iteration
+    capture) counts its start as the first time; one that the poll thread
+    opens starts mid-step, so its first span opens at its first step()."""
 
-    def __init__(self):
+    def __init__(self, at_step: bool = True):
         self.tid = threading.get_native_id()
-        self.times = [time.time_ns()]
+        self.times = [time.time_ns()] if at_step else []
 
     def mark(self) -> None:
+        self.tid = threading.get_native_id()
+        self.times.append(time.time_ns())
+
+    def close(self) -> None:
         self.times.append(time.time_ns())
 
     def events(self, base_ns: int) -> list[dict]:
@@ -590,12 +639,26 @@ class _StepClock:
                                                  self.times[1:]))]
 
 
-def _write_steps(tmp: str, clock: _StepClock) -> None:
-    """Adds the clock's step spans to the Chrome trace at `tmp`, or
-    writes a trace holding only them where the profiler wrote none."""
+# What a capture at host level 0 drops from its trace, where the CPU
+# activity ran for the Python tracer alone: torch's host ops, the
+# autograd flows between them, and its own annotations (the
+# ProfilerStep#N spans among them, and their projection onto the device
+# timeline).
+HOST_OP_CATEGORIES = ("cpu_op", "fwdbwd", "user_annotation",
+                      "gpu_user_annotation")
+
+
+def _write_steps(tmp: str, clock: _StepClock, drop_host: bool = False
+                 ) -> None:
+    """Adds the clock's step spans to the Chrome trace at `tmp`, without
+    the host ops where `drop_host`, or writes a trace holding only them
+    where the profiler wrote none."""
     if os.path.exists(tmp):
         with open(tmp) as f:
             doc = json.load(f)
+        if drop_host:
+            doc["traceEvents"] = [e for e in doc["traceEvents"]
+                                  if e.get("cat") not in HOST_OP_CATEGORIES]
     else:
         doc = {"schemaVersion": 1, "traceEvents": [],
                "displayTimeUnit": "ms",
@@ -609,14 +672,17 @@ class TorchProfiler(CaptureKnobs):
     """Default profiler backend: a torch.profiler capture at the tracer
     levels of the capture's config (``configure``; see profile_options).
 
-    start(), step() and stop() must run on the training thread (the
-    TraceClient calls them from its step()); export() may run on any
-    thread after stop() — the TraceClient's poll thread calls it.
-    step() marks ProfilerStep#N spans in the trace: torch.profiler's own
-    where the host tracer runs; where it does not, torch records no span
-    and export() writes the training thread's step times as those spans.
-    With the host tracer off and no card, torch.profiler has nothing to
-    record: the trace then holds the steps alone."""
+    An iteration capture's start(), step() and stop() run on the training
+    thread (the TraceClient calls them from its step()), and step() marks
+    torch.profiler's own ProfilerStep#N spans. A capture the poll thread
+    opens (``start(trace_dir, all_threads=True)``: a duration window, the
+    warmup) records every thread's ops (``profile_all_threads``) and is
+    stopped on the poll thread; the training thread's step() then only
+    marks the step times, and export() writes them as those spans on its
+    thread. export() may run on any thread after stop() — the
+    TraceClient's poll thread calls it. At host level 0 export() drops the
+    host ops and writes the steps too. With every tracer off, start()
+    raises."""
 
     def __init__(self):
         super().__init__()
@@ -624,41 +690,48 @@ class TorchProfiler(CaptureKnobs):
         self._stopped = None
         self._clock: _StepClock | None = None
         self._host_on = True
+        self._all_threads = False
 
-    def start(self, trace_dir: str) -> None:
+    def start(self, trace_dir: str, all_threads: bool = False) -> None:
         import torch
         from torch.profiler import ProfilerAction, profile
 
         levels = self.levels
-        opts = profile_options(levels, torch.cuda.is_available())
-        if levels["host_tracer_level"] < 1 and levels[
-                "device_tracer_level"] < 1:
+        if max(levels.values()) < 1:
             raise RuntimeError(
-                "no tracer left to run: PROFILE_HOST_TRACER_LEVEL=0 and "
-                "PROFILE_DEVICE_TRACER_LEVEL=0 leave torch.profiler no "
-                "activity")
+                "no tracer left to run: PROFILE_PYTHON_TRACER_LEVEL=0, "
+                "PROFILE_HOST_TRACER_LEVEL=0 and PROFILE_DEVICE_TRACER_LEVEL=0"
+                " leave torch.profiler no activity")
+        opts = profile_options(levels, torch.cuda.is_available())
         self._host_on = levels["host_tracer_level"] >= 1
+        self._all_threads = all_threads
         if opts["activities"]:
-            # A schedule that always records is what makes step() emit
-            # the ProfilerStep#N spans; without one, profile.step()
-            # records none. No acc_events: with it, stop() parses every
-            # kineto event into FunctionEvents on the training thread,
-            # which nothing here reads (export() saves kineto's own
-            # results).
-            self._prof = profile(
-                schedule=lambda _step: ProfilerAction.RECORD, **opts)
+            if all_threads:
+                from torch._C._profiler import _ExperimentalConfig
+
+                opts["experimental_config"] = _ExperimentalConfig(
+                    profile_all_threads=True)
+            else:
+                # A schedule that always records is what makes step()
+                # emit the ProfilerStep#N spans; without one,
+                # profile.step() records none. No acc_events: with it,
+                # stop() parses every kineto event into FunctionEvents on
+                # the training thread, which nothing here reads (export()
+                # saves kineto's own results).
+                opts["schedule"] = lambda _step: ProfilerAction.RECORD
+            self._prof = profile(**opts)
             self._prof.start()
-        # Step 0 opens once the profiler records, as torch's span does.
-        self._clock = _StepClock()
+        # The first span opens once the profiler records, as torch's does.
+        self._clock = _StepClock(at_step=not all_threads)
 
     def step(self) -> None:
         self._clock.mark()
-        if self._prof is not None:
+        if self._prof is not None and not self._all_threads:
             self._prof.step()
 
     def stop(self) -> None:
         prof, self._prof = self._prof, None
-        self._clock.mark()
+        self._clock.close()
         if prof is not None:
             prof.stop()
         self._stopped = prof
@@ -672,8 +745,8 @@ class TorchProfiler(CaptureKnobs):
         try:
             if prof is not None:
                 prof.export_chrome_trace(tmp)
-            if not self._host_on:
-                _write_steps(tmp, self._clock)
+            if self._all_threads or not self._host_on:
+                _write_steps(tmp, self._clock, drop_host=not self._host_on)
             os.replace(tmp, path)
         finally:
             try:
@@ -699,9 +772,9 @@ class RecordingProfiler(CaptureKnobs):
         self.calls.append(("configure", dict(raw)))
         super().configure(raw)
 
-    def start(self, trace_dir: str) -> None:
+    def start(self, trace_dir: str, all_threads: bool = False) -> None:
         self.calls.append(("start", trace_dir))
-        self._clock = _StepClock()
+        self._clock = _StepClock(at_step=not all_threads)
 
     def step(self) -> None:
         self.calls.append(("step", None))
@@ -709,7 +782,7 @@ class RecordingProfiler(CaptureKnobs):
 
     def stop(self) -> None:
         self.calls.append(("stop", None))
-        self._clock.mark()
+        self._clock.close()
 
     def export(self, trace_dir: str) -> str:
         self.calls.append(("export", trace_dir))
@@ -720,28 +793,27 @@ class RecordingProfiler(CaptureKnobs):
 
 
 class _Window:
-    """One armed capture, handed from the poll thread to the training
-    thread. State moves armed -> active -> stopped on the training thread;
-    the poll thread may cancel an armed window or abandon an active one.
-    Every transition happens under the client's step condition."""
+    """One capture window. An iteration window is armed by the poll
+    thread and opened and closed by the training thread's step(): its
+    state moves armed -> active -> stopped there, and the poll thread may
+    cancel an armed window or abandon an active one. A duration window
+    (end_at None) is opened and closed by the poll thread; while it is
+    the client's window, step() marks its steps. Every transition happens
+    under the client's step condition."""
 
-    def __init__(self, trace_dir: str, start_at: int, end_at: int | None,
-                 duration_s: float):
+    def __init__(self, trace_dir: str, start_at: int, end_at: int | None):
         self.trace_dir = trace_dir
-        self.start_at = start_at  # the step() count that starts it
+        self.start_at = start_at  # iteration mode: the count that starts it
         self.end_at = end_at  # iteration mode: the count that stops it
-        self.duration_s = duration_s  # duration mode
         self.state = "armed"
         self.error: str | None = None
         self.timing: dict = {}
         self.started_ms = 0
-        self.thread_id: int | None = None
+        self.thread_id: int | None = None  # the thread that opened it
         self._t_start = 0.0
 
-    def should_stop(self, count: int, now: float) -> bool:
-        if self.end_at is not None:
-            return count >= self.end_at
-        return now - self._t_start >= self.duration_s
+
+_BUSY = "a previous capture is still open on the training thread"
 
 
 class TraceClient:
@@ -756,6 +828,7 @@ class TraceClient:
         profiler=None,
         step_start_timeout_s: float = 60.0,
         step_trace_timeout_s: float = 600.0,
+        warmup_profiler: bool = False,
         report_interval_s: float = 10.0,
         stall_grace_s: float = 60.0,
         sweep_ttl_s: float = DEFAULT_SWEEP_TTL_S,
@@ -765,12 +838,18 @@ class TraceClient:
         self.device = device
         self.endpoint = endpoint
         self.poll_interval_s = poll_interval_s
-        # How long to wait for the app to step into the capture window,
-        # and for the window to end once open. A timeout fails the capture
-        # loudly (error manifest + last_error) instead of tracing the
-        # wrong window.
+        # Iteration-mode guards: how long to wait for the app to step into
+        # the capture window, and for the window to end once open. A
+        # timeout fails the capture loudly (error manifest + last_error)
+        # instead of tracing the wrong window.
         self.step_start_timeout_s = step_start_timeout_s
         self.step_trace_timeout_s = step_trace_timeout_s
+        # warmup_profiler: pay torch.profiler's one-time start-up (seconds
+        # on a CPU, tens to hundreds of ms on a card) with a throwaway
+        # capture on the poll thread before its first poll, so the FIRST
+        # on-demand capture starts as fast as later ones. The cost is per
+        # process: it warms a capture the training thread starts too.
+        self.warmup_profiler = warmup_profiler
         self.profiler = profiler if profiler is not None else TorchProfiler()
         self._client = ipc.IpcClient()
         self._ancestry = ipc.pid_ancestry()
@@ -817,17 +896,25 @@ class TraceClient:
         self._absent_polls = 0
         self._absent_threshold = 2
         self._need_reannounce = False
+        # Set once the (optional) profiler warmup has finished; apps that
+        # want the first capture at steady-state latency can wait on it.
+        # warmup_timing holds the warmup's own start, stop and export ms.
+        self.warmup_done = threading.Event()
+        self.warmup_timing: dict = {}
 
     # -- lifecycle -------------------------------------------------------
 
     def start(self) -> bool:
         """Registers and spawns the polling thread. False if the daemon is
         unreachable (the app keeps running untraced)."""
-        if self.ring:
-            try:
+        # Startup sweep: reclaim what a SIGKILL'd predecessor left behind
+        # before this run adds its own artifacts.
+        try:
+            _sweep_warmup_dirs(self.sweep_ttl_s)
+            if self.ring:
                 self.ring.sweep()
-            except OSError as e:  # the sweep must never cost start()
-                _log.warning("ring sweep failed: %s", e)
+        except Exception as e:  # noqa: BLE001 - sweep must never kill start()
+            _log.warning("startup artifact sweep failed: %s", e)
         self.instance_rank = self._client.register_context(
             self.job_id, self.device, dest=self.endpoint)
         if self.instance_rank is not None:
@@ -845,8 +932,9 @@ class TraceClient:
         return self.instance_rank is not None
 
     def stop(self) -> None:
-        """Stops polling. Call it from the training thread: a capture still
-        open there is stopped and dropped."""
+        """Stops polling. Call it from the training thread: an iteration
+        capture still open there is stopped and dropped (a duration
+        capture is closed by the poll thread, which stop() joins)."""
         self._stop.set()
         with self._step_cv:
             self._step_cv.notify_all()
@@ -869,8 +957,9 @@ class TraceClient:
 
     def step(self) -> None:
         """Call once per training iteration, on the training thread: an
-        armed capture starts and stops here, and step-rate/latency
-        telemetry counts these calls."""
+        iteration capture starts and stops here, a duration capture marks
+        its steps here, and step-rate/latency telemetry counts these
+        calls."""
         now = time.monotonic()
         with self._step_cv:
             self._step_count += 1
@@ -885,7 +974,7 @@ class TraceClient:
             self._ever_stepped = True
             self._last_step_t = now
             if self._window is not None:
-                self._drive_window(self._window, self._step_count, now)
+                self._drive_window(self._window, self._step_count)
             self._step_cv.notify_all()
             count = self._step_count
         if self.ring:
@@ -895,7 +984,12 @@ class TraceClient:
 
     # -- capture window (training thread, under _step_cv) ---------------
 
-    def _drive_window(self, w: _Window, count: int, now: float) -> None:
+    def _drive_window(self, w: _Window, count: int) -> None:
+        if w.end_at is None:
+            # A duration window: the poll thread owns its profiler (the
+            # profile is not thread-safe); here it only marks a step.
+            self.profiler.step()
+            return
         if w.state == "armed" and count >= w.start_at:
             t0 = time.time()
             try:
@@ -911,7 +1005,7 @@ class TraceClient:
             w.state = "active"
         elif w.state == "active":
             self.profiler.step()
-            if w.should_stop(count, now):
+            if count >= w.end_at:
                 self._stop_profiler(w, "stopped")
         elif w.state == "abandoned":
             # The poll thread gave up on this window; close the profiler
@@ -931,7 +1025,32 @@ class TraceClient:
 
     # -- poll thread -----------------------------------------------------
 
+    def _warmup(self) -> None:
+        """One throwaway capture on the poll thread at the default levels,
+        into a temp dir removed after it; a failure lands in last_error
+        and polling goes on. It leaves no capture behind: export() takes
+        the stopped one, and the next start() makes its own step clock."""
+        tmp = tempfile.mkdtemp(prefix=WARMUP_PREFIX)
+        try:
+            t0 = time.time()
+            self.profiler.start(tmp, all_threads=True)
+            t1 = time.time()
+            self.profiler.stop()
+            t2 = time.time()
+            self.profiler.export(tmp)
+            self.warmup_timing = {
+                "profiler_start_ms": int((t1 - t0) * 1000),
+                "profiler_stop_ms": int((t2 - t1) * 1000),
+                "export_ms": int((time.time() - t2) * 1000)}
+        except Exception as e:  # noqa: BLE001 - warmup must never kill polling
+            self.last_error = f"profiler warmup failed: {e}"
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
     def _poll_loop(self) -> None:
+        if self.warmup_profiler:
+            self._warmup()
+        self.warmup_done.set()
         while not self._stop.is_set():
             try:
                 text = self._client.request_config(
@@ -1079,9 +1198,9 @@ class TraceClient:
     # -- one capture (poll thread) ---------------------------------------
 
     def _ring_sample(self, trace_dir: str) -> tuple[str, dict]:
-        """One ring window: armed here, opened and closed by step() on
-        the training thread, exported into `trace_dir`. Returns the trace
-        path and the window's timing."""
+        """One ring window, a duration capture on this (the poll) thread,
+        exported into `trace_dir`. Returns the trace path and the window's
+        timing."""
         error, window = self._capture_window(
             TraceConfig(duration_ms=self.ring.config.window_ms), trace_dir)
         if error:
@@ -1132,24 +1251,46 @@ class TraceClient:
                            window.started_ms, error, timing, ctx)
 
     def _capture_window(self, cfg: TraceConfig, trace_dir: str):
-        """Arms a window for the training thread and waits for it to open
-        and close; returns (error or None, window)."""
+        """Runs one capture's window; returns (error or None, window). A
+        duration window runs here, on the poll thread, as the JAX shim's
+        does: start, sleep, stop, whether or not the app steps."""
+        if cfg.iterations > 0:
+            return self._iteration_window(cfg, trace_dir)
+        window = _Window(trace_dir, 0, None)
+        with self._step_cv:
+            if self._window is not None:
+                return (_BUSY, window)
+        t0 = time.time()
+        try:
+            self.profiler.start(trace_dir, all_threads=True)
+        except Exception as e:  # noqa: BLE001 - fails the capture
+            return f"profiler start failed: {e}", window
+        window.timing["profiler_start_ms"] = int((time.time() - t0) * 1000)
+        window.started_ms = int(t0 * 1000)
+        window.thread_id = threading.get_ident()
+        window._t_start = time.monotonic()
+        with self._step_cv:
+            window.state = "active"
+            self._window = window
+        stopped = self._stop.wait(cfg.duration_ms / 1000.0)
+        with self._step_cv:
+            self._window = None  # step() marks no step from here on
+        self._stop_profiler(window, "stopped")
+        return ("trace aborted: client stopped" if stopped
+                else window.error), window
+
+    def _iteration_window(self, cfg: TraceConfig, trace_dir: str):
+        """Arms an iteration window for the training thread and waits for
+        it to open and close; returns (error or None, window)."""
         with self._step_cv:
             base = self._step_count
-            if cfg.iterations > 0:
-                # The next roundup boundary STRICTLY after the current
-                # step: the window always begins at a future iteration.
-                roundup = max(cfg.iteration_roundup, 1)
-                start_at = ((base // roundup) + 1) * roundup
-                window = _Window(trace_dir, start_at,
-                                 start_at + cfg.iterations, 0.0)
-            else:
-                window = _Window(trace_dir, base + 1, None,
-                                 cfg.duration_ms / 1000.0)
+            # The next roundup boundary STRICTLY after the current step:
+            # the window always begins at a future iteration.
+            roundup = max(cfg.iteration_roundup, 1)
+            start_at = ((base // roundup) + 1) * roundup
+            window = _Window(trace_dir, start_at, start_at + cfg.iterations)
             if self._window is not None:
-                window.state = "stopped"
-                return ("a previous capture is still open on the training "
-                        "thread", window)
+                return (_BUSY, window)
             self._window = window
             opened = self._step_cv.wait_for(
                 lambda: window.state != "armed" or self._stop.is_set(),
@@ -1162,7 +1303,7 @@ class TraceClient:
                         f"{self._step_count})"
                         if not opened else "trace aborted: client stopped",
                         window)
-            limit = self.step_trace_timeout_s + window.duration_s
+            limit = self.step_trace_timeout_s
             closed = self._step_cv.wait_for(
                 lambda: window.state != "active" or self._stop.is_set(),
                 timeout=limit)

@@ -134,10 +134,13 @@ CPU, CUDA = ProfilerActivity.CPU, ProfilerActivity.CUDA
     ((0, 2, 1), True, ([CPU, CUDA], True, False, False)),
     ((1, 1, 1), True, ([CPU, CUDA], False, True, False)),
     ((1, 3, 1), True, ([CPU, CUDA], True, True, True)),
-    ((1, 0, 1), True, ([CUDA], False, True, False)),
-    ((1, 0, 1), False, ([], False, True, False)),
+    ((1, 0, 1), True, ([CPU, CUDA], False, True, False)),
+    ((1, 0, 1), False, ([CPU], False, True, False)),
     ((1, 2, 0), True, ([CPU], True, True, False)),
     ((0, 0, 0), True, ([], False, False, False)),
+    ((1, 0, 0), True, ([CPU], False, True, False)),
+    ((0, 0, 1), True, ([CUDA], False, False, False)),
+    ((0, 0, 1), False, ([], False, False, False)),
     ((2, 9, 5), True, ([CPU, CUDA], True, True, True)),
 ])
 def test_levels_map_onto_torch_profiler_arguments(levels, cuda, want):
@@ -220,10 +223,18 @@ def test_python_frames_follow_the_python_level(client, tmp_path, knobs,
     assert summary["steps"]["count"] == 3
 
 
+def _python_only(host) -> bool:
+    """Whether a JAX host plane holds Python frames and nothing else."""
+    return bool(host.ops) and all(op.startswith("$") for op in host.ops)
+
+
 def test_host_level_0_keeps_the_steps(client, tmp_path):
-    """No CPU activity: no cpu_op and no Python frame in the trace, and
-    the summary still counts the window's steps, from the spans the shim
-    writes for them, as many as at level 2."""
+    """At host level 0 the trace holds the Python frames and no host op,
+    as the JAX capture's host plane does, and the summary still counts
+    the window's steps, from the spans the shim writes for them, as many
+    as at level 2."""
+    assert _python_only(_jax_capture(
+        tmp_path, 1, {"PROFILE_HOST_TRACER_LEVEL": "0"}))
     counts = {}
     for level in (2, 0):
         manifest = _capture(client, tmp_path,
@@ -236,7 +247,7 @@ def test_host_level_0_keeps_the_steps(client, tmp_path):
                  if e.get("name", "").startswith(trace.STEP_PREFIX)]
         assert len(spans) == 4
         if level == 0:
-            assert "cpu_op" not in cats and "python_function" not in cats
+            assert "cpu_op" not in cats and cats.get("python_function"), cats
             assert all(e["args"] == {"source": "shim"} for e in spans)
             assert {e["tid"] for e in spans} == {threading.get_native_id()}
         counts[level] = trace.summarize(manifest["trace_file"])["steps"]
@@ -244,6 +255,50 @@ def test_host_level_0_keeps_the_steps(client, tmp_path):
     # Every step sleeps 20 ms: both windows time about that.
     for s in counts.values():
         assert 0.018 <= s["p50_ms"] / 1e3 <= 1.0, counts
+
+
+def test_host_level_0_duration_capture_keeps_the_app_frames(client,
+                                                          tmp_path):
+    """A duration capture at host level 0 runs on the poll thread: its
+    trace keeps the training thread's Python frames and steps, and none
+    of torch's host ops or annotations."""
+    a = torch.randn(32, 32)
+    manifest = _drive(client, f"ACTIVITIES_LOG_FILE={tmp_path / 'd0.json'}\n"
+                      "ACTIVITIES_DURATION_MSECS=1000\n"
+                      "PROFILE_HOST_TRACER_LEVEL=0", _work(a))
+    assert manifest["status"] == "ok", manifest
+    events = _events(manifest["trace_file"])
+    me = threading.get_native_id()
+    assert [e for e in events if e.get("cat") == "python_function"
+            and e.get("tid") == me]
+    assert "cpu_op" not in _cats(events)
+    assert all(e["args"] == {"source": "shim"} and e["tid"] == me
+               for e in events if e.get("cat") == "user_annotation")
+    assert trace.summarize(manifest["trace_file"])["steps"]["count"] >= 5
+
+
+@pytest.mark.parametrize("steps", [0, 3])
+def test_poll_thread_capture_gets_its_steps_at_export(tmp_path, steps):
+    """A capture the poll thread opens (all_threads) records no torch
+    ProfilerStep#N span: _write_steps appends the clock's spans, one per
+    step() on the stepping thread, after kineto's events, which it keeps
+    as they are, with or without spans to add."""
+    a = torch.randn(16, 16)
+    prof = TorchProfiler()
+    prof.start(str(tmp_path), all_threads=True)
+    for _ in range(steps):
+        (a @ a).sum()
+        prof.step()
+    prof.stop()
+    prof._stopped.export_chrome_trace(str(tmp_path / "k.json"))
+    doc = json.loads((tmp_path / "k.json").read_text())
+    shim._write_steps(str(tmp_path / "k.json"), prof._clock)
+    written = json.loads((tmp_path / "k.json").read_text())
+    spans = prof._clock.events(doc["baseTimeNanoseconds"])
+    assert len(spans) == steps
+    assert all(e["tid"] == threading.get_native_id() for e in spans)
+    assert written.pop("traceEvents") == doc.pop("traceEvents") + spans
+    assert written == doc
 
 
 def test_shim_steps_match_torch_steps_in_one_window(tmp_path):
@@ -278,13 +333,25 @@ def test_shim_steps_match_torch_steps_in_one_window(tmp_path):
 
 
 def test_no_tracer_left_is_an_error_manifest(client, tmp_path):
-    manifest = _capture(
-        client, tmp_path,
-        "PROFILE_HOST_TRACER_LEVEL=0\nPROFILE_DEVICE_TRACER_LEVEL=0", "none")
+    """With the host and device tracers off the Python tracer still runs,
+    as in the JAX capture: an ok manifest holding Python frames only.
+    Only with the Python tracer off as well is nothing left to record:
+    an error manifest naming the three knobs."""
+    off = {"PROFILE_HOST_TRACER_LEVEL": "0", "PROFILE_DEVICE_TRACER_LEVEL": "0"}
+    assert _python_only(_jax_capture(tmp_path, 1, off))
+    manifest = _capture(client, tmp_path, "\n".join(
+        f"{k}={v}" for k, v in off.items()), "python_only")
+    assert manifest["status"] == "ok", manifest
+    cats = _cats(_events(manifest["trace_file"]))
+    assert cats.get("python_function") and "cpu_op" not in cats, cats
+    assert "kernel" not in cats
+    assert trace.summarize(manifest["trace_file"])["steps"]["count"] == 3
+    knobs = ("PROFILE_PYTHON_TRACER_LEVEL=0", "PROFILE_HOST_TRACER_LEVEL=0",
+             "PROFILE_DEVICE_TRACER_LEVEL=0")
+    manifest = _capture(client, tmp_path, "\n".join(knobs), "none")
     assert manifest["status"] == "error"
-    assert "PROFILE_HOST_TRACER_LEVEL=0" in manifest["error"]
-    assert "PROFILE_DEVICE_TRACER_LEVEL=0" in manifest["error"]
-    assert client.traces_completed == 0 and not client.summary_procs
+    assert all(k in manifest["error"] for k in knobs), manifest["error"]
+    assert client.traces_completed == 1 and len(client.summary_procs) == 1
     # The next capture runs at the defaults again.
     manifest = _capture(client, tmp_path, "", "after")
     assert manifest["status"] == "ok", manifest
@@ -434,7 +501,9 @@ def test_ring_samples_at_the_last_configured_levels(tmp_path, knobs):
 # -- the host plane's Python frames, against the JAX summarizer ------------
 
 
-def _jax_capture(tmp_path, python: int) -> dict:
+def _jax_capture(tmp_path, python: int, knobs: dict | None = None):
+    """The host plane of a JAX capture at this Python level (and these
+    further config keys) of three jitted calls."""
     @jax.jit
     def work(x):
         return jax.numpy.sin(x) @ jax.numpy.cos(x).T
@@ -442,8 +511,9 @@ def _jax_capture(tmp_path, python: int) -> dict:
     x = jax.numpy.ones((64, 64))
     work(x).block_until_ready()
     p = jax_shim.JaxProfiler(export_trace_json=False)
-    p.configure({"PROFILE_PYTHON_TRACER_LEVEL": str(python)})
-    out = tmp_path / f"jax_py{python}"
+    p.configure({"PROFILE_PYTHON_TRACER_LEVEL": str(python), **(knobs or {})})
+    out = tmp_path / ("jax_py%d_%s" % (python, "_".join(
+        f"{k}{v}" for k, v in sorted((knobs or {}).items()))))
     p.start(str(out))
     for _ in range(3):
         work(x).block_until_ready()

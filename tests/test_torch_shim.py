@@ -1,7 +1,8 @@
-"""The PyTorch shim (dynolog_tpu_torch.client) on the CPU: a torch.profiler
-capture opened and closed by step() on the training thread, a capture
-triggered through a real dynologd, and the IPC wire held to the JAX
-package's layout."""
+"""The PyTorch shim (dynolog_tpu_torch.client) on the CPU: an iteration
+capture opened and closed by step() on the training thread, a duration
+capture on the poll thread of an app that steps and of one that never
+does (beside the JAX client's), a capture triggered through a real
+dynologd, and the IPC wire held to the JAX package's layout."""
 
 import json
 import os
@@ -15,11 +16,13 @@ import torch
 from daemon_utils import start_daemon, stop_daemon
 from dynolog_tpu import obs as jax_obs
 from dynolog_tpu.client import ipc as jax_ipc
+from dynolog_tpu.client import shim as jax_shim
 from dynolog_tpu.client.shim import TraceConfig as JaxTraceConfig
 from dynolog_tpu_torch.client import TorchProfiler, TraceClient, TraceConfig
 from dynolog_tpu_torch import failpoints, obs, trace
 from dynolog_tpu_torch.client import ipc
-from dynolog_tpu_torch.client.shim import sweep_stale_artifacts
+from dynolog_tpu_torch.client.shim import (
+    RecordingProfiler, sweep_stale_artifacts)
 from dynolog_tpu_torch.models.train import (
     make_batch, make_train_state, make_train_step)
 from dynolog_tpu_torch.models.transformer import TransformerConfig
@@ -104,6 +107,57 @@ def test_stop_leaves_events_unparsed(tmp_path):
     assert any(e.get("name") == "aten::mm" for e in events)
 
 
+def test_iteration_window_opens_at_the_roundup_boundary(tmp_path):
+    """An iteration capture starts the profiler at the step() of the next
+    roundup boundary strictly after the current step, as the JAX shim's
+    window begins, and stops it when its iterations are done."""
+    seen = []
+
+    class Seen(RecordingProfiler):
+        def start(self, trace_dir, all_threads=False):
+            seen.append(("start", client._step_count))
+            super().start(trace_dir, all_threads)
+
+        def stop(self):
+            seen.append(("stop", client._step_count))
+            super().stop()
+
+    client = TraceClient(job_id=7, endpoint="dynotpu_torch_nodaemon",
+                         profiler=Seen(), report_interval_s=0)
+    try:
+        for _ in range(4):
+            client.step()
+        # Each step waits a while for the window to be armed.
+        _drive(client, f"ACTIVITIES_LOG_FILE={tmp_path / 'p.json'}\n"
+               "ACTIVITIES_ITERATIONS=3\nPROFILE_START_ITERATION_ROUNDUP=4",
+               lambda: client._window is not None or time.sleep(0.05))
+    finally:
+        client.stop()
+    assert client.last_manifest["status"] == "ok", client.last_manifest
+    # From step 4 (itself a boundary), the next boundary of 4 is step 8.
+    assert seen == [("start", 8), ("stop", 11)]
+
+
+def test_iteration_capture_holds_only_its_window(tmp_path):
+    """A capture started at a step boundary holds none of the ops before
+    it, and its steps are torch's own ProfilerStep#N spans from 0."""
+    a = torch.randn(32, 32)
+    prof = TorchProfiler()
+    torch.relu(a)
+    prof.start(str(tmp_path))
+    for _ in range(3):
+        (a @ a).sum()
+        prof.step()
+    prof.stop()
+    events = _events(prof.export(str(tmp_path)))
+    names = [e["name"] for e in events if e.get("cat") == "cpu_op"]
+    assert "aten::mm" in names and "aten::relu" not in names
+    steps = sorted(e["name"] for e in events
+                   if e.get("name", "").startswith(trace.STEP_PREFIX))
+    assert steps == [f"{trace.STEP_PREFIX}{n}" for n in (0, 1, 2, 3)]
+    assert trace.summarize_trace_events(events)[-1].step_durations_ps
+
+
 def test_duration_capture_of_train_steps(offline_client, tmp_path):
     gen = torch.Generator().manual_seed(0)
     params, opt = make_train_state(TINY, "cpu", gen)
@@ -111,13 +165,110 @@ def test_duration_capture_of_train_steps(offline_client, tmp_path):
     batch = make_batch(gen, TINY, 2, 16, "cpu")
     log = tmp_path / "dur.json"
     _drive(offline_client,
-           f"ACTIVITIES_LOG_FILE={log}\nACTIVITIES_DURATION_MSECS=50",
+           f"ACTIVITIES_LOG_FILE={log}\nACTIVITIES_DURATION_MSECS=500",
            lambda: step(params, opt, batch))
     assert offline_client.traces_completed == 1, offline_client.last_error
     manifest = offline_client.last_manifest
     assert manifest["mode"] == "duration" and manifest["status"] == "ok"
     names = {e.get("name") for e in _events(manifest["trace_file"])}
     assert "aten::mm" in names
+
+
+def _busy(stop: threading.Event, tid: list) -> None:
+    """An app thread that never calls step(): matmuls until `stop`."""
+    tid.append(threading.get_native_id())
+    a = torch.randn(64, 64)
+    while not stop.is_set():
+        torch.relu(a @ a)
+        time.sleep(0.001)
+
+
+def test_duration_capture_of_an_app_that_never_steps(tmp_path):
+    """A duration capture runs on the poll thread in both packages, so an
+    app that never calls step() is traced; the port's trace holds that
+    app thread's aten::mm ops (ROADMAP C1) and no step."""
+    stop, tid = threading.Event(), []
+    app = threading.Thread(target=_busy, args=(stop, tid))
+    app.start()
+    text = "ACTIVITIES_LOG_FILE={}\nACTIVITIES_DURATION_MSECS=500"
+    jax_client = jax_shim.TraceClient(
+        job_id=7, endpoint="dynotpu_torch_nodaemon",
+        profiler=jax_shim.RecordingProfiler(), step_start_timeout_s=3,
+        report_interval_s=0)
+    client = TraceClient(job_id=7, endpoint="dynotpu_torch_nodaemon",
+                         profiler=TorchProfiler(), step_start_timeout_s=3,
+                         report_interval_s=0)
+    try:
+        jax_client._run_trace(JaxTraceConfig.parse(
+            text.format(tmp_path / "jax.json")))
+        client._run_trace(TraceConfig.parse(
+            text.format(tmp_path / "port.json")))
+    finally:
+        stop.set()
+        app.join(timeout=30)
+        jax_client.stop()
+        client.stop()
+    pid = os.getpid()
+    ref = json.loads((tmp_path / f"jax_{pid}.json").read_text())
+    manifest = json.loads((tmp_path / f"port_{pid}.json").read_text())
+    assert ref["status"] == manifest["status"] == "ok", (ref, manifest)
+    assert ref["mode"] == manifest["mode"] == "duration"
+    events = _events(manifest["trace_file"])
+    mms = [e for e in events if e.get("cat") == "cpu_op"
+           and e.get("name") == "aten::mm" and e.get("tid") == tid[0]]
+    assert mms, {e.get("tid") for e in events}
+    assert not [e for e in events
+                if e.get("name", "").startswith(trace.STEP_PREFIX)]
+    assert "steps" not in trace.summarize(manifest["trace_file"])
+
+
+def test_duration_capture_counts_the_steps_of_an_app_that_steps(
+        offline_client, tmp_path):
+    """A duration window on the poll thread still counts the training
+    thread's steps: the shim writes their spans on that thread."""
+    a = torch.randn(32, 32)
+
+    def work():
+        (a @ a).sum()
+        time.sleep(0.02)
+
+    _drive(offline_client,
+           f"ACTIVITIES_LOG_FILE={tmp_path / 'steps.json'}\n"
+           "ACTIVITIES_DURATION_MSECS=1000", work)
+    manifest = offline_client.last_manifest
+    assert manifest["status"] == "ok", manifest
+    events = _events(manifest["trace_file"])
+    spans = [e for e in events
+             if e.get("name", "").startswith(trace.STEP_PREFIX)]
+    assert all(e["args"] == {"source": "shim"} for e in spans)
+    assert {e["tid"] for e in spans} == {threading.get_native_id()}
+    steps = trace.summarize(manifest["trace_file"])["steps"]
+    assert steps["count"] >= 5 and len(spans) == steps["count"] + 1, steps
+    assert 0.018 <= steps["p50_ms"] / 1e3 <= 1.0, steps
+
+
+def test_stop_ends_an_open_duration_window(tmp_path):
+    """stop() during a long duration window: the poll thread's wait ends,
+    it stops its own profiler and writes an error manifest."""
+    client = TraceClient(job_id=7, endpoint="dynotpu_torch_nodaemon",
+                         profiler=TorchProfiler(), report_interval_s=0)
+    runner = threading.Thread(target=client._run_trace, args=(
+        TraceConfig.parse(f"ACTIVITIES_LOG_FILE={tmp_path / 'long.json'}\n"
+                          "ACTIVITIES_DURATION_MSECS=600000"),))
+    runner.start()
+    deadline = time.time() + 60
+    while client._window is None and time.time() < deadline:
+        time.sleep(0.01)
+    assert client._window is not None
+    t0 = time.time()
+    client.stop()
+    runner.join(timeout=30)
+    assert not runner.is_alive() and time.time() - t0 < 10
+    manifest = json.loads(
+        (tmp_path / f"long_{os.getpid()}.json").read_text())
+    assert manifest["status"] == "error", manifest
+    assert "client stopped" in manifest["error"]
+    assert client.profiler._prof is None and client._window is None
 
 
 def _wait_for(path, timeout_s=60.0):
@@ -164,11 +315,14 @@ def test_capture_completes_without_summary_child(offline_client, tmp_path):
 
 
 def test_capture_aborts_when_app_never_steps(tmp_path):
+    """An iteration capture's window opens at a step: an app that never
+    steps gets an error manifest (a duration capture needs no step)."""
     client = TraceClient(job_id=7, endpoint="dynotpu_torch_nodaemon",
                          step_start_timeout_s=0.2, report_interval_s=0)
     try:
         client._run_trace(TraceConfig.parse(
-            f"ACTIVITIES_LOG_FILE={tmp_path / 't.json'}"))
+            f"ACTIVITIES_LOG_FILE={tmp_path / 't.json'}\n"
+            "ACTIVITIES_ITERATIONS=2"))
         assert client.traces_completed == 0
         manifest = client.last_manifest
         assert manifest["status"] == "error"
@@ -197,6 +351,28 @@ def test_window_left_open_is_dropped_by_the_next_step(tmp_path):
         assert "timed out" in client.last_manifest["error"]
         client.step()  # closes and drops the abandoned capture
         assert client._window is None
+        _drive(client, f"ACTIVITIES_LOG_FILE={tmp_path / 'b.json'}\n"
+               "ACTIVITIES_ITERATIONS=2", lambda: (a @ a).sum())
+        assert client.traces_completed == 1, client.last_error
+    finally:
+        client.stop()
+
+
+def test_capture_after_an_aborted_one_works(tmp_path):
+    """The app stops stepping before an iteration window opens: the
+    capture aborts with an error manifest and leaves no window or
+    profiler behind, and the next capture works."""
+    client = TraceClient(job_id=7, endpoint="dynotpu_torch_nodaemon",
+                         step_start_timeout_s=0.3, report_interval_s=0)
+    try:
+        for _ in range(3):
+            client.step()
+        client._run_trace(TraceConfig.parse(
+            f"ACTIVITIES_LOG_FILE={tmp_path / 'a.json'}\n"
+            "ACTIVITIES_ITERATIONS=2"))
+        assert "did not reach step 4" in client.last_manifest["error"]
+        assert client._window is None and client.profiler._prof is None
+        a = torch.randn(16, 16)
         _drive(client, f"ACTIVITIES_LOG_FILE={tmp_path / 'b.json'}\n"
                "ACTIVITIES_ITERATIONS=2", lambda: (a @ a).sum())
         assert client.traces_completed == 1, client.last_error

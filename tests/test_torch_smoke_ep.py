@@ -102,7 +102,9 @@ PIPE_CFG = dataclasses.replace(CFG, n_experts=0, n_layers=4,
 
 def _pipe_rank(rank, world, spec, capture):
     torch.set_num_threads(1)
-    chip_smoke.CAPTURE_MS = 100  # a short window: a short trace
+    # A window of several steps: it is wall time on the poll thread, and a
+    # loaded CPU must still fit two step() calls in it.
+    chip_smoke.CAPTURE_MS = 400
     return chip_smoke._pipe_rank(rank, world, PIPE_CFG, spec, 4, 2, capture,
                                  "cpu", SEQ)
 
