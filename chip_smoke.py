@@ -40,8 +40,10 @@ if any phase fails:
 8. ring: a short run under the capture ring (RingConfig), whose stored
    profile names the three flash kernels and diagnoses against the
    baseline; the sample is a duration window on the shim's poll thread,
-   whose trace must hold the training thread's cpu_ops (the steps that
-   overlap its profiler stop are logged);
+   whose trace must hold the training thread's cpu_ops; each sample's
+   profiler stop, kineto's save and the finish child's write (ms), the
+   steps over the stop and save and those that began while the child ran
+   are logged (`finish_steps`);
 9. exporter: NVML's snapshot for the daemon's file backend, read back
    through a second dynologd with `dyno query`;
 10. MoE trainer: the dense trainer freed, the MoE family at the same
@@ -69,8 +71,8 @@ if any phase fails:
    in duration mode (on the shim's poll thread): the capture must begin
    at or after the PROFILE_START_TIME unitrace printed and within one
    step of it, its trace must hold the training thread's cpu_ops and its
-   summary must name the steps (the steps that overlap its profiler stop
-   are logged); its losses and per-leaf gradient norms
+   summary must name the steps (its `finish_steps` are logged); its
+   losses and per-leaf gradient norms
    and projections are held against the dense trainer with reference
    attention on one process on the same batch;
 14. fleet straggler loop: the port's FleetRelay (durable acks) takes the
@@ -111,7 +113,8 @@ if any phase fails:
    kernels; (b) one whose loop never calls client.step(), captured
    through `dyno gputrace --duration_ms=500`: an ok manifest whose trace
    names the three flash kernels and holds the training thread's
-   cpu_ops, and a summary that names no step;
+   cpu_ops, and a summary that names no step (its `finish_steps` are
+   logged);
 
 then, with two cards or more, phase 10's model trained expert-parallel
 over NCCL (data x expert, one process per card) for two steps, held in
@@ -872,6 +875,21 @@ def overlapping(spans: list, t0_ms: float, t1_ms: float) -> list:
     return [round(e - b, 1) for b, e in spans if b < t1_ms and e > t0_ms]
 
 
+def finish_steps(spans: list, started_ms: float, timing: dict) -> dict:
+    """A poll-thread capture's cost to the training thread: its
+    profiler_stop_ms, export_ms (kineto's save) and write_ms (the finish
+    child), the steps (ms) that overlap its stop and save, and those that
+    began while the child ran."""
+    t0, t1 = stop_span(started_ms, timing)
+    saved = t1 + timing.get("export_ms", 0)
+    child = [round(e - b, 1) for b, e in spans
+             if saved <= b < saved + timing.get("write_ms", 0)]
+    return {**{k: timing.get(k) for k in (
+                "profiler_stop_ms", "export_ms", "write_ms")},
+            "steps_over_stop_and_save": overlapping(spans, t0, saved),
+            "steps_while_child_ran": child}
+
+
 def thread_cpu_ops(trace_file: str, tid: int) -> int:
     """The cpu_op events of thread `tid` in a Chrome trace."""
     with open(trace_file) as f:
@@ -1039,10 +1057,16 @@ def phase_ring(F, daemon, trainer, tmp: Path, base: Path) -> None:
     me, samples, take = threading.get_native_id(), [], client._ring_sample
 
     def inspected(trace_dir: str):
+        # The finished trace is copied (no parse here, on the poll
+        # thread) before the ring deletes it, and read after the run.
         t0 = time.time() * 1000
-        path, timing = take(trace_dir)
-        samples.append((t0, timing, thread_cpu_ops(path, me)))
-        return path, timing
+        pending, timing = take(trace_dir)
+        done = pending.wait(30.0)
+        kept = tmp / f"ring_sample_{len(samples)}.json"
+        if "write_error" not in done:
+            shutil.copy(pending.path, kept)
+        samples.append((t0, {**timing, **done}, kept))
+        return pending, timing
 
     client._ring_sample = inspected
     if not client.start():
@@ -1062,11 +1086,12 @@ def phase_ring(F, daemon, trainer, tmp: Path, base: Path) -> None:
     counts = dict(F.launches)
     if client.ring.captures == 0:
         raise AssertionError(f"no ring profile: {client.ring.last_error}")
-    for started, timing, cpu_ops in samples:
-        log(f"  ring sample: {cpu_ops} training-thread cpu_ops; stop "
-            f"{timing.get('profiler_stop_ms')} ms, overlapping steps "
-            f"{overlapping(spans, *stop_span(started, timing))} ms against "
-            f"the run's median {statistics.median(e - b for b, e in spans):.1f}")
+    for started, timing, kept in samples:
+        cpu_ops = thread_cpu_ops(str(kept), me) if kept.exists() else 0
+        log(f"  ring sample: {cpu_ops} training-thread cpu_ops; "
+            f"{finish_steps(spans, started, timing)} against the run's "
+            f"median step {statistics.median(e - b for b, e in spans):.1f} "
+            "ms")
         if not cpu_ops:
             raise AssertionError("a ring sample's trace holds no cpu_op of "
                                  "the training thread")
@@ -1735,11 +1760,10 @@ def check_pipe_capture(ranks: list, n_hosts: int) -> list:
         steps = summary.get("steps", {})
         split = trace_split(m["trace_file"], steps.get("count", 0))
         cpu_ops = thread_cpu_ops(m["trace_file"], got["tid"])
-        log(f"  rank {r}: {cpu_ops} training-thread cpu_ops; stop "
-            f"{m['timing'].get('profiler_stop_ms')} ms, overlapping steps "
-            f"{overlapping(got['spans'], *stop_span(m['started_ms'], m['timing']))}"
-            f" ms against the median "
-            f"{statistics.median(e - b for b, e in got['spans']):.1f}")
+        log(f"  rank {r}: {cpu_ops} training-thread cpu_ops; "
+            f"{finish_steps(got['spans'], m['started_ms'], m['timing'])} "
+            f"against the median step "
+            f"{statistics.median(e - b for b, e in got['spans']):.1f} ms")
         if not cpu_ops:
             failures.append(f"rank {r}'s trace holds no cpu_op of its "
                             "training thread")
@@ -2378,7 +2402,7 @@ def phase_knobs(F, daemon, smi: str) -> dict:
                     continue
                 timing = {k: manifest["timing"].get(k) for k in (
                     "profiler_start_ms", "window_ms", "profiler_stop_ms",
-                    "export_ms", "trace_bytes")}
+                    "export_ms", "write_ms", "trace_bytes")}
                 cats: dict = {}
                 summary: dict = {"top_ops": []}
                 if manifest["status"] == "ok":
@@ -2452,7 +2476,7 @@ FIRST_CAPTURE_WARM_STEPS = 3
 WARMUP_WAIT_S = 120  # as bench.py waits on warmup_done
 STEPLESS_MS = 500
 TIMING_KEYS = ("profiler_start_ms", "window_ms", "profiler_stop_ms",
-               "export_ms", "trace_bytes")
+               "export_ms", "write_ms", "trace_bytes")
 
 
 def first_capture_trainer(spec: dict) -> int:
@@ -2495,7 +2519,8 @@ def first_capture_trainer(spec: dict) -> int:
             cpu_ops=thread_cpu_ops(m["trace_file"], me),
             steps=trace.summarize(m["trace_file"]).get("steps"),
             stop_overlap=overlapping(spans, *stop_span(m["started_ms"],
-                                                       m["timing"])))
+                                                       m["timing"])),
+            finish=finish_steps(spans, m["started_ms"], m["timing"]))
         return out
 
     F.reset_launches()
@@ -2585,7 +2610,8 @@ def phase_first_capture(daemon, smi: str) -> dict:
                     f"({cap['mode']}); timing {cap['timing']}; flash "
                     f"{cap.get('flash')}; {cap.get('cpu_ops')} training-"
                     f"thread cpu_ops; steps {cap.get('steps')}; steps "
-                    f"overlapping the stop {cap.get('stop_overlap')} ms")
+                    f"overlapping the stop {cap.get('stop_overlap')} ms"
+                    + (f"; {cap.get('finish')}" if stepless else ""))
                 if cap["status"] != "ok" or not all(cap["flash"].values()):
                     failures.append(f"run {run} capture {i + 1}: {cap}")
                     continue

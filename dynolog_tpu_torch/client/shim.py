@@ -17,10 +17,19 @@ records the CPU ops of the starting thread only), sleeps the window and
 stops it, so an app that never calls ``step()`` is traced too; the
 ``step()`` calls that fall in the window only mark its ProfilerStep#N
 spans. An iteration capture's edges are steps: the poll thread *arms* a
-window, the training thread's ``step()`` at its first iteration starts the
-profiler and the ``step()`` at its end stops it. Either way the poll
-thread then exports the trace and writes the manifest, and a child
-process at low priority writes the trace's summary
+window, the training thread's ``step()`` one step before its first
+iteration starts the profiler (the lead step, trimmed from the trace
+after: a slow start loses its first launches' device records there, not
+in the window) and the ``step()`` at its end stops it.
+
+Either way the poll thread then saves kineto's trace and goes back to
+polling. What is left of the trace's save (adding the step spans,
+dropping what the capture's levels and lead step leave out, and a ring
+sample's promotion) runs in a child process at nice 19
+(``PendingWrite``, ``trace.finish_trace``), so no trace is parsed in the
+training process; a finisher thread waits on it and writes the manifest,
+whose ``timing`` gets the child's ``write_ms`` and ``write_bytes``. A
+second child at low priority then writes the trace's summary
 (``<run>.summary.json``) beside it.
 
 ``TraceClient(warmup_profiler=True)`` pays the profiler's one-time
@@ -51,7 +60,7 @@ for one capture only; an absent key is the JAX capture's default
                                       (torch traces Python only beside
                                       the CPU activity, which then runs
                                       at host level 0 too)
-    PROFILE_HOST_TRACER_LEVEL=<n>     0 no host ops (the export drops
+    PROFILE_HOST_TRACER_LEVEL=<n>     0 no host ops (the finish drops
                                       the CPU activity's ops and the
                                       shim writes the ProfilerStep#N
                                       spans itself); 1 CPU ops; 2 with
@@ -98,6 +107,8 @@ _log = logging.getLogger("dynolog_tpu_torch.shim")
 # summaries written beside them.
 TRACE_SUFFIX = trace.TRACE_SUFFIX
 SUMMARY_SUFFIX = trace.SUMMARY_SUFFIX
+# A ring sample's compact profile, written by its finish beside its trace.
+SAMPLE_PROFILE_SUFFIX = ".profile.json"
 
 
 def _ttl_from_env() -> float:
@@ -329,8 +340,9 @@ class CaptureRing:
         self.last_path: str | None = None
         self.last_error: str | None = None
         # Where the last stored sample's time went (ms): the window's
-        # profiler timing, the whole take (arm, window, export) and the
-        # promotion to a compact profile.
+        # profiler timing, the whole take (window and save), the finish
+        # child's write (trace and profile) and the promotion (the wait on
+        # the child, and the store).
         self.last_timing: dict = {}
         self._pending = False
         self._last_capture_t: float | None = None  # never captured
@@ -361,8 +373,10 @@ class CaptureRing:
 
     def capture(self, take) -> str | None:
         """One ring sample: `take(trace_dir)` captures a window of
-        config.window_ms and returns (Chrome trace path, timing dict);
-        the trace is promoted, stored and the ring pruned. Returns the
+        config.window_ms and returns (trace, timing dict), the trace a
+        Chrome trace's path, which is promoted here, or the PendingWrite
+        of its finish, which promotes it in its child and is waited on
+        here; the profile is stored and the ring pruned. Returns the
         stored profile path (None on failure; last_error says why)."""
         self._pending = False
         self._last_capture_t = time.monotonic()
@@ -370,17 +384,25 @@ class CaptureRing:
         try:
             t0 = time.time()
             with obs.span("shim.ring_capture"):
-                trace_file, timing = take(tmp)
+                got, timing = take(tmp)
             t1 = time.time()
             with obs.span("shim.ring_promote"):
-                with open(trace_file, "rb") as f:
-                    data = f.read()
-                profile = trace.compact_profile(data, top=self.config.top_ops)
+                if isinstance(got, PendingWrite):
+                    done = got.wait(30.0)
+                    if "write_error" in done:
+                        raise RuntimeError(done["write_error"])
+                    timing = {**timing, **done}
+                    with open(got.profile_path, "rb") as f:
+                        profile = json.loads(f.read())
+                else:
+                    with open(got, "rb") as f:
+                        profile = trace.compact_profile(
+                            f.read(), top=self.config.top_ops)
             path = self._store(profile)
             self.last_timing = {
                 **timing, "take_ms": int((t1 - t0) * 1000),
                 "promote_ms": int((time.time() - t1) * 1000),
-                "trace_bytes": len(data)}
+                "trace_bytes": profile["trace_bytes"]}
             self.captures += 1
             self.last_path = path
             self.last_error = None
@@ -556,7 +578,7 @@ def profile_options(levels: dict, cuda: bool) -> dict:
     hierarchy (3); the device level the CUDA activity; the Python level
     with_stack, torch's Python tracer. That tracer records only beside the
     CPU activity, so at host level 0 the CPU activity runs for the Python
-    frames alone, and the export drops its host ops (_write_steps)."""
+    frames alone, and the finish drops its host ops (trace.finish_trace)."""
     from torch.profiler import ProfilerActivity
 
     host = levels["host_tracer_level"]
@@ -611,9 +633,11 @@ class _StepClock:
     stop, and the thread that called step(). Span N runs from the N-th time
     to the next, as torch.profiler's ProfilerStep#N spans do, so the
     summarizer reads them alike: the last span, from the last step() to
-    the stop, is not a step. A window that step() opens (an iteration
-    capture) counts its start as the first time; one that the poll thread
-    opens starts mid-step, so its first span opens at its first step()."""
+    the stop, is not a step. A window that step() opens at its first step
+    (an iteration capture without a lead step) counts its start as the
+    first time; one that opens earlier (the poll thread's, mid-step, or an
+    iteration window's a step early) has its first span open at its first
+    step()."""
 
     def __init__(self, at_step: bool = True):
         self.tid = threading.get_native_id()
@@ -626,46 +650,133 @@ class _StepClock:
     def close(self) -> None:
         self.times.append(time.time_ns())
 
+    def spec(self) -> dict:
+        """The spans' arguments of trace.step_events, as JSON."""
+        return {"times": list(self.times), "tid": self.tid,
+                "pid": os.getpid()}
+
     def events(self, base_ns: int) -> list[dict]:
-        """The spans as Chrome-trace events on a time base of `base_ns`
-        (a kineto trace's baseTimeNanoseconds: its ts plus the base is
-        epoch time in microseconds)."""
-        pid = os.getpid()
-        return [{"ph": "X", "cat": "user_annotation",
-                 "name": f"{trace.STEP_PREFIX}{n}", "pid": pid,
-                 "tid": self.tid, "ts": (t0 - base_ns) / 1e3,
-                 "dur": (t1 - t0) / 1e3, "args": {"source": "shim"}}
-                for n, (t0, t1) in enumerate(zip(self.times,
-                                                 self.times[1:]))]
-
-
-# What a capture at host level 0 drops from its trace, where the CPU
-# activity ran for the Python tracer alone: torch's host ops, the
-# autograd flows between them, and its own annotations (the
-# ProfilerStep#N spans among them, and their projection onto the device
-# timeline).
-HOST_OP_CATEGORIES = ("cpu_op", "fwdbwd", "user_annotation",
-                      "gpu_user_annotation")
+        """The spans as Chrome-trace events on a time base of `base_ns`."""
+        return trace.step_events(base_ns=base_ns, **self.spec())
 
 
 def _write_steps(tmp: str, clock: _StepClock, drop_host: bool = False
                  ) -> None:
     """Adds the clock's step spans to the Chrome trace at `tmp`, without
     the host ops where `drop_host`, or writes a trace holding only them
-    where the profiler wrote none."""
-    if os.path.exists(tmp):
-        with open(tmp) as f:
-            doc = json.load(f)
-        if drop_host:
-            doc["traceEvents"] = [e for e in doc["traceEvents"]
-                                  if e.get("cat") not in HOST_OP_CATEGORIES]
-    else:
-        doc = {"schemaVersion": 1, "traceEvents": [],
-               "displayTimeUnit": "ms",
-               "baseTimeNanoseconds": clock.times[0] // 10**9 * 10**9}
-    doc["traceEvents"].extend(clock.events(doc.get("baseTimeNanoseconds", 0)))
-    with open(tmp, "w") as f:
-        f.write(json.dumps(doc))  # one-shot: the C encoder
+    where the profiler wrote none (in this process)."""
+    trace.finish_trace(tmp, tmp, steps=clock.spec(), drop_host=drop_host)
+
+
+def _child_env() -> dict:
+    """The environment of the shim's child processes: this one's, with
+    the package on PYTHONPATH."""
+    pkg_parent = os.path.dirname(os.path.dirname(
+        os.path.abspath(dynolog_tpu_torch.__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = pkg_parent + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def _finish_files(path: str) -> tuple[str, str, str]:
+    """The temporary files of the finish of the trace that lands at
+    `path`: kineto's save, the finish's arguments, and the finished trace
+    before its rename. Their .tmp suffix is what the stale-artifact sweep
+    reclaims."""
+    return path + ".raw.tmp", path + ".spec.tmp", path + ".tmp"
+
+
+def _unlink_all(*paths: str) -> None:
+    for p in paths:
+        try:
+            os.unlink(p)
+        except OSError:
+            pass
+
+
+class PendingWrite:
+    """One capture's deferred finish, on its own thread: the counterpart of
+    the JAX shim's PendingWrite. kineto saved the trace in this process
+    (its results live here); the rest — reading it back, adding the step
+    spans, dropping what the capture's levels and lead step leave out,
+    and for a ring sample the compact profile — is seconds of pure-Python
+    work, so it runs in a child process at nice 19
+    (trace.finish_capture), which this thread waits on with the GIL
+    released, then renames the finished trace into place. Where the child
+    cannot be spawned it finishes on this thread instead. `spec` holds
+    trace.finish_trace's arguments; the finished trace lands at `path`,
+    a ring sample's profile at spec["profile"]."""
+
+    def __init__(self, spec: dict, path: str):
+        self.path = path
+        self.profile_path = spec.get("profile")
+        self.result: dict | None = None
+        self.error: str | None = None
+        self._spec = spec
+        self._proc: subprocess.Popen | None = None
+        self._done = threading.Event()
+        # Unsupervised by design: one per capture, joined through wait()
+        # by whoever needs the trace (the finisher, the ring).
+        self._thread = threading.Thread(
+            target=self._run, name="dynolog_tpu_torch_trace_finish",
+            daemon=True)
+        self._thread.start()
+
+    def _spawn(self, spec_path: str) -> subprocess.Popen | None:
+        with open(spec_path, "w") as f:
+            json.dump(self._spec, f)
+        code = ("import os; os.nice(19); "
+                "from dynolog_tpu_torch.trace import finish_capture; "
+                f"finish_capture({spec_path!r})")
+        try:
+            if failpoints.fire("shim.finish_spawn"):
+                raise OSError("failpoint shim.finish_spawn")
+            return subprocess.Popen(
+                [sys.executable, "-c", code], env=_child_env(),
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                start_new_session=True)
+        except OSError as e:
+            _log.warning("finish child not started for %s (%s): finishing "
+                         "in-process", self.path, e)
+            return None
+
+    def _run(self) -> None:
+        t0 = time.time()
+        raw, spec_path, tmp = _finish_files(self.path)
+        try:
+            self._proc = self._spawn(spec_path)
+            if self._proc is None:
+                trace.finish_trace(**self._spec)
+            else:
+                _, err = self._proc.communicate()
+                if self._proc.returncode != 0:
+                    tail = err.decode(errors="replace").strip().splitlines()
+                    raise RuntimeError(
+                        f"finish child exited {self._proc.returncode}"
+                        + (f": {tail[-1]}" if tail else ""))
+            os.replace(tmp, self.path)
+            self.result = {"write_ms": int((time.time() - t0) * 1000),
+                           "write_bytes": os.path.getsize(self.path)}
+        except Exception as e:  # noqa: BLE001 - the finish is its own
+            # failure domain: the error reaches the manifest via wait().
+            self.error = f"trace finish failed: {e}"
+        finally:
+            _unlink_all(raw, spec_path, tmp)
+            self._done.set()
+
+    def wait(self, timeout_s: float = 120.0) -> dict:
+        """Blocks until the finish ended; returns {"write_ms",
+        "write_bytes"} or {"write_error": ...}. A child still running at
+        the timeout is killed (the finish then cleans up after it)."""
+        if not self._done.wait(timeout_s):
+            if self._proc is not None:
+                self._proc.kill()
+            return {"write_error":
+                    f"trace finish did not end within {timeout_s:g}s"}
+        if self.error is not None:
+            return {"write_error": self.error}
+        return dict(self.result)
 
 
 class TorchProfiler(CaptureKnobs):
@@ -674,15 +785,25 @@ class TorchProfiler(CaptureKnobs):
 
     An iteration capture's start(), step() and stop() run on the training
     thread (the TraceClient calls them from its step()), and step() marks
-    torch.profiler's own ProfilerStep#N spans. A capture the poll thread
-    opens (``start(trace_dir, all_threads=True)``: a duration window, the
-    warmup) records every thread's ops (``profile_all_threads``) and is
-    stopped on the poll thread; the training thread's step() then only
-    marks the step times, and export() writes them as those spans on its
-    thread. export() may run on any thread after stop() — the
-    TraceClient's poll thread calls it. At host level 0 export() drops the
-    host ops and writes the steps too. With every tracer off, start()
-    raises."""
+    torch.profiler's own ProfilerStep#N spans. The TraceClient opens it
+    with ``lead=True`` one step before its window (``lead_step``): records
+    lost to a slow start then fall in that step, which the finish trims.
+    A capture the poll thread opens (``start(trace_dir, all_threads=True)``:
+    a duration window, the warmup) records every thread's ops
+    (``profile_all_threads``) and is stopped on the poll thread; the
+    training thread's step() then only marks the step times, which the
+    finish adds as those spans. At host level 0 the finish drops the host
+    ops and adds the steps too. With every tracer off, start() raises.
+
+    export() may run on any thread after stop() — the TraceClient's poll
+    thread calls it. It saves kineto's trace in this process, then
+    finishes it where the capture needs a finish (trace.finish_trace): in
+    this process, or with ``pipelined=True`` in a PendingWrite that the
+    caller takes with take_pending_write() and waits on before the trace
+    is complete."""
+
+    # The TraceClient opens an iteration window one step early.
+    lead_step = True
 
     def __init__(self):
         super().__init__()
@@ -691,8 +812,11 @@ class TorchProfiler(CaptureKnobs):
         self._clock: _StepClock | None = None
         self._host_on = True
         self._all_threads = False
+        self._lead = False
+        self._pending_write: PendingWrite | None = None
 
-    def start(self, trace_dir: str, all_threads: bool = False) -> None:
+    def start(self, trace_dir: str, all_threads: bool = False,
+              lead: bool = False) -> None:
         import torch
         from torch.profiler import ProfilerAction, profile
 
@@ -705,6 +829,7 @@ class TorchProfiler(CaptureKnobs):
         opts = profile_options(levels, torch.cuda.is_available())
         self._host_on = levels["host_tracer_level"] >= 1
         self._all_threads = all_threads
+        self._lead = lead
         if opts["activities"]:
             if all_threads:
                 from torch._C._profiler import _ExperimentalConfig
@@ -721,8 +846,9 @@ class TorchProfiler(CaptureKnobs):
                 opts["schedule"] = lambda _step: ProfilerAction.RECORD
             self._prof = profile(**opts)
             self._prof.start()
-        # The first span opens once the profiler records, as torch's does.
-        self._clock = _StepClock(at_step=not all_threads)
+        # The first span opens once the window's steps begin, as torch's
+        # does.
+        self._clock = _StepClock(at_step=not (all_threads or lead))
 
     def step(self) -> None:
         self._clock.mark()
@@ -736,24 +862,62 @@ class TorchProfiler(CaptureKnobs):
             prof.stop()
         self._stopped = prof
 
-    def export(self, trace_dir: str) -> str:
-        """Writes the stopped capture's Chrome trace into `trace_dir`
-        (tmp + rename) and returns its path."""
+    def _finish_spec(self, path: str, profile_top: int | None
+                     ) -> dict | None:
+        """trace.finish_trace's arguments for the stopped capture, None
+        where kineto's save is final: an iteration window with the host
+        tracer on, no lead step and no profile."""
+        steps = self._all_threads or not self._host_on
+        if not (steps or self._lead or profile_top is not None):
+            return None
+        raw, _, tmp = _finish_files(path)
+        spec = {"raw": raw, "out": tmp,
+                "steps": self._clock.spec() if steps else None,
+                "drop_host": not self._host_on,
+                "lead_ns": self._clock.times[0] if self._lead else None}
+        if profile_top is not None:
+            spec.update(profile=path[: -len(TRACE_SUFFIX)]
+                        + SAMPLE_PROFILE_SUFFIX,
+                        top=profile_top)
+        return spec
+
+    def export(self, trace_dir: str, pipelined: bool = False,
+               profile_top: int | None = None) -> str:
+        """Saves the stopped capture's Chrome trace into `trace_dir` and
+        returns the path it lands at (tmp + rename). With `pipelined` a
+        capture that needs a finish is complete only once its
+        PendingWrite (take_pending_write) is; with `profile_top` the
+        finish also writes the trace's compact_profile(top) at the
+        PendingWrite's profile_path."""
         prof, self._stopped = self._stopped, None
         path = os.path.join(trace_dir, _unique_run_name() + TRACE_SUFFIX)
-        tmp = path + ".tmp"
+        spec = self._finish_spec(path, profile_top)
+        raw, _, tmp = _finish_files(path)
+        saved = tmp if spec is None else raw
         try:
             if prof is not None:
-                prof.export_chrome_trace(tmp)
-            if self._all_threads or not self._host_on:
-                _write_steps(tmp, self._clock, drop_host=not self._host_on)
-            os.replace(tmp, path)
-        finally:
-            try:
-                os.unlink(tmp)  # no-op after a successful rename
-            except OSError:
-                pass
+                prof.export_chrome_trace(saved)
+            if spec is None:
+                os.replace(saved, path)
+            elif pipelined:
+                self._pending_write = PendingWrite(spec, path)
+                return path
+            else:
+                trace.finish_trace(**spec)
+                os.replace(tmp, path)
+        except BaseException:
+            _unlink_all(raw, tmp)
+            raise
+        _unlink_all(raw)
         return path
+
+    def take_pending_write(self) -> PendingWrite | None:
+        """Hands the caller the pending finish of the capture export()
+        just saved with ``pipelined=True`` (None where kineto's save was
+        final). The caller must wait() on it before the trace is
+        complete."""
+        pending, self._pending_write = self._pending_write, None
+        return pending
 
 
 class RecordingProfiler(CaptureKnobs):
@@ -801,10 +965,13 @@ class _Window:
     the client's window, step() marks its steps. Every transition happens
     under the client's step condition."""
 
-    def __init__(self, trace_dir: str, start_at: int, end_at: int | None):
+    def __init__(self, trace_dir: str, start_at: int, end_at: int | None,
+                 lead: int = 0):
         self.trace_dir = trace_dir
-        self.start_at = start_at  # iteration mode: the count that starts it
+        self.start_at = start_at  # iteration mode: the window's first count
         self.end_at = end_at  # iteration mode: the count that stops it
+        # Iteration mode: the steps the profiler opens before start_at.
+        self.lead = lead
         self.state = "armed"
         self.error: str | None = None
         self.timing: dict = {}
@@ -884,6 +1051,10 @@ class TraceClient:
             CaptureRing(ring_cfg) if ring_cfg.every_n_steps > 0 else None)
         # Summary children of completed captures (see _spawn_summary).
         self.summary_procs: list[subprocess.Popen] = []
+        # Finisher threads of pipelined captures (_finish_pipelined), and
+        # the lock that serializes the captures' manifests.
+        self._finishers: list[threading.Thread] = []
+        self._finish_lock = threading.Lock()
         self.instance_rank: int | None = None
         self.traces_completed = 0
         self.last_error: str | None = None
@@ -934,12 +1105,17 @@ class TraceClient:
     def stop(self) -> None:
         """Stops polling. Call it from the training thread: an iteration
         capture still open there is stopped and dropped (a duration
-        capture is closed by the poll thread, which stop() joins)."""
+        capture is closed by the poll thread, which stop() joins), and
+        every capture still finishing writes its manifest first."""
         self._stop.set()
         with self._step_cv:
             self._step_cv.notify_all()
         if self._thread:
             self._thread.join(timeout=5)
+        for finisher in self._finishers:
+            # No capture's manifest or span flush is stranded by shutdown.
+            finisher.join(timeout=30)
+        self._finishers = []
         with self._step_cv:
             window = self._window
             if (window is not None and window.state in ("active", "abandoned")
@@ -990,10 +1166,13 @@ class TraceClient:
             # profile is not thread-safe); here it only marks a step.
             self.profiler.step()
             return
-        if w.state == "armed" and count >= w.start_at:
+        if w.state == "armed" and count >= w.start_at - w.lead:
             t0 = time.time()
             try:
-                self.profiler.start(w.trace_dir)
+                if w.lead:
+                    self.profiler.start(w.trace_dir, lead=True)
+                else:
+                    self.profiler.start(w.trace_dir)
             except Exception as e:  # noqa: BLE001 - never kill the app
                 w.error = f"profiler start failed: {e}"
                 w.state = "stopped"
@@ -1083,7 +1262,7 @@ class TraceClient:
                 text = self._client.take_late_config()
             if text:
                 try:
-                    self._run_trace(TraceConfig.parse(text))
+                    self._run_trace(TraceConfig.parse(text), pipelined=True)
                 except Exception as e:  # noqa: BLE001 - never kill the app
                     self.last_error = f"trace failed: {e}"
             try:
@@ -1197,17 +1376,37 @@ class TraceClient:
 
     # -- one capture (poll thread) ---------------------------------------
 
-    def _ring_sample(self, trace_dir: str) -> tuple[str, dict]:
+    def _ring_sample(self, trace_dir: str) -> tuple:
         """One ring window, a duration capture on this (the poll) thread,
-        exported into `trace_dir`. Returns the trace path and the window's
-        timing."""
+        saved into `trace_dir`. Returns the trace (its PendingWrite, whose
+        finish also writes the compact profile, where the profiler hands
+        one over, else its path) and the window's timing with the save's
+        export_ms."""
         error, window = self._capture_window(
             TraceConfig(duration_ms=self.ring.config.window_ms), trace_dir)
         if error:
             raise RuntimeError(error)
-        return self.profiler.export(trace_dir), dict(window.timing)
+        t0 = time.time()
+        trace_file, pending = self._export(
+            trace_dir, profile_top=self.ring.config.top_ops)
+        return pending or trace_file, {
+            **window.timing, "export_ms": int((time.time() - t0) * 1000)}
 
-    def _run_trace(self, cfg: TraceConfig) -> None:
+    def _export(self, trace_dir: str, **kw) -> tuple:
+        """The stopped capture's save: (trace path, its PendingWrite or
+        None where the trace is complete as saved). A profiler without
+        take_pending_write (RecordingProfiler) exports in full."""
+        take = getattr(self.profiler, "take_pending_write", None)
+        if take is None:
+            return self.profiler.export(trace_dir), None
+        return self.profiler.export(trace_dir, pipelined=True, **kw), take()
+
+    def _run_trace(self, cfg: TraceConfig, pipelined: bool = False) -> None:
+        """One capture, to its manifest. The poll loop runs it
+        `pipelined`: where the trace needs a finish, a finisher thread
+        waits on it and writes the manifest, and this returns once kineto
+        has saved the trace; otherwise the manifest is written before it
+        returns."""
         # Fault drill: shim.run_trace=throw proves the poll loop contains
         # a capture-path crash (last_error set, polling continues).
         failpoints.fire("shim.run_trace")
@@ -1234,7 +1433,7 @@ class TraceClient:
             delay = cfg.start_time_ms / 1000.0 - time.time()
             if delay > 0:
                 time.sleep(delay)
-        trace_file = None
+        trace_file = pending = None
         with obs.span("shim.capture", ctx=ctx):
             error, window = self._capture_window(cfg, trace_dir)
         timing = {"received_ms": received_ms, **window.timing}
@@ -1242,13 +1441,47 @@ class TraceClient:
             with obs.span("shim.export", ctx=ctx):
                 t0 = time.time()
                 try:
-                    trace_file = self.profiler.export(trace_dir)
+                    trace_file, pending = self._export(trace_dir)
                     timing["export_ms"] = int((time.time() - t0) * 1000)
-                    timing["trace_bytes"] = os.path.getsize(trace_file)
+                    if pending is None:
+                        timing["trace_bytes"] = os.path.getsize(trace_file)
                 except Exception as e:  # noqa: BLE001 - fails the capture
                     error = f"trace export failed: {e}"
-        self._finish_trace(cfg, pid, trace_dir, trace_file,
-                           window.started_ms, error, timing, ctx)
+        args = (cfg, pid, trace_dir, trace_file, window.started_ms, error,
+                timing, ctx)
+        if pending is None:
+            self._finish_trace(*args)
+        elif not pipelined:
+            self._finish_pipelined(pending, *args)
+        else:
+            # The poll loop goes back to serving configs while the finish
+            # child runs; the finisher owns this capture's manifest.
+            finisher = threading.Thread(
+                target=self._finish_pipelined, args=(pending, *args),
+                name="dynolog_tpu_torch_trace_finisher", daemon=True)
+            finisher.start()
+            self._finishers = [
+                t for t in self._finishers if t.is_alive()] + [finisher]
+
+    def _finish_pipelined(self, pending: PendingWrite, cfg, pid, trace_dir,
+                          trace_file, started_ms, error, timing, ctx
+                          ) -> None:
+        """A capture's tail once its trace is saved: waits out the finish,
+        folds its write_ms and write_bytes into the manifest's timing
+        (trace_bytes: the finished trace's) and writes the manifest. A
+        failed finish fails the capture loudly; it left no trace or tmp
+        behind."""
+        try:
+            done = pending.wait()
+            write_error = done.pop("write_error", None)
+            timing.update(done)
+            if "write_bytes" in done:
+                timing["trace_bytes"] = done["write_bytes"]
+            self._finish_trace(cfg, pid, trace_dir, trace_file, started_ms,
+                               error or write_error, timing, ctx)
+        except Exception as e:  # noqa: BLE001 - the finisher must never die
+            # silently: the manifest is the completion signal.
+            self.last_error = f"trace finalize failed: {e}"
 
     def _capture_window(self, cfg: TraceConfig, trace_dir: str):
         """Runs one capture's window; returns (error or None, window). A
@@ -1288,7 +1521,14 @@ class TraceClient:
             # the window always begins at a future iteration.
             roundup = max(cfg.iteration_roundup, 1)
             start_at = ((base // roundup) + 1) * roundup
-            window = _Window(trace_dir, start_at, start_at + cfg.iterations)
+            lead = 1 if getattr(self.profiler, "lead_step", False) else 0
+            if start_at - lead <= base:
+                # The lead step's step() has passed (always at roundup
+                # 1): the window moves to the next boundary, so that it
+                # still has its lead.
+                start_at += roundup
+            window = _Window(trace_dir, start_at, start_at + cfg.iterations,
+                             lead)
             if self._window is not None:
                 return (_BUSY, window)
             self._window = window
@@ -1297,8 +1537,9 @@ class TraceClient:
                 timeout=self.step_start_timeout_s)
             if window.state == "armed":
                 self._window = None
+                # The step named is the one that opens the profiler.
                 return (f"trace aborted: app did not reach step "
-                        f"{window.start_at} within "
+                        f"{window.start_at - window.lead} within "
                         f"{self.step_start_timeout_s:g}s (at "
                         f"{self._step_count})"
                         if not opened else "trace aborted: client stopped",
@@ -1321,47 +1562,51 @@ class TraceClient:
     def _finish_trace(self, cfg, pid, trace_dir, trace_file, started_ms,
                       error, timing, ctx) -> None:
         """Writes the manifest at the path dyno prints (log_file_<pid>.json):
-        status is "ok" only if the Chrome trace is on disk."""
-        if error is None and not (trace_file and os.path.exists(trace_file)):
-            error = "capture produced no trace file"
-        manifest = {
-            "pid": pid,
-            "job_id": self.job_id,
-            "trace_dir": trace_dir,
-            "trace_file": trace_file,
-            "started_ms": started_ms,
-            "ended_ms": int(time.time() * 1000),
-            "mode": "iterations" if cfg.iterations > 0 else "duration",
-            "config": cfg.raw,
-            "status": "error" if error else "ok",
-            "timing": timing,
-            "trace_ctx": ctx.header(),
-        }
-        if error:
-            manifest["error"] = error
-            self.last_error = error
-        # Atomic: the manifest's existence IS the completion signal. A
-        # refused write (ENOSPC, or the trace.artifact.write drill) leaves
-        # nothing behind and lands in last_error.
-        wrote = False
-        with obs.span("shim.artifact_write", ctx=ctx):
+        status is "ok" only if the Chrome trace is on disk. Finishers and
+        the poll thread write their captures' manifests one at a time."""
+        with self._finish_lock:
+            if error is None and not (
+                    trace_file and os.path.exists(trace_file)):
+                error = "capture produced no trace file"
+            manifest = {
+                "pid": pid,
+                "job_id": self.job_id,
+                "trace_dir": trace_dir,
+                "trace_file": trace_file,
+                "started_ms": started_ms,
+                "ended_ms": int(time.time() * 1000),
+                "mode": "iterations" if cfg.iterations > 0 else "duration",
+                "config": cfg.raw,
+                "status": "error" if error else "ok",
+                "timing": timing,
+                "trace_ctx": ctx.header(),
+            }
+            if error:
+                manifest["error"] = error
+                self.last_error = error
+            # Atomic: the manifest's existence IS the completion signal.
+            # A refused write (ENOSPC, or the trace.artifact.write drill)
+            # leaves nothing behind and lands in last_error.
+            wrote = False
+            with obs.span("shim.artifact_write", ctx=ctx):
+                try:
+                    failpoints.fire("trace.artifact.write")
+                    stream_write(cfg.manifest_path(pid),
+                                 [json.dumps(manifest, indent=2).encode()])
+                    wrote = True
+                except OSError as e:
+                    self.last_error = f"manifest write refused: {e}"
+            self.last_manifest = manifest
+            if wrote and not error:
+                self.traces_completed += 1
+                if getattr(self.profiler, "export_trace_json", True):
+                    self._spawn_summary(trace_file, ctx)
+            # Ship this capture's spans to the daemon (fire-and-forget).
             try:
-                failpoints.fire("trace.artifact.write")
-                stream_write(cfg.manifest_path(pid),
-                             [json.dumps(manifest, indent=2).encode()])
-                wrote = True
+                self._client.send_spans(obs.JOURNAL.drain(),
+                                        dest=self.endpoint)
             except OSError as e:
-                self.last_error = f"manifest write refused: {e}"
-        self.last_manifest = manifest
-        if wrote and not error:
-            self.traces_completed += 1
-            if getattr(self.profiler, "export_trace_json", True):
-                self._spawn_summary(trace_file, ctx)
-        # Ship this capture's spans to the daemon (fire-and-forget).
-        try:
-            self._client.send_spans(obs.JOURNAL.drain(), dest=self.endpoint)
-        except OSError as e:
-            self.last_error = f"span flush failed: {e}"
+                self.last_error = f"span flush failed: {e}"
 
     def _spawn_summary(self, trace_file: str, ctx) -> None:
         """Writes <run>.summary.json beside a completed capture's trace
@@ -1371,11 +1616,7 @@ class TraceClient:
         starts after the manifest, so the capture's latency does not
         include it. The child records a trace.convert span under the
         capture's context and flushes it to the daemon."""
-        pkg_parent = os.path.dirname(os.path.dirname(
-            os.path.abspath(dynolog_tpu_torch.__file__)))
-        env = dict(os.environ)
-        env["PYTHONPATH"] = pkg_parent + (
-            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        env = _child_env()
         env[obs.ENV_TRACE_CTX] = ctx.header()
         env[obs.ENV_FLUSH_ENDPOINT] = self.endpoint
         code = ("import os; os.nice(19); "

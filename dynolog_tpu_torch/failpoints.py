@@ -39,6 +39,8 @@ Instrumented sites (see docs/RELIABILITY.md for the catalog)::
     trace.artifact.write  the capture manifest's atomic write
     shim.export_spawn     starting a capture's summary child (error: the
                           capture completes without a summary)
+    shim.finish_spawn     starting a capture's finish child (error: the
+                          trace is finished on the PendingWrite's thread)
     trace.convert         the summary child's entry (throw: the child dies
                           the way a crash kills it)
     cluster.rpc_connect   FramedRpcClient's connect (error: the host reads

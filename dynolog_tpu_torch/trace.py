@@ -29,6 +29,12 @@ so the aggregation and its rounding are the JAX package's. A kernel row's
 ``shapes`` are the input shapes of the ``cpu_op`` that launched it (joined
 by ``External id``), not a result shape: torch.profiler records inputs.
 
+``finish_trace`` is the other half of a capture's save: the shim's finish
+child runs it over the trace kineto wrote (adding the shim's step spans,
+dropping the host ops at host level 0 and an iteration window's lead
+step, and promoting a ring sample to its compact profile), so that no
+parse of a trace runs in the traced process.
+
 CLI::
 
     python -m dynolog_tpu_torch.trace <trace_dir | manifest.json | file>
@@ -346,6 +352,118 @@ def write_derived_artifacts(trace_path: str) -> list[str]:
     return written
 
 
+# What a capture at host level 0 drops from its trace, where the CPU
+# activity ran for the Python tracer alone: torch's host ops, the
+# autograd flows between them, and its own annotations (the
+# ProfilerStep#N spans among them, and their projection onto the device
+# timeline).
+HOST_OP_CATEGORIES = ("cpu_op", "fwdbwd", "user_annotation",
+                      "gpu_user_annotation")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def step_events(times: list, tid: int, pid: int, base_ns: int) -> list[dict]:
+    """ProfilerStep#N spans from step() times (epoch ns), span N from the
+    N-th time to the next, as Chrome-trace events on a time base of
+    `base_ns` (a kineto trace's baseTimeNanoseconds: its ts plus the base
+    is epoch time in microseconds)."""
+    return [{"ph": "X", "cat": "user_annotation",
+             "name": f"{STEP_PREFIX}{n}", "pid": pid, "tid": tid,
+             "ts": (t0 - base_ns) / 1e3, "dur": (t1 - t0) / 1e3,
+             "args": {"source": "shim"}}
+            for n, (t0, t1) in enumerate(zip(times, times[1:]))]
+
+
+def _trim_lead(events: list, lead_us: float) -> list:
+    """The events of a trace recorded from one step before its window,
+    without that lead step: the window opens at the trace's own
+    ProfilerStep#1 span where torch recorded one, else at `lead_us`. Gone
+    are the host events that ended before it (those that straddle it are
+    cut to start there), the runtime launches made before it, their flows
+    and every device record of theirs (joined by correlation, wherever it
+    ran), a device record with no launch that started before it, and
+    ProfilerStep#0; torch's later spans are numbered from 0 again."""
+    cut = min((float(e["ts"]) for e in events
+               if e.get("cat") == "user_annotation"
+               and e.get("name") == f"{STEP_PREFIX}1"), default=lead_us)
+    launched, dropped = set(), set()
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") in LAUNCH_CATS and corr is not None:
+            (dropped if float(e.get("ts", 0)) < cut else launched).add(corr)
+    kept = []
+    for e in events:
+        ph, cat, ts = e.get("ph"), e.get("cat"), float(e.get("ts", 0))
+        corr = (e.get("args") or {}).get("correlation")
+        if ph == "M":
+            kept.append(e)
+        elif cat in DEVICE_CATS:
+            if corr not in dropped and (corr in launched or ts >= cut):
+                kept.append(e)
+        elif cat in LAUNCH_CATS or ph in ("s", "f", "t"):
+            if (e.get("id") if cat == "ac2g" else corr) in dropped or (
+                    cat != "ac2g" and ts < cut):
+                continue
+            kept.append(e)
+        elif _step_number(e.get("name", "")) is not None and cat in (
+                "user_annotation", "gpu_user_annotation"):
+            n = _step_number(e["name"])
+            if n >= 1:
+                kept.append({**e, "name": f"{STEP_PREFIX}{n - 1}"})
+        elif ph == "X":
+            end = ts + float(e.get("dur", 0))
+            if end > cut:
+                kept.append(e if ts >= cut else {**e, "ts": cut,
+                                                 "dur": end - cut})
+        elif ts >= cut:
+            kept.append(e)
+    return kept
+
+
+def finish_trace(raw: str, out: str, steps: dict | None = None,
+                 drop_host: bool = False, lead_ns: int | None = None,
+                 profile: str | None = None, top: int = 40) -> int:
+    """Finishes a capture's Chrome trace as kineto saved it at `raw`,
+    reading it once, and writes it to `out` (`raw` itself may be `out`):
+    without the host ops (HOST_OP_CATEGORIES) where `drop_host`; without
+    the lead step (see _trim_lead) where the window recorded from one
+    step early, `lead_ns` being the epoch ns of its first step; with the
+    spans of `steps` ({"times", "tid", "pid"}: see step_events) added,
+    or only those where kineto saved no trace. With `profile`, also
+    writes the finished trace's compact_profile(top) there. Returns the
+    finished trace's bytes. The shim runs this in a child process."""
+    if os.path.exists(raw):
+        with open(raw) as f:
+            doc = json.load(f)
+    else:
+        doc = {"schemaVersion": 1, "traceEvents": [],
+               "displayTimeUnit": "ms",
+               "baseTimeNanoseconds": steps["times"][0] // 10**9 * 10**9}
+    base_ns = doc.get("baseTimeNanoseconds", 0)
+    events = doc["traceEvents"]
+    if lead_ns is not None:
+        events = _trim_lead(events, (lead_ns - base_ns) / 1e3)
+    if drop_host:
+        events = [e for e in events if e.get("cat") not in HOST_OP_CATEGORIES]
+    if steps is not None:
+        events.extend(step_events(base_ns=base_ns, **steps))
+    doc["traceEvents"] = events
+    data = json.dumps(doc).encode()  # one-shot: the C encoder
+    with open(out, "wb") as f:
+        f.write(data)
+    if profile is not None:
+        stream_write(profile, [json.dumps(
+            _compact(events, len(data), top, group=False)).encode()])
+    return len(data)
+
+
+def finish_capture(spec_path: str) -> int:
+    """The shim's finish child's entry point: finish_trace with the
+    keyword arguments of the JSON file at `spec_path`."""
+    with open(spec_path) as f:
+        return finish_trace(**json.load(f))
+
+
 def find_trace_files(target: str) -> list[str]:
     """Resolve a shim manifest (its trace_file, else its trace_dir), a
     trace dir (the newest *.pt.trace.json under it) or a trace file."""
@@ -380,9 +498,13 @@ def compact_profile(data: bytes, top: int = 40, group: bool = False) -> dict:
     comparable: the summarize() output with the op table capped at `top`
     rows plus the trace's size. group=False by default: per-kernel rows
     (template arguments kept) are the diagnosable unit."""
-    profile = _summarize_planes(summarize_trace_bytes(data, group=group))
+    return _compact(json.loads(data)["traceEvents"], len(data), top, group)
+
+
+def _compact(events: list, n_bytes: int, top: int, group: bool) -> dict:
+    profile = _summarize_planes(summarize_trace_events(events, group=group))
     profile["top_ops"] = profile["top_ops"][:top]
-    profile["trace_bytes"] = len(data)
+    profile["trace_bytes"] = n_bytes
     return profile
 
 

@@ -56,26 +56,36 @@ window made or whose flash_fwd calls are not 4 (launches lost, flash_fwd
 calls, start ms; in the poll arm, launches of the window's first 100 ms
 only, and any number of calls) and the start's ms.
 
-With --shim-starts N (one card) it takes 2N iteration captures of two
-steps of that trainer through the port's TraceClient itself, its window
-armed as the poll thread arms one and driven by this thread's step(),
-in two arms in turns: the shim as it is (start_alone: the window's first
-step() starts the profiler in one call), and the shim with the profiler
-prepared (collection on, torch's WARMUP schedule) at the step() before
-the window, the card synchronized and recording started at its first
-(prepared; PreparedClient and PreparedProfiler below). It prints, per
-arm, the lossy captures as --starts does (a launch without its kernel
-record, or flash_fwd calls other than 4) and the manifest's
-profiler_start_ms, and a one-sided Fisher exact p for "start_alone
-loses more often".
+With --shim-starts N (one card) it takes captures of that trainer
+through the port's TraceClient itself, a window armed as the poll thread
+arms one while this thread trains and calls step(): in one process 2N
+two-step iteration windows in two arms in turns, the profiler opened at
+the window's first step() (start_alone: a TorchProfiler without a lead
+step) or one step() early, the lead step trimmed by the finish (lead:
+the shim as it is); in a second process N 200 ms duration windows on the
+poll thread (duration). A process that mixes the two kinds ends up with
+no kernel record in any trace (ROADMAP C17); each process stops once 12
+captures in a row hold none. Each trace is saved and finished as the
+shim does it (its PendingWrite waited on). It prints, per arm, the lossy
+captures as --starts does (a launch without its kernel record, in a
+duration window among the launches of its first 100 ms only; or, in an
+iteration window, flash_fwd calls other than 4), each with its index,
+and the manifest's profiler_start_ms, and a one-sided Fisher exact p for
+"start_alone loses more often than lead".
 
 With --ring N (one card) it takes N ring samples (the shim's 200 ms
 duration window on a side thread, TraceClient._ring_sample, a second
-apart) in one process of that trainer, once without and once with the
-shim's profiler warmup first (a fresh process each, the warmup on the
-side thread as the poll loop runs it), and prints, per sample, the
-profiler's start, stop and export ms, the steps that overlap the stop
-and the export, and the median step.
+apart, each waited on until its finish child is done) in one process of
+that trainer, three times in fresh processes: without the shim's
+profiler warmup, with it (on the side thread, as the poll loop runs
+it), and with it at Python tracer level 0. Per sample it prints the
+profiler's start ms; its stop ms split into the card's synchronize in
+torch's profile.__exit__, the _disable_profiler call (kineto's
+collection and, with Python frames on, the Python tracer's
+post-processing) and the rest; kineto's save (export_ms) and the finish
+child's write_ms; the steps that overlap the stop and save and
+those that began while the child ran (chip_smoke.finish_steps); and the
+median step.
 """
 
 import json
@@ -267,11 +277,11 @@ def _stop_case(trainer, mode: str) -> dict:
 
 
 def _launches_without_kernel(path: str, since: float = 0.0
-                             ) -> tuple[int, int]:
+                             ) -> tuple[int, int, int]:
     """The kernel launches in a Chrome trace that have no device record,
-    and the trace's flash_fwd kernels. With `since` (a duration window's
-    epoch start, s), only launches in the window's first 100 ms count: a
-    launch near its end may run after the stop."""
+    the trace's flash_fwd kernels and all its kernels. With `since` (a
+    duration window's epoch start, s), only launches in the window's
+    first 100 ms count: a launch near its end may run after the stop."""
     with open(path) as f:
         doc = json.load(f)
     events, base_us = doc["traceEvents"], doc["baseTimeNanoseconds"] / 1e3
@@ -282,9 +292,9 @@ def _launches_without_kernel(path: str, since: float = 0.0
                and (e.get("args") or {}).get("correlation") not in device
                and (not since or e["ts"] + base_us < since * 1e6 + 1e5)
                for e in events)
-    return lost, sum(e.get("cat") == "kernel"
-                     and "flash_fwd_kernel" in e.get("name", "")
-                     for e in events)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return lost, sum("flash_fwd_kernel" in e.get("name", "")
+                     for e in kernels), len(kernels)
 
 
 def _poll_window(prof, trainer) -> tuple[float, float]:
@@ -352,7 +362,7 @@ def starts(n: int) -> int:
         else:
             path = os.path.join(tmp, "w.json")
             prof.export_chrome_trace(path)
-        lost, fwd = _launches_without_kernel(path, since)
+        lost, fwd, _ = _launches_without_kernel(path, since)
         os.unlink(path)
         arms[arm].append((lost, fwd, start))
     for arm, rows in arms.items():
@@ -376,83 +386,59 @@ def _fisher_greater(a: int, n_a: int, b: int, n_b: int) -> float:
                for i in range(a, min(k, n_a) + 1)) / total
 
 
-def _prepared_shim():
-    """The shim with an iteration window prepared a step early: the
-    TraceClient and TorchProfiler subclasses of the --shim-starts arm
-    `prepared`."""
-    from torch.profiler import ProfilerAction
-
-    from dynolog_tpu_torch.client.shim import (
-        TorchProfiler, TraceClient, _StepClock, profile_options)
-
-    class PreparedProfiler(TorchProfiler):
-        def prepare(self) -> None:
-            """Collection on, nothing recorded: torch's WARMUP step."""
-            opts = profile_options(self.levels, True)
-            opts["schedule"] = lambda step: (
-                ProfilerAction.WARMUP if step == 0 else ProfilerAction.RECORD)
-            self._host_on = self.levels["host_tracer_level"] >= 1
-            self._all_threads = False
-            self._prof = profile(**opts)
-            self._prof.start()
-
-        def start(self, trace_dir: str, all_threads: bool = False) -> None:
-            if self._prof is None:
-                return super().start(trace_dir, all_threads)
-            # The preparing step's kernels end before the window opens.
-            torch.cuda.synchronize()
-            self._prof.step()
-            self._clock = _StepClock()
-
-    class PreparedClient(TraceClient):
-        def _drive_window(self, w, count: int) -> None:
-            if w.end_at is not None and w.state == "armed" and not getattr(
-                    w, "prepare_s", None):
-                # The first step() after arming prepares; the window opens
-                # at the next one at the earliest.
-                t0 = time.time()
-                self.profiler.prepare()
-                w.prepare_s = time.time() - t0
-                iterations = w.end_at - w.start_at
-                w.start_at = max(w.start_at, count + 1)
-                w.end_at = w.start_at + iterations
-                return
-            opening = w.state == "armed"
-            super()._drive_window(w, count)
-            if opening and w.state == "active":
-                # The profiler's start, split over the two steps.
-                w.timing["profiler_start_ms"] += int(w.prepare_s * 1000)
-
-    return PreparedClient, PreparedProfiler
+# The arms of --shim-starts, each tuple in a process of its own: a process
+# that mixes poll-thread (profile_all_threads) windows with training-thread
+# ones ends up with no kernel record in any trace (ROADMAP C17).
+SHIM_PROCESSES = (("start_alone", "lead"), ("duration",))
 
 
 def shim_starts(n: int) -> int:
+    rc = 0
+    for arms in SHIM_PROCESSES:
+        out = subprocess.run(
+            [sys.executable, __file__, "--shim-starts-child", str(n),
+             ",".join(arms)], capture_output=True, text=True, timeout=3000)
+        print(out.stdout, end="", flush=True)
+        if out.returncode != 0:
+            rc = 1
+            print(f"shim-starts child {arms} exited {out.returncode}: "
+                  f"{out.stderr[-3000:]}", flush=True)
+    return rc
+
+
+def shim_starts_child(n: int, arms: tuple) -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import chip_smoke as cs
 
-    from dynolog_tpu_torch.client.shim import TraceClient, TraceConfig
+    from dynolog_tpu_torch.client.shim import (
+        TorchProfiler, TraceClient, TraceConfig)
     from dynolog_tpu_torch.ops import _build
 
-    PreparedClient, PreparedProfiler = _prepared_shim()
+    class NoLead(TorchProfiler):
+        lead_step = False
 
     _build.build_all()
     trainer = cs.Trainer(cs.dense_config())
     tmp = tempfile.mkdtemp()
     clients = {
-        "prepared": PreparedClient(job_id=1, endpoint="unused",
-                                   profiler=PreparedProfiler()),
-        "start_alone": TraceClient(job_id=1, endpoint="unused")}
-    rows = {arm: [] for arm in clients}
-    for i in range(2 * n):
-        arm = ("prepared", "start_alone")[i % 2]
+        "start_alone": TraceClient(job_id=1, endpoint="unused",
+                                   profiler=NoLead()),
+        "lead": TraceClient(job_id=1, endpoint="unused"),
+        "duration": TraceClient(job_id=1, endpoint="unused")}
+    rows = {arm: [] for arm in arms}
+    blank = 0  # consecutive captures with no kernel record at all
+    for i in range(len(arms) * n):
+        arm = arms[i % len(arms)]
         client = clients[arm]
         for _ in range(2):
             trainer.step()
             client.step()
+        cfg = (TraceConfig(duration_ms=int(WORK_S * 1000))
+               if arm == "duration" else TraceConfig(iterations=2))
         out = {}
         poll = threading.Thread(target=lambda: out.update(
-            r=client._capture_window(TraceConfig(iterations=2), tmp)))
+            r=client._capture_window(cfg, tmp)))
         poll.start()
         while poll.is_alive():
             trainer.step()
@@ -461,27 +447,73 @@ def shim_starts(n: int) -> int:
         error, window = out["r"]
         if error:
             raise RuntimeError(f"{arm} capture {i}: {error}")
-        path = client.profiler.export(tmp)
-        lost, fwd = _launches_without_kernel(path)
+        path, pending = client._export(tmp)
+        if pending is not None and "write_error" in (done := pending.wait()):
+            raise RuntimeError(f"{arm} capture {i}: {done}")
+        lost, fwd, kernels = _launches_without_kernel(
+            path, window.started_ms / 1e3 if arm == "duration" else 0.0)
         os.unlink(path)
-        rows[arm].append((lost, fwd, window.timing["profiler_start_ms"]))
+        rows[arm].append((lost, fwd, window.timing["profiler_start_ms"], i))
+        blank = blank + 1 if not kernels else 0
+        if blank == 12:
+            print(json.dumps({"case": "shim_starts", "error": "12 captures "
+                              f"in a row hold no kernel record, from capture "
+                              f"{i - 11} on"}), flush=True)
+            break
     lossy = {}
     for arm, got in rows.items():
         starts_ms = sorted(r[2] for r in got)
-        lossy[arm] = [r for r in got if r[0] or r[1] != 4]
+        lossy[arm] = [r for r in got
+                      if r[0] or (arm != "duration" and r[1] != 4)]
         print(json.dumps({
             "case": "shim_starts", "arm": arm, "captures": len(got),
             "lossy": lossy[arm],
             "start_ms_median": starts_ms[len(starts_ms) // 2],
             "starts_of_20_ms_or_more": sum(x >= 20 for x in starts_ms),
             "start_ms_max": starts_ms[-1]}), flush=True)
-    print(json.dumps({"case": "shim_starts", "fisher_p_start_alone_loses_more":
-                      _fisher_greater(len(lossy["start_alone"]), n,
-                                      len(lossy["prepared"]), n)}))
+    if {"start_alone", "lead"} <= set(lossy):
+        print(json.dumps({
+            "case": "shim_starts", "fisher_p_start_alone_loses_more":
+            _fisher_greater(len(lossy["start_alone"]), n,
+                            len(lossy["lead"]), n)}))
     return 0
 
 
-def ring_child(n: int, warmup: bool) -> int:
+def _split_stops(prof, splits: list) -> None:
+    """Wraps the TorchProfiler's stop to split each stop (ms) into the
+    card's synchronize in torch's profile.__exit__, the _disable_profiler
+    call (kineto's collection and the Python tracer's post-processing;
+    torch's own _stats) and the rest."""
+    stop = prof.stop
+
+    def split() -> None:
+        p, syncs, sync = prof._prof, [], torch.cuda.synchronize
+        me = threading.get_ident()
+
+        def timed_sync(*a, **kw):
+            t = time.perf_counter()
+            sync(*a, **kw)
+            if threading.get_ident() == me:
+                syncs.append(time.perf_counter() - t)
+
+        torch.cuda.synchronize = timed_sync
+        t0 = time.perf_counter()
+        try:
+            stop()
+        finally:
+            torch.cuda.synchronize = sync
+        total = (time.perf_counter() - t0) * 1e3
+        disable = p.profiler._stats.profiler_disable_call_duration_us / 1e3
+        splits.append({"stop_ms": round(total, 1),
+                       "sync_ms": round(sum(syncs) * 1e3, 1),
+                       "disable_ms": round(disable, 1),
+                       "rest_ms": round(total - sum(syncs) * 1e3 - disable,
+                                        1)})
+
+    prof.stop = split
+
+
+def ring_child(n: int, warmup: bool, python: bool) -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import chip_smoke as cs
@@ -495,20 +527,23 @@ def ring_child(n: int, warmup: bool) -> int:
     client = TraceClient(job_id=1, endpoint="unused", warmup_profiler=warmup,
                          ring=RingConfig(every_n_steps=10**9, window_ms=200,
                                          dir=tmp))
-    spans, samples, done = [], [], threading.Event()
+    if not python:
+        client.profiler.configure({"PROFILE_PYTHON_TRACER_LEVEL": "0"})
+    spans, samples, splits, done = [], [], [], threading.Event()
 
     def poll():
         try:
             if warmup:
                 client._warmup()
+            _split_stops(client.profiler, splits)
             for i in range(n):
                 time.sleep(1.0)
                 t0 = time.time() * 1e3
                 trace_dir = os.path.join(tmp, str(i))
                 os.makedirs(trace_dir)
-                path, timing = client._ring_sample(trace_dir)
-                samples.append((t0, timing, time.time() * 1e3))
-                os.unlink(path)
+                pending, timing = client._ring_sample(trace_dir)
+                timing.update(pending.wait())
+                samples.append((t0, timing))
         finally:
             done.set()
 
@@ -528,32 +563,31 @@ def ring_child(n: int, warmup: bool) -> int:
         raise RuntimeError(f"{len(samples)} of {n} ring samples")
     median = sorted(e - b for b, e in spans)[len(spans) // 2]
     print(json.dumps({"case": "ring", "warmup_profiler": warmup,
-                      "warmup": client.warmup_timing,
+                      "python_tracer": python, "warmup": client.warmup_timing,
                       "last_error": client.last_error,
                       "median_step_ms": round(median, 1)}), flush=True)
-    for i, (t0, timing, t_end) in enumerate(samples):
-        s0, s1 = cs.stop_span(t0, timing)
+    for i, ((t0, timing), split) in enumerate(zip(samples, splits)):
         print(json.dumps({
-            "case": "ring", "warmup_profiler": warmup, "sample": i,
-            "start_ms": timing.get("profiler_start_ms"),
-            "stop_ms": timing.get("profiler_stop_ms"),
-            "export_ms": round(t_end - s1, 1),
-            "overlapping_stop_ms": cs.overlapping(spans, s0, s1),
-            "overlapping_export_ms": cs.overlapping(spans, s1, t_end)}),
-            flush=True)
+            "case": "ring", "warmup_profiler": warmup,
+            "python_tracer": python, "sample": i,
+            "start_ms": timing.get("profiler_start_ms"), **split,
+            **cs.finish_steps(spans, t0, timing),
+            "write_bytes": timing.get("write_bytes")}), flush=True)
     return 0
 
 
 def ring(n: int) -> int:
     rc = 0
-    for warmup in (False, True):
+    for warmup, python in ((False, True), (True, True), (True, False)):
         out = subprocess.run(
-            [sys.executable, __file__, "--ring-child", str(n), str(int(warmup))],
+            [sys.executable, __file__, "--ring-child", str(n),
+             str(int(warmup)), str(int(python))],
             capture_output=True, text=True, timeout=600)
         print(out.stdout, end="", flush=True)
         if out.returncode != 0:
             rc = 1
-            print(out.stderr[-3000:], flush=True)
+            print(f"ring child (warmup {warmup}, python {python}) exited "
+                  f"{out.returncode}: {out.stderr[-3000:]}", flush=True)
     return rc
 
 
@@ -584,10 +618,14 @@ def main() -> int:
         return starts(int(sys.argv[2]))
     if sys.argv[1:2] == ["--shim-starts"]:
         return shim_starts(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--shim-starts-child"]:
+        return shim_starts_child(int(sys.argv[2]),
+                                 tuple(sys.argv[3].split(",")))
     if sys.argv[1:2] == ["--ring"]:
         return ring(int(sys.argv[2]))
     if sys.argv[1:2] == ["--ring-child"]:
-        return ring_child(int(sys.argv[2]), sys.argv[3] == "1")
+        return ring_child(int(sys.argv[2]), sys.argv[3] == "1",
+                          sys.argv[4] == "1")
     if sys.argv[1:2] == ["--case"]:
         print(json.dumps(case(sys.argv[2])))
         return 0
