@@ -2632,6 +2632,150 @@ def phase_first_capture(daemon, smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 17
+
+# Phase 17: phase 4's dense trainer in a process of its own under one
+# TraceClient, captured MIXED_CAPTURES times in each kind, in turns: a
+# duration window of MIXED_DURATION_MS on the poll thread's side (as
+# `dyno gputrace --duration_ms` and the ring take it) and a window of
+# ITERATIONS steps. Every finish runs in-process (shim.finish_spawn
+# armed): before the repair of ROADMAP C17, a process that mixed the two
+# kinds lost every kernel record for good within its first 60 captures
+# that way. The summary children are off (TRACE_JSON=0): they run after
+# the manifest and play no part in a capture.
+MIXED_CAPTURES = 60
+MIXED_DURATION_MS = 200
+MIXED_BLANK_STOP = 12  # captures in a row with no kernel record end it
+
+
+def window_facts(trace_file: str, manifest: dict) -> dict:
+    """What a capture's trace holds of its window: the runtime launches
+    without a device record (in a duration window, those before its
+    profiler stop began, which synchronizes the card first; an iteration
+    window stops while the training thread is parked at its end), the
+    three flash kernels' records, and all kernel records."""
+    with open(trace_file) as f:
+        doc = json.load(f)
+    events, base_us = doc["traceEvents"], doc["baseTimeNanoseconds"] / 1e3
+    device = {(e.get("args") or {}).get("correlation") for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    stop_us = (manifest["started_ms"] + manifest["timing"]["window_ms"]) * 1e3
+    lost = sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and "Launch" in e.get("name", "")
+               and (e.get("args") or {}).get("correlation") not in device
+               and (manifest["mode"] != "duration"
+                    or e["ts"] + base_us < stop_us)
+               for e in events)
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"lost": lost, "kernels": len(kernels),
+            "flash": {name: sum(f"flash_tc::{name}_kernel" in k
+                                for k in kernels) for name in PRODUCTS}}
+
+
+def mixed_trainer(spec: dict) -> int:
+    """`chip_smoke.py --mixed SPEC`: phase 17's process. The dense flash
+    trainer under a TraceClient whose poll thread's role a side thread
+    plays (_run_trace, one capture at a time, each finished in-process
+    before it returns) while this thread trains and calls client.step();
+    duration and iteration windows in turns. Writes each capture's kind,
+    status, timing and window_facts, and the launches, to
+    spec["result"]."""
+    from dynolog_tpu_torch import failpoints
+    from dynolog_tpu_torch.client import TraceClient
+    from dynolog_tpu_torch.client.shim import TraceConfig
+
+    F = importlib.import_module("dynolog_tpu_torch.ops.flash_attention")
+    trainer = Trainer(dense_config())
+    failpoints.arm("shim.finish_spawn", "error")
+    client = TraceClient(job_id=spec["job_id"], endpoint="unused",
+                         report_interval_s=0)
+    F.reset_launches()
+    steps, captures, blank = 0, [], 0
+    for _ in range(FIRST_CAPTURE_WARM_STEPS):
+        trainer.step()
+        client.step()
+        steps += 1
+    for i in range(2 * MIXED_CAPTURES):
+        kind = "iterations" if i % 2 else "duration"
+        log_file = f"{spec['tmp']}/mixed_{i}.json"
+        cfg = TraceConfig.parse(
+            f"ACTIVITIES_LOG_FILE={log_file}\nTRACE_JSON=0\n"
+            + (f"ACTIVITIES_ITERATIONS={ITERATIONS}" if kind == "iterations"
+               else f"ACTIVITIES_DURATION_MSECS={MIXED_DURATION_MS}"))
+        poll = threading.Thread(target=client._run_trace, args=(cfg,))
+        poll.start()
+        while poll.is_alive():
+            trainer.step()
+            client.step()
+            steps += 1
+        poll.join()
+        m = json.loads(manifest_path(log_file).read_text())
+        got = {"kind": kind, "status": m["status"], "error": m.get("error"),
+               "timing": {k: m["timing"].get(k) for k in TIMING_KEYS}}
+        if m["status"] == "ok":
+            got.update(window_facts(m["trace_file"], m))
+            os.unlink(m["trace_file"])
+        captures.append(got)
+        blank = blank + 1 if not got.get("kernels") else 0
+        if blank == MIXED_BLANK_STOP:
+            break
+    client.stop()
+    Path(spec["result"]).write_text(json.dumps({
+        "captures": captures, "steps": steps,
+        "launches": dict(F.launches), "last_error": client.last_error}))
+    return 0
+
+
+def phase_mixed(smi: str) -> dict:
+    """Phase 17: MIXED_CAPTURES duration and as many iteration windows in
+    turns in one process (mixed_trainer): every manifest ok, no launch in
+    a window without its kernel record, and every iteration window with
+    each flash kernel at N_LAYERS * ITERATIONS records. Logs each kind's
+    lossy captures, its profiler start and stop, and the first capture
+    that held no kernel record. Returns the process's launches."""
+    tmp = Path(tempfile.mkdtemp(prefix="dynotpu_mixed_"))
+    spec = {"job_id": 7700 + os.getpid() % 100, "tmp": str(tmp),
+            "result": str(tmp / "result.json")}
+    t0 = time.time()
+    try:
+        proc = subprocess.run(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--mixed",
+             json.dumps(spec)], cwd=REPO, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the mixed trainer exited {proc.returncode}")
+        got = json.loads(Path(spec["result"]).read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    failures, want = [], N_LAYERS * ITERATIONS
+    for k, v in got["launches"].items():
+        if v < N_LAYERS * got["steps"]:
+            failures.append(f"{k} launched {v} times in {got['steps']} steps")
+    caps = got["captures"]
+    if len(caps) < 2 * MIXED_CAPTURES:
+        failures.append(f"{len(caps)} of {2 * MIXED_CAPTURES} captures: "
+                        f"the last {MIXED_BLANK_STOP} held no kernel record")
+    for kind in ("duration", "iterations"):
+        mine = [(i, c) for i, c in enumerate(caps) if c["kind"] == kind]
+        bad = [(i, c) for i, c in mine if c["status"] != "ok" or c["lost"]
+               or (kind == "iterations"
+                   and set(c["flash"].values()) != {want})]
+        blank = [i for i, c in mine if not c.get("kernels")]
+        log(f"  {smi}: {len(mine)} {kind} windows, {len(bad)} lossy "
+            f"{[(i, c.get('lost'), c.get('flash')) for i, c in bad[:8]]}; "
+            f"first with no kernel record: {blank[0] if blank else None}; "
+            f"profiler_start_ms median "
+            f"{statistics.median(c['timing']['profiler_start_ms'] or 0 for _, c in mine)}"
+            f", max {max(c['timing']['profiler_start_ms'] or 0 for _, c in mine)}"
+            f"; profiler_stop_ms median "
+            f"{statistics.median(c['timing']['profiler_stop_ms'] or 0 for _, c in mine)}")
+        failures += [f"{kind} capture {i}: {c}" for i, c in bad[:8]]
+    log(f"  phase 17 took {time.time() - t0:.1f} s, {got['steps']} steps; "
+        f"last_error {got['last_error']}")
+    if failures:
+        raise AssertionError("\n".join(failures))
+    return got["launches"]
+
+
 def main_alone(_build, mode: str) -> int:
     """`chip_smoke.py --ep` (two cards or more): the kernels built and the
     expert-parallel check alone. `chip_smoke.py --mesh` (four cards or
@@ -2687,6 +2831,8 @@ def main() -> int:
         return fleet_trainer(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--first-capture"] and len(sys.argv) == 3:
         return first_capture_trainer(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--mixed"] and len(sys.argv) == 3:
+        return mixed_trainer(json.loads(sys.argv[2]))
     if sys.argv[1:] in (["--ep"], ["--mesh"]):
         return main_alone(_build, sys.argv[1])
     if sys.argv[1:]:
@@ -2778,6 +2924,8 @@ def main() -> int:
         knob_counts = phase_knobs(F, daemon, smi)
         log("phase 16: first capture and a step-less app")
         first_counts = phase_first_capture(daemon, smi)
+        log("phase 17: mixed captures")
+        mixed_counts = phase_mixed(smi)
         log("multi-card expert parallelism")
         ep_counts = phase_multicard_ep()
         log("multi-card tensor, sequence and expert parallelism")
@@ -2806,6 +2954,7 @@ def main() -> int:
                 "pp": pipe["launches"][name], "fleet": fleet_counts[name],
                 "knobs": knob_counts[name],
                 "first_capture": first_counts[name],
+                "mixed": mixed_counts[name],
                 "moe_ep": ep_counts and ep_counts[name],
                 **{path: mesh_counts[path][name] if mesh_counts else None
                    for path in MESH_CASES},

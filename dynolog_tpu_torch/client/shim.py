@@ -11,16 +11,24 @@ Chrome-trace JSON, with a manifest next to it. If the app calls step(),
 the shim also reports step rate and step-time percentiles to the daemon
 ("pstat").
 
-A duration capture runs on the poll thread, as in the JAX shim: it starts
-the profiler there with ``profile_all_threads`` (torch.profiler otherwise
-records the CPU ops of the starting thread only), sleeps the window and
-stops it, so an app that never calls ``step()`` is traced too; the
-``step()`` calls that fall in the window only mark its ProfilerStep#N
-spans. An iteration capture's edges are steps: the poll thread *arms* a
-window, the training thread's ``step()`` one step before its first
-iteration starts the profiler (the lead step, trimmed from the trace
-after: a slow start loses its first launches' device records there, not
-in the window) and the ``step()`` at its end stops it.
+The poll thread starts and stops every capture's profiler, as in the JAX
+shim, and records all threads (``profile_all_threads``: torch.profiler
+otherwise records the CPU ops of the starting thread only). In an app
+that calls ``step()``, the training thread parks in ``step()`` while a
+profiler starts: a start that met a kernel launch from another thread
+could lose every later kernel record of the process (ROADMAP C17).
+Every capture opens its profiler a lead before its window: a start
+loses its first launches' device records there, not in the window, and
+the finish trims the lead from the trace. A duration capture starts the
+profiler at the training thread's next ``step()`` (at once in an app
+that never steps, which is traced too), opens its window
+``TorchProfiler.duration_lead_s`` after the start returned, sleeps the
+window and stops it; the ``step()`` calls that fall in the window only
+mark its ProfilerStep#N spans. An iteration capture's edges are steps:
+the poll thread *arms* a window, the training thread's ``step()`` one
+step before its first iteration (the lead step) parks while the poll
+thread starts the profiler, and the ``step()`` at its end parks while
+the poll thread stops it.
 
 Either way the poll thread then saves kineto's trace and goes back to
 polling. What is left of the trace's save (adding the step spans,
@@ -783,27 +791,33 @@ class TorchProfiler(CaptureKnobs):
     """Default profiler backend: a torch.profiler capture at the tracer
     levels of the capture's config (``configure``; see profile_options).
 
-    An iteration capture's start(), step() and stop() run on the training
-    thread (the TraceClient calls them from its step()), and step() marks
-    torch.profiler's own ProfilerStep#N spans. The TraceClient opens it
-    with ``lead=True`` one step before its window (``lead_step``): records
-    lost to a slow start then fall in that step, which the finish trims.
-    A capture the poll thread opens (``start(trace_dir, all_threads=True)``:
-    a duration window, the warmup) records every thread's ops
-    (``profile_all_threads``) and is stopped on the poll thread; the
-    training thread's step() then only marks the step times, which the
-    finish adds as those spans. At host level 0 the finish drops the host
-    ops and adds the steps too. With every tracer off, start() raises.
+    Every capture is started and stopped on the TraceClient's poll
+    thread, records every thread's ops (``profile_all_threads``), and
+    gets its ProfilerStep#N spans from the step() calls of the stepping
+    thread, which the finish adds (``_StepClock``). An iteration capture
+    opens with ``lead=True`` one step before its window (``lead_step``),
+    while the training thread is parked at that step(), and its window
+    opens at its first step(). A duration capture (``mid_step=True``: its
+    first span opens at the first step()) opens with ``lead=True``, and
+    its window opens at open_window(), ``duration_lead_s`` after start()
+    returned.
+    Records lost to a slow start then fall in the lead, which the finish
+    trims. At host level 0 the finish drops the host ops. With every
+    tracer off, start() raises.
 
     export() may run on any thread after stop() — the TraceClient's poll
     thread calls it. It saves kineto's trace in this process, then
-    finishes it where the capture needs a finish (trace.finish_trace): in
-    this process, or with ``pipelined=True`` in a PendingWrite that the
-    caller takes with take_pending_write() and waits on before the trace
-    is complete."""
+    finishes it (trace.finish_trace): in this process, or with
+    ``pipelined=True`` in a PendingWrite that the caller takes with
+    take_pending_write() and waits on before the trace is complete."""
 
     # The TraceClient opens an iteration window one step early.
     lead_step = True
+    # ...and a duration window this long after its profiler's start has
+    # returned (C15). On an H100 80GB HBM3 (700 W), in 1300 duration
+    # windows every launch whose kernel record a start lost was made
+    # within 55.5 ms after that start returned; starts took 2 ms to 4.7 s.
+    duration_lead_s = 0.1
 
     def __init__(self):
         super().__init__()
@@ -811,14 +825,15 @@ class TorchProfiler(CaptureKnobs):
         self._stopped = None
         self._clock: _StepClock | None = None
         self._host_on = True
-        self._all_threads = False
         self._lead = False
+        self._opens_ns: int | None = None
         self._pending_write: PendingWrite | None = None
 
-    def start(self, trace_dir: str, all_threads: bool = False,
-              lead: bool = False) -> None:
+    def start(self, trace_dir: str, lead: bool = False,
+              mid_step: bool = False) -> None:
         import torch
-        from torch.profiler import ProfilerAction, profile
+        from torch._C._profiler import _ExperimentalConfig
+        from torch.profiler import profile
 
         levels = self.levels
         if max(levels.values()) < 1:
@@ -828,32 +843,35 @@ class TorchProfiler(CaptureKnobs):
                 " leave torch.profiler no activity")
         opts = profile_options(levels, torch.cuda.is_available())
         self._host_on = levels["host_tracer_level"] >= 1
-        self._all_threads = all_threads
         self._lead = lead
+        self._opens_ns = None
         if opts["activities"]:
-            if all_threads:
-                from torch._C._profiler import _ExperimentalConfig
-
-                opts["experimental_config"] = _ExperimentalConfig(
-                    profile_all_threads=True)
-            else:
-                # A schedule that always records is what makes step()
-                # emit the ProfilerStep#N spans; without one,
-                # profile.step() records none. No acc_events: with it,
-                # stop() parses every kineto event into FunctionEvents on
-                # the training thread, which nothing here reads (export()
-                # saves kineto's own results).
-                opts["schedule"] = lambda _step: ProfilerAction.RECORD
+            # One configuration for every capture, which the poll thread
+            # opens (C17): profile_all_threads, so that the training
+            # thread's ops are recorded; no schedule, so no torch
+            # ProfilerStep#N spans (the finish adds the shim's); and no
+            # acc_events: with it, stop() parses every kineto event into
+            # FunctionEvents on the stopping thread, which nothing here
+            # reads (export() saves kineto's own results).
+            opts["experimental_config"] = _ExperimentalConfig(
+                profile_all_threads=True)
             self._prof = profile(**opts)
             self._prof.start()
         # The first span opens once the window's steps begin, as torch's
         # does.
-        self._clock = _StepClock(at_step=not (all_threads or lead))
+        self._clock = _StepClock(at_step=not (mid_step or lead))
+
+    def open_window(self, at_ns: int) -> None:
+        """Opens the window of a capture started with ``lead=True`` where
+        no step() opens it (a duration window, at the end of its lead) at
+        epoch ns `at_ns`: the finish trims what was recorded before it."""
+        self._opens_ns = at_ns
 
     def step(self) -> None:
         self._clock.mark()
-        if self._prof is not None and not self._all_threads:
-            self._prof.step()
+        if self._lead and self._opens_ns is None:
+            # An iteration window opens at its first step().
+            self._opens_ns = self._clock.times[-1]
 
     def stop(self) -> None:
         prof, self._prof = self._prof, None
@@ -862,19 +880,12 @@ class TorchProfiler(CaptureKnobs):
             prof.stop()
         self._stopped = prof
 
-    def _finish_spec(self, path: str, profile_top: int | None
-                     ) -> dict | None:
-        """trace.finish_trace's arguments for the stopped capture, None
-        where kineto's save is final: an iteration window with the host
-        tracer on, no lead step and no profile."""
-        steps = self._all_threads or not self._host_on
-        if not (steps or self._lead or profile_top is not None):
-            return None
+    def _finish_spec(self, path: str, profile_top: int | None) -> dict:
+        """trace.finish_trace's arguments for the stopped capture."""
         raw, _, tmp = _finish_files(path)
-        spec = {"raw": raw, "out": tmp,
-                "steps": self._clock.spec() if steps else None,
+        spec = {"raw": raw, "out": tmp, "steps": self._clock.spec(),
                 "drop_host": not self._host_on,
-                "lead_ns": self._clock.times[0] if self._lead else None}
+                "lead_ns": self._opens_ns if self._lead else None}
         if profile_top is not None:
             spec.update(profile=path[: -len(TRACE_SUFFIX)]
                         + SAMPLE_PROFILE_SUFFIX,
@@ -884,27 +895,23 @@ class TorchProfiler(CaptureKnobs):
     def export(self, trace_dir: str, pipelined: bool = False,
                profile_top: int | None = None) -> str:
         """Saves the stopped capture's Chrome trace into `trace_dir` and
-        returns the path it lands at (tmp + rename). With `pipelined` a
-        capture that needs a finish is complete only once its
-        PendingWrite (take_pending_write) is; with `profile_top` the
-        finish also writes the trace's compact_profile(top) at the
-        PendingWrite's profile_path."""
+        returns the path it lands at (tmp + rename). With `pipelined` the
+        capture is complete only once its PendingWrite
+        (take_pending_write) is; with `profile_top` the finish also
+        writes the trace's compact_profile(top) at the PendingWrite's
+        profile_path."""
         prof, self._stopped = self._stopped, None
         path = os.path.join(trace_dir, _unique_run_name() + TRACE_SUFFIX)
         spec = self._finish_spec(path, profile_top)
         raw, _, tmp = _finish_files(path)
-        saved = tmp if spec is None else raw
         try:
             if prof is not None:
-                prof.export_chrome_trace(saved)
-            if spec is None:
-                os.replace(saved, path)
-            elif pipelined:
+                prof.export_chrome_trace(raw)
+            if pipelined:
                 self._pending_write = PendingWrite(spec, path)
                 return path
-            else:
-                trace.finish_trace(**spec)
-                os.replace(tmp, path)
+            trace.finish_trace(**spec)
+            os.replace(tmp, path)
         except BaseException:
             _unlink_all(raw, tmp)
             raise
@@ -913,9 +920,8 @@ class TorchProfiler(CaptureKnobs):
 
     def take_pending_write(self) -> PendingWrite | None:
         """Hands the caller the pending finish of the capture export()
-        just saved with ``pipelined=True`` (None where kineto's save was
-        final). The caller must wait() on it before the trace is
-        complete."""
+        just saved with ``pipelined=True``. The caller must wait() on it
+        before the trace is complete."""
         pending, self._pending_write = self._pending_write, None
         return pending
 
@@ -936,9 +942,9 @@ class RecordingProfiler(CaptureKnobs):
         self.calls.append(("configure", dict(raw)))
         super().configure(raw)
 
-    def start(self, trace_dir: str, all_threads: bool = False) -> None:
+    def start(self, trace_dir: str, mid_step: bool = False) -> None:
         self.calls.append(("start", trace_dir))
-        self._clock = _StepClock(at_step=not all_threads)
+        self._clock = _StepClock(at_step=not mid_step)
 
     def step(self) -> None:
         self.calls.append(("step", None))
@@ -957,13 +963,15 @@ class RecordingProfiler(CaptureKnobs):
 
 
 class _Window:
-    """One capture window. An iteration window is armed by the poll
-    thread and opened and closed by the training thread's step(): its
-    state moves armed -> active -> stopped there, and the poll thread may
-    cancel an armed window or abandon an active one. A duration window
-    (end_at None) is opened and closed by the poll thread; while it is
-    the client's window, step() marks its steps. Every transition happens
-    under the client's step condition."""
+    """One capture window, opened and closed by the poll thread, which
+    arms it. The training thread's step() at its start_at (less its lead
+    steps) moves it to opening and parks until the poll thread has
+    started the profiler; an iteration window is then active, a duration
+    window (end_at None, start_at the next step) in its lead until the
+    poll thread makes it active. While active, step() marks its steps;
+    an iteration window's step() at end_at moves it to closing and parks
+    until the poll thread has stopped it (stopped). Every transition
+    happens under the client's step condition."""
 
     def __init__(self, trace_dir: str, start_at: int, end_at: int | None,
                  lead: int = 0):
@@ -976,11 +984,14 @@ class _Window:
         self.error: str | None = None
         self.timing: dict = {}
         self.started_ms = 0
-        self.thread_id: int | None = None  # the thread that opened it
         self._t_start = 0.0
 
 
-_BUSY = "a previous capture is still open on the training thread"
+_BUSY = "a previous capture is still open"
+# What a synchronized duration capture allows its profiler's start: on an
+# H100 80GB HBM3 (700 W) starts with the app parked took a median 19 ms,
+# at most 143 ms in 300 captures of a mixed process (C17).
+SYNC_START_ALLOWANCE_S = 0.25
 
 
 class TraceClient:
@@ -1015,7 +1026,7 @@ class TraceClient:
         # on a CPU, tens to hundreds of ms on a card) with a throwaway
         # capture on the poll thread before its first poll, so the FIRST
         # on-demand capture starts as fast as later ones. The cost is per
-        # process: it warms a capture the training thread starts too.
+        # process.
         self.warmup_profiler = warmup_profiler
         self.profiler = profiler if profiler is not None else TorchProfiler()
         self._client = ipc.IpcClient()
@@ -1103,10 +1114,9 @@ class TraceClient:
         return self.instance_rank is not None
 
     def stop(self) -> None:
-        """Stops polling. Call it from the training thread: an iteration
-        capture still open there is stopped and dropped (a duration
-        capture is closed by the poll thread, which stop() joins), and
-        every capture still finishing writes its manifest first."""
+        """Stops polling: a capture still open is closed by the poll
+        thread that opened it, which stop() joins, and every capture
+        still finishing writes its manifest first."""
         self._stop.set()
         with self._step_cv:
             self._step_cv.notify_all()
@@ -1116,12 +1126,6 @@ class TraceClient:
             # No capture's manifest or span flush is stranded by shutdown.
             finisher.join(timeout=30)
         self._finishers = []
-        with self._step_cv:
-            window = self._window
-            if (window is not None and window.state in ("active", "abandoned")
-                    and window.thread_id == threading.get_ident()):
-                self._stop_profiler(window, "abandoned")
-            self._window = None
         self._client.close()
 
     def __enter__(self) -> "TraceClient":
@@ -1133,9 +1137,10 @@ class TraceClient:
 
     def step(self) -> None:
         """Call once per training iteration, on the training thread: an
-        iteration capture starts and stops here, a duration capture marks
-        its steps here, and step-rate/latency telemetry counts these
-        calls."""
+        iteration capture's edges are these calls (this thread parks at
+        each while the poll thread starts or stops the profiler), a
+        capture marks its steps here, and step-rate/latency telemetry
+        counts these calls."""
         now = time.monotonic()
         with self._step_cv:
             self._step_count += 1
@@ -1161,36 +1166,25 @@ class TraceClient:
     # -- capture window (training thread, under _step_cv) ---------------
 
     def _drive_window(self, w: _Window, count: int) -> None:
-        if w.end_at is None:
-            # A duration window: the poll thread owns its profiler (the
-            # profile is not thread-safe); here it only marks a step.
+        if w.state == "active":
             self.profiler.step()
-            return
         if w.state == "armed" and count >= w.start_at - w.lead:
-            t0 = time.time()
-            try:
-                if w.lead:
-                    self.profiler.start(w.trace_dir, lead=True)
-                else:
-                    self.profiler.start(w.trace_dir)
-            except Exception as e:  # noqa: BLE001 - never kill the app
-                w.error = f"profiler start failed: {e}"
-                w.state = "stopped"
-                return
-            w.timing["profiler_start_ms"] = int((time.time() - t0) * 1000)
-            w.started_ms = int(t0 * 1000)
-            w.thread_id = threading.get_ident()
-            w._t_start = time.monotonic()
-            w.state = "active"
-        elif w.state == "active":
-            self.profiler.step()
-            if count >= w.end_at:
-                self._stop_profiler(w, "stopped")
-        elif w.state == "abandoned":
-            # The poll thread gave up on this window; close the profiler
-            # on the thread that opened it and drop the capture.
-            self._stop_profiler(w, "dropped")
-            self._window = None
+            w.state = "opening"
+        elif (w.state == "active" and w.end_at is not None
+              and count >= w.end_at):
+            w.state = "closing"
+        else:
+            return
+        # The poll thread starts every capture's profiler, and stops an
+        # iteration window's, while this thread, the one that launches the
+        # app's work, is parked here (C17: on an H100 80GB HBM3 at 700 W,
+        # processes that mixed iteration and duration windows lost every
+        # kernel record for good from a capture whose start met a launch
+        # from another thread, after 35-381 captures, whichever thread
+        # started the iteration windows; with every start parked, 600 ran
+        # clean). An iteration window's edges stay these step() calls.
+        self._step_cv.notify_all()
+        self._step_cv.wait_for(lambda: w.state not in ("opening", "closing"))
 
     def _stop_profiler(self, w: _Window, state: str) -> None:
         w.timing["window_ms"] = int((time.monotonic() - w._t_start) * 1000)
@@ -1210,21 +1204,61 @@ class TraceClient:
         and polling goes on. It leaves no capture behind: export() takes
         the stopped one, and the next start() makes its own step clock."""
         tmp = tempfile.mkdtemp(prefix=WARMUP_PREFIX)
+        window = _Window(tmp, 0, None)
         try:
-            t0 = time.time()
-            self.profiler.start(tmp, all_threads=True)
+            self._start_parked(window, mid_step=True)
             t1 = time.time()
+            with self._step_cv:
+                self._window = None
             self.profiler.stop()
             t2 = time.time()
             self.profiler.export(tmp)
             self.warmup_timing = {
-                "profiler_start_ms": int((t1 - t0) * 1000),
+                "profiler_start_ms": window.timing["profiler_start_ms"],
                 "profiler_stop_ms": int((t2 - t1) * 1000),
                 "export_ms": int((time.time() - t2) * 1000)}
         except Exception as e:  # noqa: BLE001 - warmup must never kill polling
             self.last_error = f"profiler warmup failed: {e}"
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+
+    def _start_parked(self, window: _Window, **start_kw) -> float | None:
+        """Makes `window` (a duration window, or the warmup's) the
+        client's window and starts the profiler for it on this (the poll)
+        thread: in an app that steps, once the training thread has parked
+        at its next step() (C17; see _drive_window), waiting at most two
+        of its recent steps; in one that never has, at once. Returns the
+        time the start returned, the window in its lead, or None where
+        another window is open. A failed start raises, and leaves no
+        window."""
+        with self._step_cv:
+            if self._window is not None:
+                return None
+            window.start_at = self._step_count + 1
+            self._window = window
+            if self._ever_stepped:
+                self._step_cv.wait_for(
+                    lambda: window.state != "armed" or self._stop.is_set(),
+                    timeout=self._park_wait_s())
+            t0 = time.time()
+            try:
+                self.profiler.start(window.trace_dir, **start_kw)
+            except BaseException:
+                self._window = None
+                raise
+            finally:
+                window.state = "lead"
+                self._step_cv.notify_all()
+            t1 = time.time()
+            window.timing["profiler_start_ms"] = int((t1 - t0) * 1000)
+        return t1
+
+    def _park_wait_s(self) -> float:
+        """How long a duration capture waits for the training thread to
+        park at its next step(): two of its recent steps, at least 0.1 s
+        and at most step_start_timeout_s."""
+        return min(max(2 * self._recent_step_s, 0.1),
+                   self.step_start_timeout_s)
 
     def _poll_loop(self) -> None:
         if self.warmup_profiler:
@@ -1429,8 +1463,15 @@ class TraceClient:
         ctx = obs.TraceContext.parse(cfg.trace_ctx) or obs.TraceContext.mint()
         received_ms = int(time.time() * 1000)
         if cfg.start_time_ms > 0:
-            # Synchronized start across hosts.
-            delay = cfg.start_time_ms / 1000.0 - time.time()
+            # Synchronized start across hosts: a duration window's
+            # profiler starts early enough for the wait for the training
+            # thread to park, the start and the lead to end by the start
+            # time, where the window opens.
+            early_s = 0.0 if cfg.iterations > 0 else (
+                getattr(self.profiler, "duration_lead_s", 0.0)
+                + SYNC_START_ALLOWANCE_S
+                + (self._park_wait_s() if self._ever_stepped else 0.0))
+            delay = cfg.start_time_ms / 1000.0 - early_s - time.time()
             if delay > 0:
                 time.sleep(delay)
         trace_file = pending = None
@@ -1486,35 +1527,47 @@ class TraceClient:
     def _capture_window(self, cfg: TraceConfig, trace_dir: str):
         """Runs one capture's window; returns (error or None, window). A
         duration window runs here, on the poll thread, as the JAX shim's
-        does: start, sleep, stop, whether or not the app steps."""
+        does: start, sleep, stop, whether or not the app steps. The
+        window opens the profiler's duration_lead_s after its start
+        returned (at a synchronized start time where that is later): its
+        started_ms, window_ms and steps count from there, and the finish
+        trims the lead."""
         if cfg.iterations > 0:
             return self._iteration_window(cfg, trace_dir)
         window = _Window(trace_dir, 0, None)
-        with self._step_cv:
-            if self._window is not None:
-                return (_BUSY, window)
-        t0 = time.time()
+        lead_s = getattr(self.profiler, "duration_lead_s", 0.0)
         try:
-            self.profiler.start(trace_dir, all_threads=True)
+            started = (self._start_parked(window, lead=True, mid_step=True)
+                       if lead_s else self._start_parked(window, mid_step=True))
         except Exception as e:  # noqa: BLE001 - fails the capture
             return f"profiler start failed: {e}", window
-        window.timing["profiler_start_ms"] = int((time.time() - t0) * 1000)
-        window.started_ms = int(t0 * 1000)
-        window.thread_id = threading.get_ident()
+        if started is None:
+            return _BUSY, window
         window._t_start = time.monotonic()
+        # The window opens a lead after the start returned, or at the start
+        # time where one is set and later.
+        opens_at = max(started + lead_s, cfg.start_time_ms / 1000.0)
+        stopped = self._stop.wait(max(opens_at - time.time(), 0.0))
+        if not stopped:
+            opened_ns = time.time_ns()
+            if lead_s:
+                self.profiler.open_window(opened_ns)
+            window.started_ms = opened_ns // 10**6
+            window._t_start = time.monotonic()
+            with self._step_cv:
+                window.state = "active"  # step() marks its steps from here
+            stopped = self._stop.wait(cfg.duration_ms / 1000.0)
         with self._step_cv:
-            window.state = "active"
-            self._window = window
-        stopped = self._stop.wait(cfg.duration_ms / 1000.0)
-        with self._step_cv:
-            self._window = None  # step() marks no step from here on
+            self._window = None
         self._stop_profiler(window, "stopped")
         return ("trace aborted: client stopped" if stopped
                 else window.error), window
 
     def _iteration_window(self, cfg: TraceConfig, trace_dir: str):
-        """Arms an iteration window for the training thread and waits for
-        it to open and close; returns (error or None, window)."""
+        """Arms an iteration window, opens its profiler here once the
+        training thread has parked at the window's lead boundary and
+        closes it once that thread has parked at the window's end;
+        returns (error or None, window)."""
         with self._step_cv:
             base = self._step_count
             # The next roundup boundary STRICTLY after the current step:
@@ -1544,19 +1597,37 @@ class TraceClient:
                         f"{self._step_count})"
                         if not opened else "trace aborted: client stopped",
                         window)
+            t0 = time.time()
+            try:
+                if lead:
+                    self.profiler.start(trace_dir, lead=True)
+                else:
+                    self.profiler.start(trace_dir)
+            except Exception as e:  # noqa: BLE001 - fails the capture
+                self._window = None
+                window.state = "stopped"
+                self._step_cv.notify_all()
+                return f"profiler start failed: {e}", window
+            window.timing["profiler_start_ms"] = int((time.time() - t0) * 1000)
+            window.started_ms = int(t0 * 1000)
+            window._t_start = time.monotonic()
+            window.state = "active"
+            self._step_cv.notify_all()
             limit = self.step_trace_timeout_s
             closed = self._step_cv.wait_for(
                 lambda: window.state != "active" or self._stop.is_set(),
                 timeout=limit)
-            if window.state == "active":
-                # The training thread must close the profiler it opened:
-                # its next step() (or stop()) drops this capture.
-                window.state = "abandoned"
+            timed_out = window.state == "active"
+            # Closed here whether the training thread parked at its end or
+            # the window timed out; its next step() finds no window.
+            self._stop_profiler(window, "stopped")
+            self._window = None
+            self._step_cv.notify_all()
+            if timed_out:
                 return (f"trace timed out: the window did not close within "
                         f"{limit:g}s (at step {self._step_count})"
                         if not closed else "trace aborted: client stopped",
                         window)
-            self._window = None
             return window.error, window
 
     def _finish_trace(self, cfg, pid, trace_dir, trace_file, started_ms,

@@ -56,22 +56,31 @@ window made or whose flash_fwd calls are not 4 (launches lost, flash_fwd
 calls, start ms; in the poll arm, launches of the window's first 100 ms
 only, and any number of calls) and the start's ms.
 
-With --shim-starts N (one card) it takes captures of that trainer
-through the port's TraceClient itself, a window armed as the poll thread
-arms one while this thread trains and calls step(): in one process 2N
-two-step iteration windows in two arms in turns, the profiler opened at
-the window's first step() (start_alone: a TorchProfiler without a lead
-step) or one step() early, the lead step trimmed by the finish (lead:
-the shim as it is); in a second process N 200 ms duration windows on the
-poll thread (duration). A process that mixes the two kinds ends up with
-no kernel record in any trace (ROADMAP C17); each process stops once 12
-captures in a row hold none. Each trace is saved and finished as the
-shim does it (its PendingWrite waited on). It prints, per arm, the lossy
-captures as --starts does (a launch without its kernel record, in a
-duration window among the launches of its first 100 ms only; or, in an
-iteration window, flash_fwd calls other than 4), each with its index,
-and the manifest's profiler_start_ms, and a one-sided Fisher exact p for
-"start_alone loses more often than lead".
+With --shim-starts N [PROCESS ...] [--stderr-dir DIR] (one card) it
+takes captures of that trainer through the port's TraceClient itself, a
+window armed as the poll thread arms one while this thread trains and
+calls step(), each saved and finished as the shim does it (its
+PendingWrite waited on), in one process per PROCESS (all three by
+default), its arms in turns: "iterations", 2N two-step iteration windows
+whose profiler opens at the window's first step() (start_alone: a
+TorchProfiler without a lead step) or one step() early, the lead step
+trimmed by the finish (lead: the shim as it is); "duration", N 200 ms
+duration windows on the poll thread, the shim's lead before each;
+"mixed", N of each of lead and duration. A process whose captures opened
+the profiler two ways (the duration windows with profile_all_threads,
+the iteration windows thread-local under a schedule) ended up with no
+kernel record in any trace (ROADMAP C17); each process stops once 12
+captures in a row hold none, or are lossy. It prints, per arm, the lossy captures
+(launch without its kernel record, in a duration window among the
+launches before its profiler stop began; or, in an iteration window,
+flash_fwd calls other than 4) as (launches lost, of them in the window's
+first 100 ms, flash_fwd calls, profiler_start_ms, capture index), the
+launches without a kernel record that kineto saved in a duration
+window's lead (trimmed by the finish) with their latest offset from the
+start call, the manifest's profiler_start_ms, and a one-sided Fisher
+exact p for "start_alone loses more often than lead". Each process's
+stderr (kineto's log, with KINETO_LOG_LEVEL=0 its record counts) goes to
+DIR/shim_starts_PROCESS.stderr.
 
 With --ring N (one card) it takes N ring samples (the shim's 200 ms
 duration window on a side thread, TraceClient._ring_sample, a second
@@ -91,6 +100,7 @@ median step.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -276,6 +286,17 @@ def _stop_case(trainer, mode: str) -> dict:
             "parked_ms": times.get("parked_ms"), "events": events}
 
 
+def _lost_launches(events: list, base_us: float) -> list[float]:
+    """The epoch times (s) of the kernel launches in a Chrome trace's
+    events that have no device record."""
+    device = {(e.get("args") or {}).get("correlation") for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    return [(e["ts"] + base_us) / 1e6 for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and "Launch" in e.get("name", "")
+            and (e.get("args") or {}).get("correlation") not in device]
+
+
 def _launches_without_kernel(path: str, since: float = 0.0
                              ) -> tuple[int, int, int]:
     """The kernel launches in a Chrome trace that have no device record,
@@ -284,17 +305,13 @@ def _launches_without_kernel(path: str, since: float = 0.0
     first 100 ms count: a launch near its end may run after the stop."""
     with open(path) as f:
         doc = json.load(f)
-    events, base_us = doc["traceEvents"], doc["baseTimeNanoseconds"] / 1e3
-    device = {(e.get("args") or {}).get("correlation") for e in events
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
-    lost = sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
-               and "Launch" in e.get("name", "")
-               and (e.get("args") or {}).get("correlation") not in device
-               and (not since or e["ts"] + base_us < since * 1e6 + 1e5)
-               for e in events)
+    events = doc["traceEvents"]
+    lost = [t for t in _lost_launches(events,
+                                      doc["baseTimeNanoseconds"] / 1e3)
+            if not since or t < since + 0.1]
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    return lost, sum("flash_fwd_kernel" in e.get("name", "")
-                     for e in kernels), len(kernels)
+    return len(lost), sum("flash_fwd_kernel" in e.get("name", "")
+                          for e in kernels), len(kernels)
 
 
 def _poll_window(prof, trainer) -> tuple[float, float]:
@@ -386,24 +403,63 @@ def _fisher_greater(a: int, n_a: int, b: int, n_b: int) -> float:
                for i in range(a, min(k, n_a) + 1)) / total
 
 
-# The arms of --shim-starts, each tuple in a process of its own: a process
-# that mixes poll-thread (profile_all_threads) windows with training-thread
-# ones ends up with no kernel record in any trace (ROADMAP C17).
-SHIM_PROCESSES = (("start_alone", "lead"), ("duration",))
+# The processes of --shim-starts and the arms each takes captures of in
+# turns. "mixed" mixes duration windows (the poll thread's) with
+# iteration windows (the training thread's): before every capture opened
+# its profiler with one configuration, such a process lost every kernel
+# record of every capture after 29-200 captures (ROADMAP C17).
+SHIM_PROCESSES = {"iterations": ("start_alone", "lead"),
+                  "duration": ("duration",),
+                  "mixed": ("lead", "duration")}
 
 
-def shim_starts(n: int) -> int:
+def shim_starts(n: int, names: list, stderr_dir: str | None) -> int:
     rc = 0
-    for arms in SHIM_PROCESSES:
+    for name in names or SHIM_PROCESSES:
         out = subprocess.run(
             [sys.executable, __file__, "--shim-starts-child", str(n),
-             ",".join(arms)], capture_output=True, text=True, timeout=3000)
+             ",".join(SHIM_PROCESSES[name])], capture_output=True,
+            text=True, timeout=3000)
         print(out.stdout, end="", flush=True)
+        if stderr_dir:
+            with open(os.path.join(stderr_dir,
+                                   f"shim_starts_{name}.stderr"), "w") as f:
+                f.write(out.stderr)
         if out.returncode != 0:
             rc = 1
-            print(f"shim-starts child {arms} exited {out.returncode}: "
+            print(f"shim-starts process {name} exited {out.returncode}: "
                   f"{out.stderr[-3000:]}", flush=True)
     return rc
+
+
+def _window_losses(path: str, raw: str, arm: str, window, t_call: float
+                   ) -> tuple[int, int, int, int, list]:
+    """What one capture of --shim-starts lost: the launches without a
+    device record in its finished trace (a duration window's before its
+    profiler stop began: the stop synchronizes the card first, so every
+    earlier launch has run), those of them in the window's first 100 ms,
+    its flash_fwd kernels and all its kernels, and the offsets (ms from
+    the start call) of the launches without a device record that kineto
+    saved before the window opened (in its lead, trimmed by the finish)."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    lost = _lost_launches(events, doc["baseTimeNanoseconds"] / 1e3)
+    opened = window.started_ms / 1e3
+    if arm == "duration":
+        lost = [t for t in lost
+                if t < opened + window.timing["window_ms"] / 1e3]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    in_lead = []
+    if arm == "duration":
+        with open(raw) as f:
+            doc = json.load(f)
+        in_lead = [round((t - t_call) * 1e3, 1) for t in _lost_launches(
+            doc["traceEvents"], doc["baseTimeNanoseconds"] / 1e3)
+            if t < opened]
+    return (len(lost), sum(t < opened + 0.1 for t in lost),
+            sum("flash_fwd_kernel" in e.get("name", "") for e in kernels),
+            len(kernels), in_lead)
 
 
 def shim_starts_child(n: int, arms: tuple) -> int:
@@ -415,19 +471,35 @@ def shim_starts_child(n: int, arms: tuple) -> int:
         TorchProfiler, TraceClient, TraceConfig)
     from dynolog_tpu_torch.ops import _build
 
-    class NoLead(TorchProfiler):
+    tmp = tempfile.mkdtemp()
+    raw = os.path.join(tmp, "kineto.json")
+
+    class KeepRaw(TorchProfiler):
+        """Keeps a copy of kineto's save, before the finish trims it."""
+
+        def export(self, trace_dir, pipelined=False, profile_top=None):
+            save = self._stopped.export_chrome_trace
+
+            def kept(path):
+                save(path)
+                shutil.copy(path, raw)
+
+            self._stopped.export_chrome_trace = kept
+            return super().export(trace_dir, pipelined, profile_top)
+
+    class NoLead(KeepRaw):
         lead_step = False
 
     _build.build_all()
     trainer = cs.Trainer(cs.dense_config())
-    tmp = tempfile.mkdtemp()
     clients = {
         "start_alone": TraceClient(job_id=1, endpoint="unused",
                                    profiler=NoLead()),
-        "lead": TraceClient(job_id=1, endpoint="unused"),
-        "duration": TraceClient(job_id=1, endpoint="unused")}
+        "lead": TraceClient(job_id=1, endpoint="unused", profiler=KeepRaw()),
+        "duration": TraceClient(job_id=1, endpoint="unused",
+                                profiler=KeepRaw())}
     rows = {arm: [] for arm in arms}
-    blank = 0  # consecutive captures with no kernel record at all
+    blank = lossy_run = 0  # consecutive captures blank, and lossy
     for i in range(len(arms) * n):
         arm = arms[i % len(arms)]
         client = clients[arm]
@@ -437,6 +509,7 @@ def shim_starts_child(n: int, arms: tuple) -> int:
         cfg = (TraceConfig(duration_ms=int(WORK_S * 1000))
                if arm == "duration" else TraceConfig(iterations=2))
         out = {}
+        t_call = time.time()
         poll = threading.Thread(target=lambda: out.update(
             r=client._capture_window(cfg, tmp)))
         poll.start()
@@ -450,24 +523,35 @@ def shim_starts_child(n: int, arms: tuple) -> int:
         path, pending = client._export(tmp)
         if pending is not None and "write_error" in (done := pending.wait()):
             raise RuntimeError(f"{arm} capture {i}: {done}")
-        lost, fwd, kernels = _launches_without_kernel(
-            path, window.started_ms / 1e3 if arm == "duration" else 0.0)
+        lost, first, fwd, kernels, in_lead = _window_losses(
+            path, raw, arm, window, t_call)
         os.unlink(path)
-        rows[arm].append((lost, fwd, window.timing["profiler_start_ms"], i))
+        rows[arm].append((lost, first, fwd,
+                          window.timing["profiler_start_ms"], i, in_lead))
         blank = blank + 1 if not kernels else 0
-        if blank == 12:
+        lossy_run = lossy_run + 1 if lost or (
+            arm != "duration" and fwd != 4) else 0
+        if 12 in (blank, lossy_run):
             print(json.dumps({"case": "shim_starts", "error": "12 captures "
-                              f"in a row hold no kernel record, from capture "
-                              f"{i - 11} on"}), flush=True)
+                              "in a row hold " + (
+                                  "no kernel record" if blank == 12 else
+                                  "launches without their kernel record")
+                              + f", from capture {i - 11} on"}), flush=True)
             break
     lossy = {}
     for arm, got in rows.items():
-        starts_ms = sorted(r[2] for r in got)
-        lossy[arm] = [r for r in got
-                      if r[0] or (arm != "duration" and r[1] != 4)]
+        starts_ms = sorted(r[3] for r in got)
+        lossy[arm] = [r[:5] for r in got
+                      if r[0] or (arm != "duration" and r[2] != 4)]
+        leads = [r[5] for r in got if r[5]]
         print(json.dumps({
             "case": "shim_starts", "arm": arm, "captures": len(got),
             "lossy": lossy[arm],
+            "lossy_in_first_100_ms": sum(bool(r[1]) for r in lossy[arm]),
+            "lead_losses": [(r[4], len(r[5]), max(r[5]), r[3])
+                            for r in got if r[5]],
+            "latest_lead_loss_ms": max((x for lead in leads for x in lead),
+                                       default=None),
             "start_ms_median": starts_ms[len(starts_ms) // 2],
             "starts_of_20_ms_or_more": sum(x >= 20 for x in starts_ms),
             "start_ms_max": starts_ms[-1]}), flush=True)
@@ -617,7 +701,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--starts"]:
         return starts(int(sys.argv[2]))
     if sys.argv[1:2] == ["--shim-starts"]:
-        return shim_starts(int(sys.argv[2]))
+        names, stderr_dir = sys.argv[3:], None
+        if "--stderr-dir" in names:
+            k = names.index("--stderr-dir")
+            stderr_dir = names[k + 1]
+            names = names[:k] + names[k + 2:]
+        return shim_starts(int(sys.argv[2]), names, stderr_dir)
     if sys.argv[1:2] == ["--shim-starts-child"]:
         return shim_starts_child(int(sys.argv[2]),
                                  tuple(sys.argv[3].split(",")))

@@ -279,13 +279,13 @@ def test_host_level_0_duration_capture_keeps_the_app_frames(client,
 
 @pytest.mark.parametrize("steps", [0, 3])
 def test_poll_thread_capture_gets_its_steps_at_export(tmp_path, steps):
-    """A capture the poll thread opens (all_threads) records no torch
+    """A capture the poll thread opens (mid_step) records no torch
     ProfilerStep#N span: _write_steps appends the clock's spans, one per
     step() on the stepping thread, after kineto's events, which it keeps
     as they are, with or without spans to add."""
     a = torch.randn(16, 16)
     prof = TorchProfiler()
-    prof.start(str(tmp_path), all_threads=True)
+    prof.start(str(tmp_path), mid_step=True)
     for _ in range(steps):
         (a @ a).sum()
         prof.step()
@@ -302,20 +302,29 @@ def test_poll_thread_capture_gets_its_steps_at_export(tmp_path, steps):
 
 
 def test_shim_steps_match_torch_steps_in_one_window(tmp_path):
-    """One window at host level 2: the spans the shim would write lie on
-    torch.profiler's ProfilerStep#N spans (kineto's ts plus its base is
-    epoch time), so the summary reads the same steps from either."""
-    prof = TorchProfiler()
+    """One window at host level 2: the spans the shim writes lie on the
+    ProfilerStep#N spans torch.profiler writes under a schedule, which
+    the shim no longer passes (every capture records all threads, C17):
+    kineto's ts plus its base is epoch time, so the summary reads the
+    same steps from either."""
+    from torch.profiler import ProfilerAction, profile
+
+    prof = profile(**shim.profile_options(DEFAULT_TRACER_LEVELS, False),
+                   schedule=lambda _step: ProfilerAction.RECORD)
     a = torch.randn(32, 32)
-    prof.start(str(tmp_path))
+    prof.start()
+    clock = shim._StepClock()
     for _ in range(3):
         (a @ a).sum()
         time.sleep(0.05)
         prof.step()
+        clock.mark()
+    clock.close()
     prof.stop()
-    with open(prof.export(str(tmp_path))) as f:
+    prof.export_chrome_trace(str(tmp_path / "k.json"))
+    with open(tmp_path / "k.json") as f:
         doc = json.load(f)
-    ours = prof._clock.events(doc["baseTimeNanoseconds"])
+    ours = clock.events(doc["baseTimeNanoseconds"])
     theirs = sorted((e for e in doc["traceEvents"]
                      if e.get("name", "").startswith(trace.STEP_PREFIX)),
                     key=lambda e: e["ts"])

@@ -63,8 +63,9 @@ def offline_client():
 
 
 def test_capture_records_training_thread_ops(offline_client, tmp_path):
-    """torch.profiler must start and stop on the thread that runs the
-    model: the trace holds aten::mm cpu_ops from THAT thread."""
+    """An iteration capture starts and stops on the thread that runs the
+    model, with profile_all_threads as every capture (C17): the trace
+    holds aten::mm cpu_ops from THAT thread, and the shim's step spans."""
     a = torch.randn(32, 32)
     log = tmp_path / "trace.json"
     _drive(offline_client,
@@ -333,8 +334,9 @@ def test_capture_aborts_when_app_never_steps(tmp_path):
 
 def test_window_left_open_is_dropped_by_the_next_step(tmp_path):
     """The app stops stepping inside a window: the capture times out with
-    an error manifest, the training thread's next step() closes the
-    profiler it opened, and the next capture works again."""
+    an error manifest, the poll thread closes the profiler it opened
+    (C17: it opens and closes every capture), the training thread's next
+    step() finds no window, and the next capture works again."""
     client = TraceClient(job_id=7, endpoint="dynotpu_torch_nodaemon",
                          step_trace_timeout_s=0.3, report_interval_s=0)
     a = torch.randn(16, 16)
@@ -349,7 +351,8 @@ def test_window_left_open_is_dropped_by_the_next_step(tmp_path):
         runner.join(timeout=30)
         assert not runner.is_alive()
         assert "timed out" in client.last_manifest["error"]
-        client.step()  # closes and drops the abandoned capture
+        assert client.profiler._prof is None  # closed at the timeout
+        client.step()
         assert client._window is None
         _drive(client, f"ACTIVITIES_LOG_FILE={tmp_path / 'b.json'}\n"
                "ACTIVITIES_ITERATIONS=2", lambda: (a @ a).sum())

@@ -54,7 +54,7 @@ class FakeFinishingProfiler:
         self.broken = broken
         self._pending = None
 
-    def start(self, trace_dir, all_threads=False):
+    def start(self, trace_dir, mid_step=False):
         self._clock = shim._StepClock(at_step=False)
 
     def step(self):
@@ -267,7 +267,11 @@ def _seed_write_steps(path: str, clock, drop_host: bool) -> None:
 
 
 class KeepingProfiler(TorchProfiler):
-    """Keeps a copy of kineto's save, and the capture's step clock."""
+    """Keeps a copy of kineto's save, and the capture's step clock. It
+    opens a duration window with no lead, so that the finish has none to
+    trim, as the rewrite before the finish child had none."""
+
+    duration_lead_s = 0.0
 
     def __init__(self, keep: str):
         super().__init__()
@@ -374,12 +378,20 @@ def test_lead_window_steps_against_the_jax_client(tmp_path, base, roundup):
     where that step is still to come; where it has passed (always at
     roundup 1), the window moves to the next roundup boundary."""
     jax_start = _jax_start_at(base, roundup)
-    opened = []
+    opened, marks = [], []
 
     class Seen(TorchProfiler):
-        def start(self, trace_dir, all_threads=False, lead=False):
+        def start(self, trace_dir, lead=False, mid_step=False):
             opened.append((client._step_count, lead))
-            super().start(trace_dir, all_threads, lead)
+            super().start(trace_dir, lead, mid_step)
+
+        def step(self):
+            marks.append(client._step_count)
+            super().step()
+
+        def stop(self):
+            marks.append(("stop", client._step_count))
+            super().stop()
 
     client = TraceClient(job_id=7, endpoint="dynotpu_pipe_nodaemon",
                          profiler=Seen(), report_interval_s=0)
@@ -400,7 +412,22 @@ def test_lead_window_steps_against_the_jax_client(tmp_path, base, roundup):
     want = jax_start if jax_start - 1 > base else jax_start + roundup
     assert (window.start_at, window.end_at) == (want, want + 2)
     assert opened == [(want - 1, True)]
-    client.profiler.export(str(tmp_path))
+    # Its edges are the JAX window's steps: it opens at step() number
+    # start_at and stops at end_at, and the finished trace holds its two
+    # steps and the stop's span, from the window's opening on.
+    assert marks == [want, want + 1, want + 2, ("stop", want + 2)]
+    opens_ns = client.profiler._opens_ns
+    assert opens_ns == client.profiler._clock.times[0]
+    doc = json.loads(open(client.profiler.export(str(tmp_path))).read())
+    base_us = doc["baseTimeNanoseconds"] / 1e3
+    spans = sorted((e for e in doc["traceEvents"]
+                    if e.get("name", "").startswith(trace.STEP_PREFIX)),
+                   key=lambda e: e["ts"])
+    assert [e["name"] for e in spans] == [
+        f"{trace.STEP_PREFIX}{n}" for n in range(3)]
+    assert spans[0]["ts"] + base_us == pytest.approx(opens_ns / 1e3, abs=1)
+    assert min(e["ts"] for e in doc["traceEvents"] if e.get("ph") == "X"
+               ) + base_us >= opens_ns / 1e3 - 1
 
 
 def _hand_written_lead_trace() -> dict:
@@ -483,12 +510,26 @@ def test_finish_drops_the_lead_steps_device_records(tmp_path, host_spans):
 
 
 def test_iteration_window_without_lead_is_final_as_saved(tmp_path):
-    """A capture that needs no finish (an iteration window at host level 2
-    without a lead step) hands over no PendingWrite."""
-    prof = TorchProfiler()
+    """An iteration window without a lead step at host level 2 was final
+    as kineto saved it while torch wrote its ProfilerStep#N spans. Every
+    capture now records all threads with no schedule (C17), so the finish
+    adds the shim's spans to this one too: it hands over a PendingWrite,
+    and the finished trace holds one span per step() and nothing else
+    that kineto did not save."""
+    a = torch.randn(16, 16)
+    prof = KeepingProfiler(str(tmp_path / "kineto.json"))
     prof.start(str(tmp_path))
+    (a @ a).sum()
     prof.step()
     prof.stop()
     path = prof.export(str(tmp_path), pipelined=True)
-    assert prof.take_pending_write() is None
-    assert os.listdir(tmp_path) == [os.path.basename(path)]
+    pending = prof.take_pending_write()
+    assert "write_error" not in pending.wait()
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        [os.path.basename(path), "kineto.json"])
+    saved = json.loads((tmp_path / "kineto.json").read_text())
+    finished = json.loads(open(path).read())
+    spans = prof.clock.events(saved["baseTimeNanoseconds"])
+    assert [e["name"] for e in spans] == [
+        f"{trace.STEP_PREFIX}0", f"{trace.STEP_PREFIX}1"]
+    assert finished["traceEvents"] == saved["traceEvents"] + spans
