@@ -115,6 +115,12 @@ if any phase fails:
    names the three flash kernels and holds the training thread's
    cpu_ops, and a summary that names no step (its `finish_steps` are
    logged);
+17. mixed captures: phase 4's trainer in a fresh process (`chip_smoke.py
+   --mixed SPEC`) under one TraceClient, after 3 uncaptured steps: 60
+   duration windows and 60 `--iterations=2` windows in turns, each finished
+   in-process: every manifest ok, every launch inside a window with its
+   kernel record, and every iteration window with each flash kernel at
+   its call count;
 
 then, with two cards or more, phase 10's model trained expert-parallel
 over NCCL (data x expert, one process per card) for two steps, held in

@@ -22,7 +22,7 @@ loses its first launches' device records there, not in the window, and
 the finish trims the lead from the trace. A duration capture starts the
 profiler at the training thread's next ``step()`` (at once in an app
 that never steps, which is traced too), opens its window
-``TorchProfiler.duration_lead_s`` after the start returned, sleeps the
+``DURATION_LEAD_S`` after the start returned, sleeps the
 window and stops it; the ``step()`` calls that fall in the window only
 mark its ProfilerStep#N spans. An iteration capture's edges are steps:
 the poll thread *arms* a window, the training thread's ``step()`` one
@@ -797,10 +797,9 @@ class TorchProfiler(CaptureKnobs):
     thread, which the finish adds (``_StepClock``). An iteration capture
     opens with ``lead=True`` one step before its window (``lead_step``),
     while the training thread is parked at that step(), and its window
-    opens at its first step(). A duration capture (``mid_step=True``: its
-    first span opens at the first step()) opens with ``lead=True``, and
-    its window opens at open_window(), ``duration_lead_s`` after start()
-    returned.
+    opens at its first step(). A duration capture (and the warmup) opens
+    with ``lead=True`` too, and its window opens at open_window(),
+    ``DURATION_LEAD_S`` after start() returned.
     Records lost to a slow start then fall in the lead, which the finish
     trims. At host level 0 the finish drops the host ops. With every
     tracer off, start() raises.
@@ -813,11 +812,6 @@ class TorchProfiler(CaptureKnobs):
 
     # The TraceClient opens an iteration window one step early.
     lead_step = True
-    # ...and a duration window this long after its profiler's start has
-    # returned (C15). On an H100 80GB HBM3 (700 W), in 1300 duration
-    # windows every launch whose kernel record a start lost was made
-    # within 55.5 ms after that start returned; starts took 2 ms to 4.7 s.
-    duration_lead_s = 0.1
 
     def __init__(self):
         super().__init__()
@@ -829,8 +823,7 @@ class TorchProfiler(CaptureKnobs):
         self._opens_ns: int | None = None
         self._pending_write: PendingWrite | None = None
 
-    def start(self, trace_dir: str, lead: bool = False,
-              mid_step: bool = False) -> None:
+    def start(self, trace_dir: str, lead: bool = False) -> None:
         import torch
         from torch._C._profiler import _ExperimentalConfig
         from torch.profiler import profile
@@ -859,7 +852,7 @@ class TorchProfiler(CaptureKnobs):
             self._prof.start()
         # The first span opens once the window's steps begin, as torch's
         # does.
-        self._clock = _StepClock(at_step=not (mid_step or lead))
+        self._clock = _StepClock(at_step=not lead)
 
     def open_window(self, at_ns: int) -> None:
         """Opens the window of a capture started with ``lead=True`` where
@@ -942,9 +935,12 @@ class RecordingProfiler(CaptureKnobs):
         self.calls.append(("configure", dict(raw)))
         super().configure(raw)
 
-    def start(self, trace_dir: str, mid_step: bool = False) -> None:
+    def start(self, trace_dir: str, lead: bool = False) -> None:
         self.calls.append(("start", trace_dir))
-        self._clock = _StepClock(at_step=not mid_step)
+        self._clock = _StepClock(at_step=not lead)
+
+    def open_window(self, at_ns: int) -> None:
+        """Nothing to trim: only the window's step() calls are seen."""
 
     def step(self) -> None:
         self.calls.append(("step", None))
@@ -988,6 +984,12 @@ class _Window:
 
 
 _BUSY = "a previous capture is still open"
+# A duration window (and the warmup) opens this long after its profiler's
+# start has returned, and the finish trims what was recorded before
+# (C15). On an H100 80GB HBM3 (700 W), in 1300 duration windows every
+# launch whose kernel record a start lost was made within 55.5 ms after
+# that start returned; starts took 2 ms to 4.7 s.
+DURATION_LEAD_S = 0.1
 # What a synchronized duration capture allows its profiler's start: on an
 # H100 80GB HBM3 (700 W) starts with the app parked took a median 19 ms,
 # at most 143 ms in 300 captures of a mixed process (C17).
@@ -1206,7 +1208,11 @@ class TraceClient:
         tmp = tempfile.mkdtemp(prefix=WARMUP_PREFIX)
         window = _Window(tmp, 0, None)
         try:
-            self._start_parked(window, mid_step=True)
+            # Not parked before the app's first step(): on an H100 80GB
+            # HBM3 (700 W) a warmup that parked the app at its first
+            # step() aborted the process (ROADMAP C18).
+            if self._start_parked(window, self._park_wait_s()) is None:
+                return  # stopped while it waited for the park
             t1 = time.time()
             with self._step_cv:
                 self._window = None
@@ -1214,6 +1220,7 @@ class TraceClient:
             t2 = time.time()
             self.profiler.export(tmp)
             self.warmup_timing = {
+                "parked": window.timing["parked"],
                 "profiler_start_ms": window.timing["profiler_start_ms"],
                 "profiler_stop_ms": int((t2 - t1) * 1000),
                 "export_ms": int((time.time() - t2) * 1000)}
@@ -1222,27 +1229,34 @@ class TraceClient:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
-    def _start_parked(self, window: _Window, **start_kw) -> float | None:
+    def _start_parked(self, window: _Window, wait_s: float) -> float | None:
         """Makes `window` (a duration window, or the warmup's) the
         client's window and starts the profiler for it on this (the poll)
-        thread: in an app that steps, once the training thread has parked
-        at its next step() (C17; see _drive_window), waiting at most two
-        of its recent steps; in one that never has, at once. Returns the
-        time the start returned, the window in its lead, or None where
-        another window is open. A failed start raises, and leaves no
-        window."""
+        thread, with a lead, once the training thread has parked at its
+        next step() (C17; see _drive_window), waiting at most `wait_s`.
+        The window's timing says whether it was ``parked``: a start goes
+        ahead without a park in an app that did not step within
+        `wait_s`. Returns the time the start returned, the window in its
+        lead, or None where another window is open or stop() came during
+        the wait. A failed start raises, and leaves no window."""
         with self._step_cv:
             if self._window is not None:
                 return None
             window.start_at = self._step_count + 1
             self._window = window
-            if self._ever_stepped:
+            if wait_s > 0 and not self._stop.is_set():
                 self._step_cv.wait_for(
                     lambda: window.state != "armed" or self._stop.is_set(),
-                    timeout=self._park_wait_s())
+                    timeout=wait_s)
+                if self._stop.is_set():
+                    self._window = None
+                    window.state = "stopped"
+                    self._step_cv.notify_all()
+                    return None
+            window.timing["parked"] = window.state == "opening"
             t0 = time.time()
             try:
-                self.profiler.start(window.trace_dir, **start_kw)
+                self.profiler.start(window.trace_dir, lead=True)
             except BaseException:
                 self._window = None
                 raise
@@ -1254,9 +1268,11 @@ class TraceClient:
         return t1
 
     def _park_wait_s(self) -> float:
-        """How long a duration capture waits for the training thread to
-        park at its next step(): two of its recent steps, at least 0.1 s
-        and at most step_start_timeout_s."""
+        """How long a start waits for the training thread to park at its
+        next step(): two of its recent steps, at least 0.1 s and at most
+        step_start_timeout_s; none in an app that never stepped."""
+        if not self._ever_stepped:
+            return 0.0
         return min(max(2 * self._recent_step_s, 0.1),
                    self.step_start_timeout_s)
 
@@ -1468,9 +1484,8 @@ class TraceClient:
             # thread to park, the start and the lead to end by the start
             # time, where the window opens.
             early_s = 0.0 if cfg.iterations > 0 else (
-                getattr(self.profiler, "duration_lead_s", 0.0)
-                + SYNC_START_ALLOWANCE_S
-                + (self._park_wait_s() if self._ever_stepped else 0.0))
+                DURATION_LEAD_S + SYNC_START_ALLOWANCE_S
+                + self._park_wait_s())
             delay = cfg.start_time_ms / 1000.0 - early_s - time.time()
             if delay > 0:
                 time.sleep(delay)
@@ -1528,30 +1543,28 @@ class TraceClient:
         """Runs one capture's window; returns (error or None, window). A
         duration window runs here, on the poll thread, as the JAX shim's
         does: start, sleep, stop, whether or not the app steps. The
-        window opens the profiler's duration_lead_s after its start
+        window opens DURATION_LEAD_S after its profiler's start
         returned (at a synchronized start time where that is later): its
         started_ms, window_ms and steps count from there, and the finish
         trims the lead."""
         if cfg.iterations > 0:
             return self._iteration_window(cfg, trace_dir)
         window = _Window(trace_dir, 0, None)
-        lead_s = getattr(self.profiler, "duration_lead_s", 0.0)
         try:
-            started = (self._start_parked(window, lead=True, mid_step=True)
-                       if lead_s else self._start_parked(window, mid_step=True))
+            started = self._start_parked(window, self._park_wait_s())
         except Exception as e:  # noqa: BLE001 - fails the capture
             return f"profiler start failed: {e}", window
         if started is None:
-            return _BUSY, window
+            return ("trace aborted: client stopped" if self._stop.is_set()
+                    else _BUSY), window
         window._t_start = time.monotonic()
         # The window opens a lead after the start returned, or at the start
         # time where one is set and later.
-        opens_at = max(started + lead_s, cfg.start_time_ms / 1000.0)
+        opens_at = max(started + DURATION_LEAD_S, cfg.start_time_ms / 1000.0)
         stopped = self._stop.wait(max(opens_at - time.time(), 0.0))
         if not stopped:
             opened_ns = time.time_ns()
-            if lead_s:
-                self.profiler.open_window(opened_ns)
+            self.profiler.open_window(opened_ns)
             window.started_ms = opened_ns // 10**6
             window._t_start = time.monotonic()
             with self._step_cv:

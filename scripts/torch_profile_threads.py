@@ -70,7 +70,9 @@ duration windows on the poll thread, the shim's lead before each;
 the profiler two ways (the duration windows with profile_all_threads,
 the iteration windows thread-local under a schedule) ended up with no
 kernel record in any trace (ROADMAP C17); each process stops once 12
-captures in a row hold none, or are lossy. It prints, per arm, the lossy captures
+captures in a row hold none, or are lossy. Every 100 captures it prints
+a progress line (captures so far, lossy ones per arm), so that a run cut
+by its time limit still counts. It prints, per arm, the lossy captures
 (launch without its kernel record, in a duration window among the
 launches before its profiler stop began; or, in an iteration window,
 flash_fwd calls other than 4) as (launches lost, of them in the window's
@@ -81,6 +83,16 @@ start call, the manifest's profiler_start_ms, and a one-sided Fisher
 exact p for "start_alone loses more often than lead". Each process's
 stderr (kineto's log, with KINETO_LOG_LEVEL=0 its record counts) goes to
 DIR/shim_starts_PROCESS.stderr.
+
+With --warmup-first-step N (one card) it starts the shim's profiler
+warmup (TraceClient._warmup, on a side thread as the poll loop runs it)
+in N fresh processes per arm of the dense trainer, each before the
+trainer's first step: "parked" waits up to 5 s for the first step() and
+parks it there while the profiler starts; "unparked" starts at once,
+while the first steps run (the shim's order). Each process then takes
+steps until the warmup is over, 8 at least. Per process it prints the
+warmup's timing and the steps, or the exit code (negative: the signal
+that ended it) and the end of its stderr.
 
 With --ring N (one card) it takes N ring samples (the shim's 200 ms
 duration window on a side thread, TraceClient._ring_sample, a second
@@ -531,6 +543,12 @@ def shim_starts_child(n: int, arms: tuple) -> int:
         blank = blank + 1 if not kernels else 0
         lossy_run = lossy_run + 1 if lost or (
             arm != "duration" and fwd != 4) else 0
+        if (i + 1) % 100 == 0:
+            print(json.dumps({"case": "shim_starts", "progress": i + 1,
+                              "lossy": {a: sum(bool(r[0]) or (
+                                  a != "duration" and r[2] != 4)
+                                  for r in got) for a, got in rows.items()}}),
+                  flush=True)
         if 12 in (blank, lossy_run):
             print(json.dumps({"case": "shim_starts", "error": "12 captures "
                               "in a row hold " + (
@@ -660,6 +678,55 @@ def ring_child(n: int, warmup: bool, python: bool) -> int:
     return 0
 
 
+# The arms of --warmup-first-step: the warmup's start while the app takes
+# its first steps ("unparked", the shim's order where the client starts
+# before training), or parked at the app's first step() (ROADMAP C18).
+WARMUP_ARMS = ("parked", "unparked")
+
+
+def warmup_first_step_child(arm: str) -> int:
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    from dynolog_tpu_torch.client.shim import TraceClient
+    from dynolog_tpu_torch.ops import _build
+
+    _build.build_all()
+    trainer = cs.Trainer(cs.dense_config())
+    client = TraceClient(job_id=1, endpoint="unused", report_interval_s=0)
+    if arm == "parked":
+        # Waits up to 5 s for the first step() and parks it there.
+        client._park_wait_s = lambda: 5.0
+    warmup = threading.Thread(target=client._warmup)
+    warmup.start()
+    steps = 0
+    while warmup.is_alive() or steps < 8:
+        trainer.step()
+        client.step()
+        steps += 1
+    warmup.join()
+    torch.cuda.synchronize()
+    print(json.dumps({"case": "warmup_first_step", "arm": arm,
+                      "warmup_timing": client.warmup_timing, "steps": steps,
+                      "last_error": client.last_error}), flush=True)
+    return 0
+
+
+def warmup_first_step(n: int) -> int:
+    for arm in WARMUP_ARMS:
+        for i in range(n):
+            out = subprocess.run(
+                [sys.executable, __file__, "--warmup-first-step-child", arm],
+                capture_output=True, text=True, timeout=300)
+            lines = out.stdout.strip().splitlines()
+            print(lines[-1] if out.returncode == 0 and lines else json.dumps(
+                {"case": "warmup_first_step", "arm": arm, "run": i,
+                 "rc": out.returncode, "stderr": out.stderr[-600:]}),
+                flush=True)
+    return 0
+
+
 def ring(n: int) -> int:
     rc = 0
     for warmup, python in ((False, True), (True, True), (True, False)):
@@ -710,6 +777,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--shim-starts-child"]:
         return shim_starts_child(int(sys.argv[2]),
                                  tuple(sys.argv[3].split(",")))
+    if sys.argv[1:2] == ["--warmup-first-step"]:
+        return warmup_first_step(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--warmup-first-step-child"]:
+        return warmup_first_step_child(sys.argv[2])
     if sys.argv[1:2] == ["--ring"]:
         return ring(int(sys.argv[2]))
     if sys.argv[1:2] == ["--ring-child"]:

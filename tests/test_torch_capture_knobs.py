@@ -279,13 +279,13 @@ def test_host_level_0_duration_capture_keeps_the_app_frames(client,
 
 @pytest.mark.parametrize("steps", [0, 3])
 def test_poll_thread_capture_gets_its_steps_at_export(tmp_path, steps):
-    """A capture the poll thread opens (mid_step) records no torch
+    """A capture opened with a lead (mid-step) records no torch
     ProfilerStep#N span: _write_steps appends the clock's spans, one per
     step() on the stepping thread, after kineto's events, which it keeps
     as they are, with or without spans to add."""
     a = torch.randn(16, 16)
     prof = TorchProfiler()
-    prof.start(str(tmp_path), mid_step=True)
+    prof.start(str(tmp_path), lead=True)
     for _ in range(steps):
         (a @ a).sum()
         prof.step()

@@ -54,8 +54,11 @@ class FakeFinishingProfiler:
         self.broken = broken
         self._pending = None
 
-    def start(self, trace_dir, mid_step=False):
+    def start(self, trace_dir, lead=False):
         self._clock = shim._StepClock(at_step=False)
+
+    def open_window(self, at_ns):
+        pass
 
     def step(self):
         self._clock.mark()
@@ -267,11 +270,8 @@ def _seed_write_steps(path: str, clock, drop_host: bool) -> None:
 
 
 class KeepingProfiler(TorchProfiler):
-    """Keeps a copy of kineto's save, and the capture's step clock. It
-    opens a duration window with no lead, so that the finish has none to
-    trim, as the rewrite before the finish child had none."""
-
-    duration_lead_s = 0.0
+    """Keeps a copy of kineto's save, the capture's step clock and the
+    epoch ns its window opened at (None where it opened at its start)."""
 
     def __init__(self, keep: str):
         super().__init__()
@@ -286,7 +286,20 @@ class KeepingProfiler(TorchProfiler):
 
         self._stopped.export_chrome_trace = kept
         self.clock = self._clock
+        self.opened_ns = self._opens_ns if self._lead else None
         return super().export(trace_dir, pipelined, profile_top)
+
+
+def _trim_kept(path: str, opened_ns) -> None:
+    """Trims a kept kineto save to its window as the finish does, so that
+    the rewrite before the finish child, which knew no lead, can be held
+    to the finished trace."""
+    with open(path) as f:
+        doc = json.load(f)
+    doc["traceEvents"] = trace._trim_lead(
+        doc["traceEvents"], (opened_ns - doc["baseTimeNanoseconds"]) / 1e3)
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 @pytest.mark.parametrize("host", [2, 0])
@@ -299,6 +312,8 @@ def test_finished_trace_equals_the_in_process_rewrite(tmp_path, host):
     manifest = client.last_manifest
     assert manifest["status"] == "ok", manifest
     finished = json.loads(open(manifest["trace_file"]).read())
+    assert prof.opened_ns is not None  # a duration window has a lead
+    _trim_kept(keep, prof.opened_ns)
     shutil.copy(keep, keep + ".2")
     _seed_write_steps(keep, prof.clock, drop_host=host == 0)
     shim._write_steps(keep + ".2", prof.clock, drop_host=host == 0)
@@ -381,9 +396,9 @@ def test_lead_window_steps_against_the_jax_client(tmp_path, base, roundup):
     opened, marks = [], []
 
     class Seen(TorchProfiler):
-        def start(self, trace_dir, lead=False, mid_step=False):
+        def start(self, trace_dir, lead=False):
             opened.append((client._step_count, lead))
-            super().start(trace_dir, lead, mid_step)
+            super().start(trace_dir, lead)
 
         def step(self):
             marks.append(client._step_count)

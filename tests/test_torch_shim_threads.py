@@ -9,11 +9,14 @@ thread, as the JAX client's do: a process whose iteration windows the
 training thread opened lost every kernel record on the card once
 duration windows came between them. An iteration window opens one step
 early, while the training thread is parked at that step(), and closes
-while it is parked at the window's last step(). A duration window opens
-its window TorchProfiler.duration_lead_s after its profiler's start
+while it is parked at the window's last step(). A duration window's and
+the warmup's profiler start once the training thread has parked at its
+next step() (at once before the app's first step()), and a start that
+goes ahead without a park says so in its timing. A duration
+window opens its window DURATION_LEAD_S after its profiler's start
 returned, and a synchronized start starts the profiler early enough for
-the window to open at the start time; the finish trims the lead. Held against the JAX client's duration windows where it
-has one."""
+the window to open at the start time; the finish trims the lead. Held
+against the JAX client's duration windows where it has one."""
 
 import json
 import os
@@ -123,8 +126,9 @@ def test_every_session_records_all_threads_on_its_chosen_thread(
     profile_all_threads and no schedule, and started and stopped on the
     poll thread, as the JAX client's are. Every capture's profiler starts
     while the training thread is parked at a step() (its window
-    "opening"), an iteration window's also stops so ("closing"). Each
-    capture is ok and holds the training thread's cpu_ops."""
+    "opening", and "parked" in its timing), an iteration window's also
+    stops so ("closing"). Each capture is ok and holds the training
+    thread's cpu_ops."""
     sessions = _Sessions(monkeypatch)
     client = TraceClient(
         job_id=7, endpoint=f"threads_test_{os.getpid()}",
@@ -173,6 +177,7 @@ def test_every_session_records_all_threads_on_its_chosen_thread(
     captures = sessions.rows[1:]
     assert all(row["at_start"] == "opening" for row in captures), captures
     assert [row["at_stop"] for row in captures].count("closing") == 1
+    assert json.loads(manifests[0].read_text())["timing"]["parked"] is True
 
 
 def _busy_until(stop: threading.Event, work) -> None:
@@ -188,7 +193,7 @@ def test_duration_window_trims_its_lead(tmp_path):
     count from there, and its window_ms is about its duration_ms."""
     client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
                          profiler=TorchProfiler(), report_interval_s=0)
-    assert client.profiler.duration_lead_s > 0
+    assert shim.DURATION_LEAD_S > 0
     # A start slower than the lead (the process's first, seconds on the
     # CPU) leaves none: pay it first.
     client._warmup()
@@ -256,8 +261,7 @@ def test_duration_window_against_the_jax_client(tmp_path):
     assert ref["status"] == ours["status"] == "ok", (ref, ours)
     assert ref["mode"] == ours["mode"] == "duration"
     assert t0 - 1 <= ref["started_ms"] < t1
-    assert ours["started_ms"] - t1 >= (
-        client.profiler.duration_lead_s * 1000 - 1)
+    assert ours["started_ms"] - t1 >= shim.DURATION_LEAD_S * 1000 - 1
     timing = ref["timing"]
     jax_window = (ref["ended_ms"] - ref["started_ms"]
                   - timing["profiler_start_ms"] - timing["profiler_stop_ms"])
@@ -272,9 +276,9 @@ def test_synchronized_start_opens_the_profiler_a_lead_early(tmp_path):
     starts = []
 
     class Seen(TorchProfiler):
-        def start(self, trace_dir, lead=False, mid_step=False):
+        def start(self, trace_dir, lead=False):
             starts.append(time.time() * 1000)
-            super().start(trace_dir, lead, mid_step)
+            super().start(trace_dir, lead)
 
     class JaxSeen(jax_shim.RecordingProfiler):
         def start(self, trace_dir):
@@ -286,7 +290,7 @@ def test_synchronized_start_opens_the_profiler_a_lead_early(tmp_path):
     jax_client = jax_shim.TraceClient(
         job_id=7, endpoint="dynotpu_threads_nodaemon",
         profiler=JaxSeen(), report_interval_s=0)
-    lead_ms = Seen.duration_lead_s * 1000
+    lead_ms = shim.DURATION_LEAD_S * 1000
     try:
         # The profiler's first start in a process can take seconds on the
         # CPU: pay it outside the measured start.
@@ -355,30 +359,82 @@ def test_mixed_captures_each_hold_the_training_threads_ops(tmp_path):
     assert all(held), [i for i, n in enumerate(held) if not n]
 
 
-def test_stop_during_the_lead_ends_the_capture(tmp_path):
+def test_stop_during_the_lead_ends_the_capture(tmp_path, monkeypatch):
     """stop() while a duration window's profiler records its lead: the
     poll thread's wait ends before the window opens, its own profiler is
     stopped, and the capture ends in an error manifest."""
-
-    class LongLead(TorchProfiler):
-        duration_lead_s = 600.0
-
+    monkeypatch.setattr(shim, "DURATION_LEAD_S", 600.0)
     client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
-                         profiler=LongLead(), report_interval_s=0)
+                         profiler=TorchProfiler(), report_interval_s=0)
     runner = threading.Thread(target=client._run_trace, args=(
         TraceConfig.parse(f"ACTIVITIES_LOG_FILE={tmp_path / 'x.json'}\n"
                           "ACTIVITIES_DURATION_MSECS=600000"),))
     runner.start()
     deadline = time.time() + 60
-    while client.profiler._prof is None and time.time() < deadline:
+    # The window enters its lead once the profiler's start has returned.
+    while time.time() < deadline and not (
+            client._window is not None and client._window.state == "lead"):
         time.sleep(0.01)
-    t0 = time.time()
     lead = client._window.state
+    recording = client.profiler._prof is not None
+    t0 = time.time()
     client.stop()
     runner.join(timeout=30)
     assert not runner.is_alive() and time.time() - t0 < 10
-    assert lead == "lead"
+    assert lead == "lead" and recording
     manifest = json.loads((tmp_path / f"x_{os.getpid()}.json").read_text())
     assert manifest["status"] == "error" and "client stopped" in manifest[
         "error"], manifest
     assert client.profiler._prof is None and client._window is None
+
+
+def test_stop_during_the_park_wait_starts_nothing(tmp_path):
+    """stop() while a duration capture waits for the training thread to
+    park (it has stepped, then paused): the profiler is never started,
+    the capture ends in an error manifest, and no window is left."""
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=shim.RecordingProfiler(),
+                         report_interval_s=0, step_start_timeout_s=600)
+    for _ in range(3):
+        client.step()
+        time.sleep(0.5)  # recent steps of 0.5 s: a wait of about 1 s
+    runner = threading.Thread(target=client._run_trace, args=(
+        TraceConfig.parse(f"ACTIVITIES_LOG_FILE={tmp_path / 'p.json'}\n"
+                          "ACTIVITIES_DURATION_MSECS=50"),))
+    runner.start()
+    deadline = time.time() + 30
+    while client._window is None and time.time() < deadline:
+        time.sleep(0.005)
+    assert client._window.state == "armed"
+    client.stop()
+    runner.join(timeout=30)
+    assert not runner.is_alive()
+    assert [c for c in client.profiler.calls if c[0] == "start"] == []
+    manifest = json.loads((tmp_path / f"p_{os.getpid()}.json").read_text())
+    assert manifest["status"] == "error" and "client stopped" in manifest[
+        "error"], manifest
+    assert client._window is None
+
+
+@pytest.mark.parametrize("case", ["warmup_before_any_step",
+                                  "duration_after_a_pause"])
+def test_start_without_a_park_says_so(case):
+    """A start that goes ahead without the training thread parked — the
+    warmup of an app that has not stepped yet, a duration capture whose
+    park wait ran out — records parked false in its timing."""
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=shim.RecordingProfiler(),
+                         report_interval_s=0)
+    try:
+        if case == "warmup_before_any_step":
+            client._warmup()
+            assert client.warmup_timing["parked"] is False
+        else:
+            client.step()
+            client.step()  # then no step for longer than the wait
+            error, window = client._capture_window(
+                TraceConfig(duration_ms=20), "unused")
+            assert error is None
+            assert window.timing["parked"] is False
+    finally:
+        client.stop()
