@@ -115,12 +115,22 @@ if any phase fails:
    names the three flash kernels and holds the training thread's
    cpu_ops, and a summary that names no step (its `finish_steps` are
    logged);
-17. mixed captures: phase 4's trainer in a fresh process (`chip_smoke.py
-   --mixed SPEC`) under one TraceClient, after 3 uncaptured steps: 60
-   duration windows and 60 `--iterations=2` windows in turns, each finished
-   in-process: every manifest ok, every launch inside a window with its
-   kernel record, and every iteration window with each flash kernel at
-   its call count;
+17. mixed captures: (a) phase 4's trainer in a fresh process
+   (`chip_smoke.py --mixed SPEC`) under one TraceClient, after 3
+   uncaptured steps: 60 duration windows and 60 `--iterations=2` windows
+   in turns, each finished in-process: every manifest ok with no launch
+   of its window lost (its timing's lost_launches 0), and every
+   iteration window with each flash kernel at its call count; (b) the
+   real client: phase 4's trainer in a fresh process (`chip_smoke.py
+   --poll SPEC`) under a TraceClient started as an application starts
+   one, with the profiler warmup (not waited on: the app trains at once)
+   and the capture ring on, and a long step (5 train steps) every 50
+   steps; 30 duration and 30 `--iterations=2` windows in turns through
+   the dyno CLI, each finished in the shim's child: every manifest ok
+   with lost_launches 0, every iteration window with the three flash kernels at one count, its
+   call count or more where a long step fell inside, every ring sample
+   and the warmup with lost_launches 0, and their timing (parked) and
+   the steps over the warmup logged;
 
 then, with two cards or more, phase 10's model trained expert-parallel
 over NCCL (data x expert, one process per card) for two steps, held in
@@ -147,15 +157,16 @@ and the daemon, and runs phase 12 and the checks (a), (b), (d), (e) and
 The launch counters are zeroed just before each main path (phases 4-5,
 the dense trainer; phase 10, the MoE trainer; phase 12's ring run; phase
 13's pipeline run; phase 14's three trainers, each in its own process;
-phase 15's trainer; phase 16's processes, each from its start; in each
-rank of a multi-card check, its steps) and
+phase 15's trainer; phase 16's and 17's processes, each from its start;
+in each rank of a multi-card check, its steps) and
 read just after; phases 7 and 8 drive the dense trainer again, each with
 the counters zeroed before it and read after it. The last lines are the
 card's name and power limit, a JSON object with one entry per kernel
 (launches: phases 4-5 and 10 together, and in launches_by_path each
 path's own: ring and pp (phase 13), whose plain products launch no
 kernel, fleet (phase 14's trainers together), knobs (phase 15),
-first_capture (phase 16's processes together), the
+first_capture (phase 16's processes together), mixed and mixed_poll
+(phase 17 (a) and (b)), the
 expert-parallel ranks' total as moe_ep, the ranks' totals of (a), (b),
 (d), (e) and (c) as tp, moe_tp, sp, moe_sp and pp_mesh, or null where a
 check did not run), and {"ok": true, "device": ...}.
@@ -2638,9 +2649,9 @@ def phase_first_capture(daemon, smi: str) -> dict:
     return launches
 
 
-# ------------------------------------------------------------ phase 17
+# ------------------------------------------------------------ phase 17 (a)
 
-# Phase 17: phase 4's dense trainer in a process of its own under one
+# Phase 17 (a): phase 4's dense trainer in a process of its own under one
 # TraceClient, captured MIXED_CAPTURES times in each kind, in turns: a
 # duration window of MIXED_DURATION_MS on the poll thread's side (as
 # `dyno gputrace --duration_ms` and the ring take it) and a window of
@@ -2654,38 +2665,68 @@ MIXED_DURATION_MS = 200
 MIXED_BLANK_STOP = 12  # captures in a row with no kernel record end it
 
 
-def window_facts(trace_file: str, manifest: dict) -> dict:
-    """What a capture's trace holds of its window: the runtime launches
-    without a device record (in a duration window, those before its
-    profiler stop began, which synchronizes the card first; an iteration
-    window stops while the training thread is parked at its end), the
-    three flash kernels' records, and all kernel records."""
-    with open(trace_file) as f:
+def capture_facts(manifest: dict) -> dict:
+    """What a capture holds, from its manifest and its trace: the kind,
+    status, timing (parked, profiler_start_ms, lost_launches, ...), the
+    three flash kernels' records and all kernel records. Where the
+    manifest has no lost_launches (a shim from before it counted them),
+    `recounted` holds the launches without a kernel record made before
+    the window's end, by the port's rule (trace.unmatched_launches)."""
+    from dynolog_tpu_torch import trace
+
+    t = manifest["timing"]
+    got = {"kind": manifest["mode"], "status": manifest["status"],
+           "error": manifest.get("error"),
+           "started_ms": manifest["started_ms"],
+           "timing": {k: t.get(k) for k in (
+               "parked", "park_ms", "lost_launches", *TIMING_KEYS)}}
+    if manifest["status"] != "ok":
+        return got
+    with open(manifest["trace_file"]) as f:
         doc = json.load(f)
-    events, base_us = doc["traceEvents"], doc["baseTimeNanoseconds"] / 1e3
-    device = {(e.get("args") or {}).get("correlation") for e in events
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
-    stop_us = (manifest["started_ms"] + manifest["timing"]["window_ms"]) * 1e3
-    lost = sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
-               and "Launch" in e.get("name", "")
-               and (e.get("args") or {}).get("correlation") not in device
-               and (manifest["mode"] != "duration"
-                    or e["ts"] + base_us < stop_us)
-               for e in events)
+    events = doc["traceEvents"]
     kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
-    return {"lost": lost, "kernels": len(kernels),
-            "flash": {name: sum(f"flash_tc::{name}_kernel" in k
-                                for k in kernels) for name in PRODUCTS}}
+    got.update(kernels=len(kernels), flash={
+        name: sum(f"flash_tc::{name}_kernel" in k for k in kernels)
+        for name in PRODUCTS})
+    if t.get("lost_launches") is None:
+        got["recounted"] = len(trace.unmatched_launches(
+            events, doc["baseTimeNanoseconds"],
+            (manifest["started_ms"] + t["window_ms"]) * 10**6))
+    return got
+
+
+def lost_of(c: dict) -> int | None:
+    """A capture's lost launches: its timing's count, else the recount
+    (None for a warmup or ring sample of a shim that did not count)."""
+    lost = c["timing"].get("lost_launches")
+    return c.get("recounted") if lost is None else lost
+
+
+def lossy(c: dict, evals: bool = False) -> bool:
+    """A capture that failed, lost kernel records, or (an iteration
+    window) holds a flash kernel at other than N_LAYERS * ITERATIONS
+    records; where `evals` (phase 17 (b)'s long steps, each POLL_EVAL_STEPS
+    train steps) the three at one count, that or more, a multiple of
+    N_LAYERS."""
+    if c["status"] != "ok" or lost_of(c):
+        return True
+    if c["kind"] != "iterations":
+        return False
+    counts = set(c["flash"].values())
+    if not evals:
+        return counts != {N_LAYERS * ITERATIONS}
+    return not (len(counts) == 1 and min(counts) >= N_LAYERS * ITERATIONS
+                and min(counts) % N_LAYERS == 0)
 
 
 def mixed_trainer(spec: dict) -> int:
-    """`chip_smoke.py --mixed SPEC`: phase 17's process. The dense flash
+    """`chip_smoke.py --mixed SPEC`: phase 17 (a)'s process. The dense flash
     trainer under a TraceClient whose poll thread's role a side thread
     plays (_run_trace, one capture at a time, each finished in-process
     before it returns) while this thread trains and calls client.step();
-    duration and iteration windows in turns. Writes each capture's kind,
-    status, timing and window_facts, and the launches, to
-    spec["result"]."""
+    duration and iteration windows in turns. Writes each capture's
+    capture_facts, and the launches, to spec["result"]."""
     from dynolog_tpu_torch import failpoints
     from dynolog_tpu_torch.client import TraceClient
     from dynolog_tpu_torch.client.shim import TraceConfig
@@ -2716,10 +2757,8 @@ def mixed_trainer(spec: dict) -> int:
             steps += 1
         poll.join()
         m = json.loads(manifest_path(log_file).read_text())
-        got = {"kind": kind, "status": m["status"], "error": m.get("error"),
-               "timing": {k: m["timing"].get(k) for k in TIMING_KEYS}}
+        got = capture_facts(m)
         if m["status"] == "ok":
-            got.update(window_facts(m["trace_file"], m))
             os.unlink(m["trace_file"])
         captures.append(got)
         blank = blank + 1 if not got.get("kernels") else 0
@@ -2733,9 +2772,9 @@ def mixed_trainer(spec: dict) -> int:
 
 
 def phase_mixed(smi: str) -> dict:
-    """Phase 17: MIXED_CAPTURES duration and as many iteration windows in
-    turns in one process (mixed_trainer): every manifest ok, no launch in
-    a window without its kernel record, and every iteration window with
+    """Phase 17 (a): MIXED_CAPTURES duration and as many iteration windows
+    in turns in one process (mixed_trainer): every manifest ok with no
+    lost launch (capture_facts, lossy), and every iteration window with
     each flash kernel at N_LAYERS * ITERATIONS records. Logs each kind's
     lossy captures, its profiler start and stop, and the first capture
     that held no kernel record. Returns the process's launches."""
@@ -2752,7 +2791,7 @@ def phase_mixed(smi: str) -> dict:
         got = json.loads(Path(spec["result"]).read_text())
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    failures, want = [], N_LAYERS * ITERATIONS
+    failures = []
     for k, v in got["launches"].items():
         if v < N_LAYERS * got["steps"]:
             failures.append(f"{k} launched {v} times in {got['steps']} steps")
@@ -2762,12 +2801,10 @@ def phase_mixed(smi: str) -> dict:
                         f"the last {MIXED_BLANK_STOP} held no kernel record")
     for kind in ("duration", "iterations"):
         mine = [(i, c) for i, c in enumerate(caps) if c["kind"] == kind]
-        bad = [(i, c) for i, c in mine if c["status"] != "ok" or c["lost"]
-               or (kind == "iterations"
-                   and set(c["flash"].values()) != {want})]
+        bad = [(i, c) for i, c in mine if lossy(c)]
         blank = [i for i, c in mine if not c.get("kernels")]
         log(f"  {smi}: {len(mine)} {kind} windows, {len(bad)} lossy "
-            f"{[(i, c.get('lost'), c.get('flash')) for i, c in bad[:8]]}; "
+            f"{[(i, lost_of(c), c.get('flash')) for i, c in bad[:8]]}; "
             f"first with no kernel record: {blank[0] if blank else None}; "
             f"profiler_start_ms median "
             f"{statistics.median(c['timing']['profiler_start_ms'] or 0 for _, c in mine)}"
@@ -2775,8 +2812,217 @@ def phase_mixed(smi: str) -> dict:
             f"; profiler_stop_ms median "
             f"{statistics.median(c['timing']['profiler_stop_ms'] or 0 for _, c in mine)}")
         failures += [f"{kind} capture {i}: {c}" for i, c in bad[:8]]
-    log(f"  phase 17 took {time.time() - t0:.1f} s, {got['steps']} steps; "
+    log(f"  phase 17 (a) took {time.time() - t0:.1f} s, {got['steps']} steps; "
         f"last_error {got['last_error']}")
+    if failures:
+        raise AssertionError("\n".join(failures))
+    return got["launches"]
+
+
+# ------------------------------------------------------------ phase 17 (b)
+
+# Phase 17 (b), the real client: phase 4's dense trainer in a process of
+# its own under a TraceClient built as an application builds one
+# (client.start(): the poll loop, its profiler warmup, the capture ring),
+# which trains at once, without waiting on warmup_done. Duration windows
+# of POLL_WINDOW_MS and ITERATIONS-step windows arrive in turns through
+# dynologd (`dyno gputrace`), each finished in the shim's nice-19 child,
+# and every POLL_EVAL_EVERY steps one step() spans POLL_EVAL_STEPS train
+# steps (an eval or a checkpoint's place), long enough for a duration
+# start's park wait of two recent steps to run out. In a `stepless`
+# process the app never calls client.step(): duration windows only, no
+# ring. `scripts/torch_profile_threads.py --shim-starts poll|stepless`
+# runs the same process for longer.
+POLL_CAPTURES = 30  # of each kind
+POLL_WINDOW_MS = 200
+POLL_RING_EVERY = 60  # steps
+POLL_EVAL_EVERY = 50
+POLL_EVAL_STEPS = 5
+
+
+def poll_trainer(spec: dict) -> int:
+    """`chip_smoke.py --poll SPEC`: phase 17 (b)'s process. Trains until
+    the file spec["stop"] exists, under a TraceClient on the dynologd at
+    spec["endpoint"] with the warmup and (unless spec["stepless"]) the
+    ring on. Writes the warmup's timing, the host times (ms) of the steps
+    that ended before warmup_done and the median of the 200 after them,
+    each ring sample's timing, the steps and train steps, the launches
+    and last_error to spec["result"]."""
+    from dynolog_tpu_torch.client import RingConfig, TraceClient
+
+    F = importlib.import_module("dynolog_tpu_torch.ops.flash_attention")
+    trainer = Trainer(dense_config())
+    stepless = spec["stepless"]
+    ring = None if stepless else RingConfig(
+        every_n_steps=POLL_RING_EVERY, window_ms=POLL_WINDOW_MS, keep=2,
+        dir=spec["ring_dir"], model="poll", min_interval_s=0.0)
+    client = TraceClient(job_id=spec["job_id"], endpoint=spec["endpoint"],
+                         poll_interval_s=0.2, report_interval_s=1.0,
+                         warmup_profiler=True, ring=ring)
+    F.reset_launches()
+    if not client.start():
+        raise RuntimeError("the shim could not register with dynologd")
+    stop, steps, spans, samples = Path(spec["stop"]), 0, [], []
+    try:
+        while not stop.exists():
+            b = time.time() * 1000
+            for _ in range(POLL_EVAL_STEPS
+                           if steps % POLL_EVAL_EVERY == POLL_EVAL_EVERY - 1
+                           else 1):
+                trainer.step()
+            if not stepless:
+                client.step()
+            steps += 1
+            spans.append((b, time.time() * 1000,
+                          client.warmup_done.is_set()))
+            if client.ring and client.ring.captures > len(samples):
+                samples.append({**client.ring.last_timing,
+                                "seen_ms": int(time.time() * 1000)})
+    finally:
+        client.stop()
+        for proc in client.summary_procs:
+            proc.wait(timeout=120)
+    torch.cuda.synchronize()
+    during = [round(e - b, 1) for b, e, done in spans if not done]
+    after = sorted(e - b for b, e, done in spans[len(during):][:200])
+    Path(spec["result"]).write_text(json.dumps({
+        "warmup_timing": client.warmup_timing, "during_warmup": during,
+        "median_step_ms": round(after[len(after) // 2], 1) if after else None,
+        "ring": samples, "steps": steps,
+        "train_steps": steps + (POLL_EVAL_STEPS - 1) * (
+            steps // POLL_EVAL_EVERY),
+        "launches": dict(F.launches), "last_error": client.last_error}))
+    return 0
+
+
+def run_poll(daemon, n: int, stepless: bool, progress=None,
+             stderr_path: str | None = None) -> dict:
+    """Starts poll_trainer in a process of its own and captures it through
+    the dyno CLI n times in each kind (duration and iteration windows in
+    turns; n duration windows where `stepless`), each capture's manifest
+    awaited and its trace read (capture_facts) and deleted before the
+    next; stops after MIXED_BLANK_STOP captures in a row with no kernel
+    record. `progress(i, captures)` is called after each. Returns the
+    process's result with "captures"."""
+    tmp = Path(tempfile.mkdtemp(prefix="dynotpu_poll_"))
+    job_id = 7800 + os.getpid() % 100 + (50 if stepless else 0)
+    spec = {"job_id": job_id, "endpoint": daemon.endpoint,
+            "stepless": stepless, "ring_dir": str(tmp / "ring"),
+            "stop": str(tmp / "stop"), "result": str(tmp / "result.json")}
+    err = open(stderr_path, "w") if stderr_path else None
+    proc = subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--poll",
+         json.dumps(spec)], cwd=REPO, stderr=err)
+    captures, blank = [], 0
+    try:
+        for i in range(n if stepless else 2 * n):
+            kind = "iterations" if i % 2 and not stepless else "duration"
+            log_file = str(tmp / f"poll_{i}.json")
+            window = (f"--iterations={ITERATIONS}" if kind == "iterations"
+                      else f"--duration_ms={POLL_WINDOW_MS}")
+            deadline = time.time() + 300
+            while True:  # the client registers once its trainer is built
+                try:
+                    dyno_gputrace(daemon.port, job_id, log_file, [], window)
+                    break
+                except RuntimeError:
+                    if i or time.time() > deadline or proc.poll() is not None:
+                        raise
+                    time.sleep(1.0)
+            path = Path(f"{log_file[:-5]}_{proc.pid}.json")
+            if not wait_for(path, time.time() + 120):
+                raise RuntimeError(f"capture {i}: no manifest in 120 s")
+            m = json.loads(path.read_text())
+            captures.append(capture_facts(m))
+            for f in (m.get("trace_file"), str(path)):
+                if f:
+                    Path(f).unlink(missing_ok=True)
+            if progress:
+                progress(i, captures)
+            blank = blank + 1 if not captures[-1].get("kernels") else 0
+            if blank == MIXED_BLANK_STOP:
+                break
+    finally:
+        Path(spec["stop"]).touch()
+        try:
+            proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            if err:
+                err.close()
+    try:
+        if proc.returncode != 0:
+            raise RuntimeError(f"the poll trainer exited {proc.returncode}")
+        got = json.loads(Path(spec["result"]).read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {**got, "captures": captures}
+
+
+def poll_report(got: dict) -> tuple[list, list]:
+    """Log lines of a run_poll result, per kind of capture (warmup, ring,
+    duration, iterations): its captures, lossy ones (index among the
+    samples or the on-demand captures, lost launches, flash records),
+    parked share and profiler_start_ms median
+    and max, and the first capture with no kernel record; and the
+    failures of phase 17 (b)'s rules."""
+    rows = [{"kind": "warmup", "status": "ok", "timing": got["warmup_timing"]}
+            ] if got["warmup_timing"] else []
+    rows += [{"kind": "ring", "status": "ok", "timing": t}
+             for t in got["ring"]]
+    lines, failures = [], []
+    for kind in ("warmup", "ring", "duration", "iterations"):
+        mine = [(i, c) for i, c in enumerate(got["captures"] if kind in (
+            "duration", "iterations") else rows) if c["kind"] == kind]
+        if not mine:
+            continue
+        bad = [(i, lost_of(c), c.get("flash")) for i, c in mine
+               if lossy(c, evals=True)]
+        starts = [c["timing"].get("profiler_start_ms") or 0 for _, c in mine]
+        blank = [i for i, c in mine if c.get("kernels") == 0]
+        lines.append(
+            f"{len(mine)} {kind}: {len(bad)} lossy {bad[:8]}; parked "
+            f"{sum(c['timing'].get('parked') is True for _, c in mine)}"
+            f"/{len(mine)}; profiler_start_ms median "
+            f"{statistics.median(starts)}, max {max(starts)}; first with no "
+            f"kernel record: {blank[0] if blank else None}")
+        failures += [f"{kind} capture {b}" for b in bad[:8]]
+    return lines, failures
+
+
+def phase_poll(daemon, smi: str) -> dict:
+    """Phase 17 (b): run_poll at POLL_CAPTURES of each kind. Every
+    capture ok with lost_launches 0 in its manifest, every iteration
+    window with each flash kernel at N_LAYERS * ITERATIONS records, the
+    ring's samples and the warmup with no lost launch, each kernel
+    launched in every train step; the warmup's timing (parked) and the
+    steps over it are logged. Returns the process's launches."""
+    t0 = time.time()
+    got = run_poll(daemon, POLL_CAPTURES, stepless=False)
+    lines, failures = poll_report(got)
+    for line in lines:
+        log(f"  {smi}: {line}")
+    log(f"  warmup {got['warmup_timing']}; steps before warmup_done "
+        f"{got['during_warmup']} ms against a median of "
+        f"{got['median_step_ms']} ms")
+    caps = got["captures"]
+    if len(caps) < 2 * POLL_CAPTURES:
+        failures.append(f"{len(caps)} of {2 * POLL_CAPTURES} captures: the "
+                        f"last {MIXED_BLANK_STOP} held no kernel record")
+    failures += [f"capture {i}: lost_launches missing from its manifest"
+                 for i, c in enumerate(caps)
+                 if c["status"] == "ok"
+                 and c["timing"]["lost_launches"] is None]
+    if not got["warmup_timing"] or not got["ring"]:
+        failures.append(f"warmup {got['warmup_timing']}, {len(got['ring'])} "
+                        f"ring samples: {got['last_error']}")
+    for k, v in got["launches"].items():
+        if v < N_LAYERS * got["train_steps"]:
+            failures.append(f"{k} launched {v} times in "
+                            f"{got['train_steps']} train steps")
+    log(f"  phase 17 (b) took {time.time() - t0:.1f} s, {got['steps']} "
+        f"steps; last_error {got['last_error']}")
     if failures:
         raise AssertionError("\n".join(failures))
     return got["launches"]
@@ -2839,6 +3085,8 @@ def main() -> int:
         return first_capture_trainer(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--mixed"] and len(sys.argv) == 3:
         return mixed_trainer(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--poll"] and len(sys.argv) == 3:
+        return poll_trainer(json.loads(sys.argv[2]))
     if sys.argv[1:] in (["--ep"], ["--mesh"]):
         return main_alone(_build, sys.argv[1])
     if sys.argv[1:]:
@@ -2930,8 +3178,10 @@ def main() -> int:
         knob_counts = phase_knobs(F, daemon, smi)
         log("phase 16: first capture and a step-less app")
         first_counts = phase_first_capture(daemon, smi)
-        log("phase 17: mixed captures")
+        log("phase 17 (a): mixed captures")
         mixed_counts = phase_mixed(smi)
+        log("phase 17 (b): the real client")
+        poll_counts = phase_poll(daemon, smi)
         log("multi-card expert parallelism")
         ep_counts = phase_multicard_ep()
         log("multi-card tensor, sequence and expert parallelism")
@@ -2961,6 +3211,7 @@ def main() -> int:
                 "knobs": knob_counts[name],
                 "first_capture": first_counts[name],
                 "mixed": mixed_counts[name],
+                "mixed_poll": poll_counts[name],
                 "moe_ep": ep_counts and ep_counts[name],
                 **{path: mesh_counts[path][name] if mesh_counts else None
                    for path in MESH_CASES},

@@ -20,8 +20,9 @@ could lose every later kernel record of the process (ROADMAP C17).
 Every capture opens its profiler a lead before its window: a start
 loses its first launches' device records there, not in the window, and
 the finish trims the lead from the trace. A duration capture starts the
-profiler at the training thread's next ``step()`` (at once in an app
-that never steps, which is traced too), opens its window
+profiler at the training thread's next ``step()``, waiting for it up to
+``step_start_timeout_s`` (at once in an app that never steps, which is
+traced too), opens its window
 ``DURATION_LEAD_S`` after the start returned, sleeps the
 window and stops it; the ``step()`` calls that fall in the window only
 mark its ProfilerStep#N spans. An iteration capture's edges are steps:
@@ -36,14 +37,20 @@ dropping what the capture's levels and lead step leave out, and a ring
 sample's promotion) runs in a child process at nice 19
 (``PendingWrite``, ``trace.finish_trace``), so no trace is parsed in the
 training process; a finisher thread waits on it and writes the manifest,
-whose ``timing`` gets the child's ``write_ms`` and ``write_bytes``. A
-second child at low priority then writes the trace's summary
-(``<run>.summary.json``) beside it.
+whose ``timing`` gets the child's ``write_ms`` and ``write_bytes``, and
+``lost_launches``: the kernel launches of the window, made before the
+stop began, whose kernel records the capture lost (torch.profiler can
+lose them, XLA's capture does not; the manifest stays ``ok`` with its
+trace on disk, and ``last_error`` says what was lost). A second child
+at low priority then writes the trace's summary (``<run>.summary.json``)
+beside it.
 
 ``TraceClient(warmup_profiler=True)`` pays the profiler's one-time
 start-up cost with a throwaway start/stop on the poll thread before its
-first poll, and sets ``warmup_done`` when it is over (at once without a
-warmup), so the first capture starts as fast as later ones.
+first poll, started with the app parked at its first ``step()``
+(``WARMUP_PARK_WAIT_S``), and sets ``warmup_done`` when it is over (at
+once without a warmup), so the first capture starts as fast as later
+ones.
 
 The continuous-capture ring (``CaptureRing``, opted into with
 ``DYNO_TPU_RING_EVERY_N`` or ``ring=RingConfig(...)``) samples a short
@@ -385,7 +392,8 @@ class CaptureRing:
         Chrome trace's path, which is promoted here, or the PendingWrite
         of its finish, which promotes it in its child and is waited on
         here; the profile is stored and the ring pruned. Returns the
-        stored profile path (None on failure; last_error says why)."""
+        stored profile path (None on failure; last_error says why, and
+        what a stored sample lost: its last_timing's lost_launches)."""
         self._pending = False
         self._last_capture_t = time.monotonic()
         tmp = tempfile.mkdtemp(prefix="dynolog_tpu_torch_ring_cap_")
@@ -413,7 +421,11 @@ class CaptureRing:
                 "trace_bytes": profile["trace_bytes"]}
             self.captures += 1
             self.last_path = path
-            self.last_error = None
+            lost = timing.get("lost_launches")
+            # A sample that lost kernel records is stored, and says so.
+            self.last_error = (f"ring sample {path}: {lost} launches in its "
+                               "window have no kernel record"
+                               if lost else None)
             return path
         except Exception as e:  # noqa: BLE001 - the ring is best-effort
             # telemetry; a failed sample must never cost the poll loop
@@ -669,11 +681,13 @@ class _StepClock:
 
 
 def _write_steps(tmp: str, clock: _StepClock, drop_host: bool = False
-                 ) -> None:
+                 ) -> dict:
     """Adds the clock's step spans to the Chrome trace at `tmp`, without
     the host ops where `drop_host`, or writes a trace holding only them
-    where the profiler wrote none (in this process)."""
-    trace.finish_trace(tmp, tmp, steps=clock.spec(), drop_host=drop_host)
+    where the profiler wrote none (in this process). Returns
+    trace.finish_trace's result."""
+    return trace.finish_trace(tmp, tmp, steps=clock.spec(),
+                              drop_host=drop_host)
 
 
 def _child_env() -> dict:
@@ -714,7 +728,9 @@ class PendingWrite:
     released, then renames the finished trace into place. Where the child
     cannot be spawned it finishes on this thread instead. `spec` holds
     trace.finish_trace's arguments; the finished trace lands at `path`,
-    a ring sample's profile at spec["profile"]."""
+    a ring sample's profile at spec["profile"]. Its result carries the
+    finish's count of the window's launches whose kernel records the
+    capture lost (``lost_launches``), which the child prints."""
 
     def __init__(self, spec: dict, path: str):
         self.path = path
@@ -742,7 +758,7 @@ class PendingWrite:
                 raise OSError("failpoint shim.finish_spawn")
             return subprocess.Popen(
                 [sys.executable, "-c", code], env=_child_env(),
-                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 start_new_session=True)
         except OSError as e:
             _log.warning("finish child not started for %s (%s): finishing "
@@ -755,17 +771,19 @@ class PendingWrite:
         try:
             self._proc = self._spawn(spec_path)
             if self._proc is None:
-                trace.finish_trace(**self._spec)
+                finished = trace.finish_trace(**self._spec)
             else:
-                _, err = self._proc.communicate()
+                out, err = self._proc.communicate()
                 if self._proc.returncode != 0:
                     tail = err.decode(errors="replace").strip().splitlines()
                     raise RuntimeError(
                         f"finish child exited {self._proc.returncode}"
                         + (f": {tail[-1]}" if tail else ""))
+                finished = json.loads(out.decode().strip().splitlines()[-1])
             os.replace(tmp, self.path)
             self.result = {"write_ms": int((time.time() - t0) * 1000),
-                           "write_bytes": os.path.getsize(self.path)}
+                           "write_bytes": os.path.getsize(self.path),
+                           "lost_launches": finished["lost_launches"]}
         except Exception as e:  # noqa: BLE001 - the finish is its own
             # failure domain: the error reaches the manifest via wait().
             self.error = f"trace finish failed: {e}"
@@ -775,8 +793,9 @@ class PendingWrite:
 
     def wait(self, timeout_s: float = 120.0) -> dict:
         """Blocks until the finish ended; returns {"write_ms",
-        "write_bytes"} or {"write_error": ...}. A child still running at
-        the timeout is killed (the finish then cleans up after it)."""
+        "write_bytes", "lost_launches"} or {"write_error": ...}. A child
+        still running at the timeout is killed (the finish then cleans up
+        after it)."""
         if not self._done.wait(timeout_s):
             if self._proc is not None:
                 self._proc.kill()
@@ -802,13 +821,16 @@ class TorchProfiler(CaptureKnobs):
     ``DURATION_LEAD_S`` after start() returned.
     Records lost to a slow start then fall in the lead, which the finish
     trims. At host level 0 the finish drops the host ops. With every
-    tracer off, start() raises.
+    tracer off, start() raises. The finish counts the window's launches
+    made before the stop began that have no kernel record
+    (``lost_launches``, trace.unmatched_launches).
 
     export() may run on any thread after stop() — the TraceClient's poll
     thread calls it. It saves kineto's trace in this process, then
-    finishes it (trace.finish_trace): in this process, or with
-    ``pipelined=True`` in a PendingWrite that the caller takes with
-    take_pending_write() and waits on before the trace is complete."""
+    finishes it (trace.finish_trace): in this process (its result in
+    ``last_finish``), or with ``pipelined=True`` in a PendingWrite that
+    the caller takes with take_pending_write() and waits on before the
+    trace is complete."""
 
     # The TraceClient opens an iteration window one step early.
     lead_step = True
@@ -821,7 +843,9 @@ class TorchProfiler(CaptureKnobs):
         self._host_on = True
         self._lead = False
         self._opens_ns: int | None = None
+        self._stop_ns: int | None = None
         self._pending_write: PendingWrite | None = None
+        self.last_finish: dict = {}
 
     def start(self, trace_dir: str, lead: bool = False) -> None:
         import torch
@@ -860,6 +884,16 @@ class TorchProfiler(CaptureKnobs):
         epoch ns `at_ns`: the finish trims what was recorded before it."""
         self._opens_ns = at_ns
 
+    @staticmethod
+    def drain(device: int) -> None:
+        """Waits for the work queued on card `device`, where this process
+        has set up CUDA (the warmup's start, C18)."""
+        import torch
+
+        if (torch.cuda.is_available() and torch.cuda.is_initialized()
+                and device < torch.cuda.device_count()):
+            torch.cuda.synchronize(device)
+
     def step(self) -> None:
         self._clock.mark()
         if self._lead and self._opens_ns is None:
@@ -869,6 +903,7 @@ class TorchProfiler(CaptureKnobs):
     def stop(self) -> None:
         prof, self._prof = self._prof, None
         self._clock.close()
+        self._stop_ns = time.time_ns()
         if prof is not None:
             prof.stop()
         self._stopped = prof
@@ -878,7 +913,8 @@ class TorchProfiler(CaptureKnobs):
         raw, _, tmp = _finish_files(path)
         spec = {"raw": raw, "out": tmp, "steps": self._clock.spec(),
                 "drop_host": not self._host_on,
-                "lead_ns": self._opens_ns if self._lead else None}
+                "lead_ns": self._opens_ns if self._lead else None,
+                "stop_ns": self._stop_ns}
         if profile_top is not None:
             spec.update(profile=path[: -len(TRACE_SUFFIX)]
                         + SAMPLE_PROFILE_SUFFIX,
@@ -903,7 +939,7 @@ class TorchProfiler(CaptureKnobs):
             if pipelined:
                 self._pending_write = PendingWrite(spec, path)
                 return path
-            trace.finish_trace(**spec)
+            self.last_finish = trace.finish_trace(**spec)
             os.replace(tmp, path)
         except BaseException:
             _unlink_all(raw, tmp)
@@ -924,12 +960,14 @@ class RecordingProfiler(CaptureKnobs):
     raw), ("start", trace_dir), ("step", None), ("stop", None),
     ("export", trace_dir)) instead of tracing, and exports a trace that
     holds only the ProfilerStep#N spans of the steps it saw, so a capture
-    completes with its manifest and summary."""
+    completes with its manifest and summary (``last_finish``: the
+    finish's result, no launch lost)."""
 
     def __init__(self):
         super().__init__()
         self.calls: list[tuple[str, object]] = []
         self._clock: _StepClock | None = None
+        self.last_finish: dict = {}
 
     def configure(self, raw: dict) -> None:
         self.calls.append(("configure", dict(raw)))
@@ -953,7 +991,7 @@ class RecordingProfiler(CaptureKnobs):
     def export(self, trace_dir: str) -> str:
         self.calls.append(("export", trace_dir))
         path = os.path.join(trace_dir, _unique_run_name() + TRACE_SUFFIX)
-        _write_steps(path + ".tmp", self._clock)
+        self.last_finish = _write_steps(path + ".tmp", self._clock)
         os.replace(path + ".tmp", path)
         return path
 
@@ -990,6 +1028,11 @@ _BUSY = "a previous capture is still open"
 # launch whose kernel record a start lost was made within 55.5 ms after
 # that start returned; starts took 2 ms to 4.7 s.
 DURATION_LEAD_S = 0.1
+# How long the warmup waits for the app's first step() (its next, once it
+# has stepped) to start the profiler with the app parked there, as every
+# other start is (C17); an app that does not step within it is warmed up
+# unparked.
+WARMUP_PARK_WAIT_S = 10.0
 # What a synchronized duration capture allows its profiler's start: on an
 # H100 80GB HBM3 (700 W) starts with the app parked took a median 19 ms,
 # at most 143 ms in 300 captures of a mixed process (C17).
@@ -1203,40 +1246,61 @@ class TraceClient:
     def _warmup(self) -> None:
         """One throwaway capture on the poll thread at the default levels,
         into a temp dir removed after it; a failure lands in last_error
-        and polling goes on. It leaves no capture behind: export() takes
-        the stopped one, and the next start() makes its own step clock."""
+        and polling goes on. The app stays parked at its first step()
+        (its next, once it has stepped; waited for at most
+        WARMUP_PARK_WAIT_S) from before the profiler's start to after
+        its stop, the card drained before the start: the process's first
+        profiler session meets no launch and no kernel in flight. It
+        leaves no capture behind: export() takes the stopped one, and the
+        next start() makes its own step clock."""
         tmp = tempfile.mkdtemp(prefix=WARMUP_PREFIX)
         window = _Window(tmp, 0, None)
         try:
-            # Not parked before the app's first step(): on an H100 80GB
-            # HBM3 (700 W) a warmup that parked the app at its first
-            # step() aborted the process (ROADMAP C18).
-            if self._start_parked(window, self._park_wait_s()) is None:
+            # C18: on an H100 80GB HBM3 (700 W), fresh processes of the
+            # dense trainer died (SIGABRT) in their first profiler session
+            # when it met the app's launches: 1 of 20 with the warmup
+            # started at once, 1 of 20 and 3 of 20 with it started with
+            # the app parked at its first step() but stopped while the
+            # app went on (the aborts were in the stop), 0 of 20 with the
+            # card drained first; 0 of 40 with the app parked through
+            # the start and stop and the card drained first (this code).
+            if self._start_parked(window, WARMUP_PARK_WAIT_S,
+                                  hold=True) is None:
                 return  # stopped while it waited for the park
             t1 = time.time()
-            with self._step_cv:
-                self._window = None
-            self.profiler.stop()
+            try:
+                self.profiler.stop()
+            finally:
+                with self._step_cv:
+                    self._window = None
+                    window.state = "stopped"  # the app's step() goes on
+                    self._step_cv.notify_all()
             t2 = time.time()
             self.profiler.export(tmp)
             self.warmup_timing = {
-                "parked": window.timing["parked"],
-                "profiler_start_ms": window.timing["profiler_start_ms"],
+                **window.timing,
                 "profiler_stop_ms": int((t2 - t1) * 1000),
-                "export_ms": int((time.time() - t2) * 1000)}
+                "export_ms": int((time.time() - t2) * 1000),
+                "lost_launches": getattr(self.profiler, "last_finish",
+                                         {}).get("lost_launches")}
         except Exception as e:  # noqa: BLE001 - warmup must never kill polling
             self.last_error = f"profiler warmup failed: {e}"
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
-    def _start_parked(self, window: _Window, wait_s: float) -> float | None:
+    def _start_parked(self, window: _Window, wait_s: float,
+                      hold: bool = False) -> float | None:
         """Makes `window` (a duration window, or the warmup's) the
         client's window and starts the profiler for it on this (the poll)
         thread, with a lead, once the training thread has parked at its
         next step() (C17; see _drive_window), waiting at most `wait_s`.
-        The window's timing says whether it was ``parked``: a start goes
+        The window's timing says whether it was ``parked`` (a start goes
         ahead without a park in an app that did not step within
-        `wait_s`. Returns the time the start returned, the window in its
+        `wait_s`) and how long it waited for the park (``park_ms``).
+        With `hold` (the warmup) the card is drained first (``drain_ms``)
+        and the training thread stays parked after the start (and parks
+        at its next step() where it was not), until the caller stops the
+        window. Returns the time the start returned, the window in its
         lead, or None where another window is open or stop() came during
         the wait. A failed start raises, and leaves no window."""
         with self._step_cv:
@@ -1244,6 +1308,7 @@ class TraceClient:
                 return None
             window.start_at = self._step_count + 1
             self._window = window
+            t_armed = time.time()
             if wait_s > 0 and not self._stop.is_set():
                 self._step_cv.wait_for(
                     lambda: window.state != "armed" or self._stop.is_set(),
@@ -1255,12 +1320,20 @@ class TraceClient:
                     return None
             window.timing["parked"] = window.state == "opening"
             t0 = time.time()
+            window.timing["park_ms"] = int((t0 - t_armed) * 1000)
             try:
+                if hold and hasattr(self.profiler, "drain"):
+                    self.profiler.drain(self.device)
+                    window.timing["drain_ms"] = int(
+                        (time.time() - t0) * 1000)
+                    t0 = time.time()
                 self.profiler.start(window.trace_dir, lead=True)
             except BaseException:
                 self._window = None
+                window.state = "stopped"
+                self._step_cv.notify_all()
                 raise
-            finally:
+            if not hold:
                 window.state = "lead"
                 self._step_cv.notify_all()
             t1 = time.time()
@@ -1268,13 +1341,25 @@ class TraceClient:
         return t1
 
     def _park_wait_s(self) -> float:
-        """How long a start waits for the training thread to park at its
-        next step(): two of its recent steps, at least 0.1 s and at most
-        step_start_timeout_s; none in an app that never stepped."""
+        """How long a synchronized start allows for the training thread
+        to park at its next step(): two of its recent steps, at least
+        0.1 s and at most step_start_timeout_s; none in an app that never
+        stepped."""
         if not self._ever_stepped:
             return 0.0
         return min(max(2 * self._recent_step_s, 0.1),
                    self.step_start_timeout_s)
+
+    def _park_bound_s(self) -> float:
+        """How long a duration start waits for the training thread to park
+        at its next step(): step_start_timeout_s, as long as an iteration
+        window waits for its first step, in an app that has stepped, so
+        that a long step (an eval's, a checkpoint's) is waited out; none
+        in an app that never stepped (C17: on an H100 80GB HBM3 at 700 W,
+        a process whose starts went ahead unparked where a wait of two
+        recent steps ran out lost the kernel records of its autograd
+        thread's launches for good after 199 captures)."""
+        return self.step_start_timeout_s if self._ever_stepped else 0.0
 
     def _poll_loop(self) -> None:
         if self.warmup_profiler:
@@ -1501,6 +1586,9 @@ class TraceClient:
                     timing["export_ms"] = int((time.time() - t0) * 1000)
                     if pending is None:
                         timing["trace_bytes"] = os.path.getsize(trace_file)
+                        timing["lost_launches"] = getattr(
+                            self.profiler, "last_finish", {}).get(
+                                "lost_launches")
                 except Exception as e:  # noqa: BLE001 - fails the capture
                     error = f"trace export failed: {e}"
         args = (cfg, pid, trace_dir, trace_file, window.started_ms, error,
@@ -1551,7 +1639,7 @@ class TraceClient:
             return self._iteration_window(cfg, trace_dir)
         window = _Window(trace_dir, 0, None)
         try:
-            started = self._start_parked(window, self._park_wait_s())
+            started = self._start_parked(window, self._park_bound_s())
         except Exception as e:  # noqa: BLE001 - fails the capture
             return f"profiler start failed: {e}", window
         if started is None:
@@ -1622,6 +1710,7 @@ class TraceClient:
                 self._step_cv.notify_all()
                 return f"profiler start failed: {e}", window
             window.timing["profiler_start_ms"] = int((time.time() - t0) * 1000)
+            window.timing["parked"] = True  # at the lead boundary's step()
             window.started_ms = int(t0 * 1000)
             window._t_start = time.monotonic()
             window.state = "active"
@@ -1646,8 +1735,11 @@ class TraceClient:
     def _finish_trace(self, cfg, pid, trace_dir, trace_file, started_ms,
                       error, timing, ctx) -> None:
         """Writes the manifest at the path dyno prints (log_file_<pid>.json):
-        status is "ok" only if the Chrome trace is on disk. Finishers and
-        the poll thread write their captures' manifests one at a time."""
+        status is "ok" only if the Chrome trace is on disk, as in the JAX
+        shim; a trace whose window lost kernel records (its timing's
+        lost_launches above 0) is ok, and last_error says what it lost.
+        Finishers and the poll thread write their captures' manifests one
+        at a time."""
         with self._finish_lock:
             if error is None and not (
                     trace_file and os.path.exists(trace_file)):
@@ -1668,6 +1760,10 @@ class TraceClient:
             if error:
                 manifest["error"] = error
                 self.last_error = error
+            elif timing.get("lost_launches"):
+                self.last_error = (
+                    f"capture {trace_file}: {timing['lost_launches']} "
+                    "launches in its window have no kernel record")
             # Atomic: the manifest's existence IS the completion signal.
             # A refused write (ENOSPC, or the trace.artifact.write drill)
             # leaves nothing behind and lands in last_error.

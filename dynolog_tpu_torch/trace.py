@@ -420,9 +420,30 @@ def _trim_lead(events: list, lead_us: float) -> list:
     return kept
 
 
+def unmatched_launches(events: list, base_ns: int,
+                       stop_ns: int | None = None) -> list[float]:
+    """The epoch times (s) of the kernel launches among a Chrome trace's
+    events (time base `base_ns`) that have no device record, joined by
+    correlation: the launches whose kernel records the capture lost.
+    With `stop_ns`, the epoch ns at which the profiler's stop began, only
+    launches made before it count: the stop synchronizes the card first,
+    so each of them has run, while a launch after it (another thread's,
+    or a duration window's app still training) may never be recorded."""
+    device = {(e.get("args") or {}).get("correlation") for e in events
+              if e.get("cat") in DEVICE_CATS}
+    base_us = base_ns / 1e3
+    stop_us = None if stop_ns is None else stop_ns / 1e3
+    return [(float(e["ts"]) + base_us) / 1e6 for e in events
+            if e.get("cat") in LAUNCH_CATS
+            and "Launch" in e.get("name", "")
+            and (e.get("args") or {}).get("correlation") not in device
+            and (stop_us is None or float(e["ts"]) + base_us < stop_us)]
+
+
 def finish_trace(raw: str, out: str, steps: dict | None = None,
                  drop_host: bool = False, lead_ns: int | None = None,
-                 profile: str | None = None, top: int = 40) -> int:
+                 stop_ns: int | None = None, profile: str | None = None,
+                 top: int = 40) -> dict:
     """Finishes a capture's Chrome trace as kineto saved it at `raw`,
     reading it once, and writes it to `out` (`raw` itself may be `out`):
     without the host ops (HOST_OP_CATEGORIES) where `drop_host`; without
@@ -431,7 +452,10 @@ def finish_trace(raw: str, out: str, steps: dict | None = None,
     spans of `steps` ({"times", "tid", "pid"}: see step_events) added,
     or only those where kineto saved no trace. With `profile`, also
     writes the finished trace's compact_profile(top) there. Returns the
-    finished trace's bytes. The shim runs this in a child process."""
+    finished trace's bytes and the launches of its window that have no
+    device record, made before `stop_ns` where given (unmatched_launches):
+    {"write_bytes", "lost_launches"}. The shim runs this in a child
+    process."""
     if os.path.exists(raw):
         with open(raw) as f:
             doc = json.load(f)
@@ -445,6 +469,7 @@ def finish_trace(raw: str, out: str, steps: dict | None = None,
         events = _trim_lead(events, (lead_ns - base_ns) / 1e3)
     if drop_host:
         events = [e for e in events if e.get("cat") not in HOST_OP_CATEGORIES]
+    lost = len(unmatched_launches(events, base_ns, stop_ns))
     if steps is not None:
         events.extend(step_events(base_ns=base_ns, **steps))
     doc["traceEvents"] = events
@@ -454,14 +479,15 @@ def finish_trace(raw: str, out: str, steps: dict | None = None,
     if profile is not None:
         stream_write(profile, [json.dumps(
             _compact(events, len(data), top, group=False)).encode()])
-    return len(data)
+    return {"write_bytes": len(data), "lost_launches": lost}
 
 
-def finish_capture(spec_path: str) -> int:
+def finish_capture(spec_path: str) -> None:
     """The shim's finish child's entry point: finish_trace with the
-    keyword arguments of the JSON file at `spec_path`."""
+    keyword arguments of the JSON file at `spec_path`; prints its result
+    as one JSON line, which the shim reads."""
     with open(spec_path) as f:
-        return finish_trace(**json.load(f))
+        print(json.dumps(finish_trace(**json.load(f))))
 
 
 def find_trace_files(target: str) -> list[str]:

@@ -60,18 +60,24 @@ With --shim-starts N [PROCESS ...] [--stderr-dir DIR] (one card) it
 takes captures of that trainer through the port's TraceClient itself, a
 window armed as the poll thread arms one while this thread trains and
 calls step(), each saved and finished as the shim does it (its
-PendingWrite waited on), in one process per PROCESS (all three by
-default), its arms in turns: "iterations", 2N two-step iteration windows
+PendingWrite waited on), in one process per PROCESS (iterations, duration
+and mixed by default), its arms in turns: "iterations", 2N two-step iteration windows
 whose profiler opens at the window's first step() (start_alone: a
 TorchProfiler without a lead step) or one step() early, the lead step
 trimmed by the finish (lead: the shim as it is); "duration", N 200 ms
 duration windows on the poll thread, the shim's lead before each;
-"mixed", N of each of lead and duration. A process whose captures opened
-the profiler two ways (the duration windows with profile_all_threads,
-the iteration windows thread-local under a schedule) ended up with no
-kernel record in any trace (ROADMAP C17); each process stops once 12
-captures in a row hold none, or are lossy. Every 100 captures it prints
-a progress line (captures so far, lossy ones per arm), so that a run cut
+"mixed", N of each of lead and duration; "poll", chip_smoke.py's phase 17
+(b) process (the TraceClient started as an application starts one: its
+poll loop, the profiler warmup not waited on, the capture ring, a long
+step every 50 steps) with N duration and N iteration windows in turns
+through a dynologd of its own (`dyno gputrace`), each finished in the
+shim's child; "stepless", the same process never calling step(), N
+duration windows. A process whose captures opened the profiler two ways
+(the duration windows with profile_all_threads, the iteration windows
+thread-local under a schedule) ended up with no kernel record in any
+trace (ROADMAP C17); each process stops once 12 captures in a row hold
+none (the first three processes: or are lossy). Every 100 captures it
+prints a progress line (captures so far, lossy ones), so that a run cut
 by its time limit still counts. It prints, per arm, the lossy captures
 (launch without its kernel record, in a duration window among the
 launches before its profiler stop began; or, in an iteration window,
@@ -80,19 +86,29 @@ first 100 ms, flash_fwd calls, profiler_start_ms, capture index), the
 launches without a kernel record that kineto saved in a duration
 window's lead (trimmed by the finish) with their latest offset from the
 start call, the manifest's profiler_start_ms, and a one-sided Fisher
-exact p for "start_alone loses more often than lead". Each process's
+exact p for "start_alone loses more often than lead". A capture's lost
+launches are counted by the port's rule (trace.unmatched_launches), and
+held against the lost_launches its finish counted (mismatches printed).
+"poll" and "stepless" print chip_smoke.poll_report's line per kind of
+capture (warmup, ring, duration, iterations: lossy ones, parked share,
+profiler_start_ms) and the steps during the warmup. Each process's
 stderr (kineto's log, with KINETO_LOG_LEVEL=0 its record counts) goes to
-DIR/shim_starts_PROCESS.stderr.
+DIR/shim_starts_PROCESS.stderr, and a poll process's captures to
+DIR/shim_starts_PROCESS.jsonl.
 
-With --warmup-first-step N (one card) it starts the shim's profiler
-warmup (TraceClient._warmup, on a side thread as the poll loop runs it)
-in N fresh processes per arm of the dense trainer, each before the
-trainer's first step: "parked" waits up to 5 s for the first step() and
-parks it there while the profiler starts; "unparked" starts at once,
-while the first steps run (the shim's order). Each process then takes
-steps until the warmup is over, 8 at least. Per process it prints the
-warmup's timing and the steps, or the exit code (negative: the signal
-that ended it) and the end of its stderr.
+With --warmup-first-step N [ARM ...] [--parallel K] (one card) it starts
+the shim's profiler warmup (TraceClient._warmup, on a side thread as the
+poll loop runs it) in N fresh processes per arm of the dense trainer,
+each before the trainer's first step, K processes at a time: "shim" as
+the shim starts it; "unparked" at once, while the first steps run;
+"parked" waits up to 5 s for the first step() and parks it there while
+the profiler starts; "synced" as parked, with the card drained
+(torch.cuda.synchronize()) inside the park before the start (ROADMAP
+C18). Each process then takes steps until the warmup is over, 8 at
+least. Per process it prints the warmup's timing, the steps and the
+host times of those taken during the warmup, or the exit code (negative:
+the signal that ended it) and the end of its stderr; then each arm's
+exit codes.
 
 With --ring N (one card) it takes N ring samples (the shim's 200 ms
 duration window on a side thread, TraceClient._ring_sample, a second
@@ -125,6 +141,15 @@ from torch.profiler import ProfilerActivity, profile
 WORK_S = 0.2
 CASES = ("cross_all", "cross_off", "cold_main", "warm_main", "warm_side")
 ARMS = ("unprepared", "drained", "torch_warmup", "poll")
+
+
+def _smoke():
+    """chip_smoke, imported from the repository root."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    return cs
 
 
 def _device() -> str:
@@ -298,28 +323,18 @@ def _stop_case(trainer, mode: str) -> dict:
             "parked_ms": times.get("parked_ms"), "events": events}
 
 
-def _lost_launches(events: list, base_us: float) -> list[float]:
-    """The epoch times (s) of the kernel launches in a Chrome trace's
-    events that have no device record."""
-    device = {(e.get("args") or {}).get("correlation") for e in events
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
-    return [(e["ts"] + base_us) / 1e6 for e in events
-            if e.get("cat") in ("cuda_runtime", "cuda_driver")
-            and "Launch" in e.get("name", "")
-            and (e.get("args") or {}).get("correlation") not in device]
-
-
 def _launches_without_kernel(path: str, since: float = 0.0
                              ) -> tuple[int, int, int]:
     """The kernel launches in a Chrome trace that have no device record,
     the trace's flash_fwd kernels and all its kernels. With `since` (a
     duration window's epoch start, s), only launches in the window's
     first 100 ms count: a launch near its end may run after the stop."""
+    from dynolog_tpu_torch.trace import unmatched_launches
+
     with open(path) as f:
         doc = json.load(f)
     events = doc["traceEvents"]
-    lost = [t for t in _lost_launches(events,
-                                      doc["baseTimeNanoseconds"] / 1e3)
+    lost = [t for t in unmatched_launches(events, doc["baseTimeNanoseconds"])
             if not since or t < since + 0.1]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     return len(lost), sum("flash_fwd_kernel" in e.get("name", "")
@@ -348,9 +363,7 @@ def _poll_window(prof, trainer) -> tuple[float, float]:
 
 
 def starts(n: int) -> int:
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    import chip_smoke as cs
+    cs = _smoke()
     from torch.profiler import ProfilerAction
 
     from dynolog_tpu_torch.client.shim import (
@@ -419,15 +432,74 @@ def _fisher_greater(a: int, n_a: int, b: int, n_b: int) -> float:
 # turns. "mixed" mixes duration windows (the poll thread's) with
 # iteration windows (the training thread's): before every capture opened
 # its profiler with one configuration, such a process lost every kernel
-# record of every capture after 29-200 captures (ROADMAP C17).
+# record of every capture after 29-200 captures (ROADMAP C17). "poll"
+# and "stepless" are chip_smoke.py's phase 17 (b) process (run_poll),
+# captured through dynologd: the real client with its warmup and ring,
+# and an app that never calls step().
 SHIM_PROCESSES = {"iterations": ("start_alone", "lead"),
                   "duration": ("duration",),
-                  "mixed": ("lead", "duration")}
+                  "mixed": ("lead", "duration"),
+                  "poll": (), "stepless": ()}
+
+
+def poll_process(n: int, stepless: bool, stderr_dir: str | None) -> int:
+    """chip_smoke.run_poll for n captures of each kind (n duration windows
+    where `stepless`) against a dynologd of its own: a progress line
+    every 100 captures, then poll_report's lines and, with `stderr_dir`,
+    every capture's facts in DIR/shim_starts_NAME.jsonl, every ring
+    sample's timing (with the ms it was seen at) in
+    DIR/shim_starts_NAME.ring.jsonl."""
+    cs = _smoke()
+    from dynolog_tpu_torch.ops import _build
+
+    name = "stepless" if stepless else "poll"
+    _build.build_all()
+    cs.DaemonBuild().run()
+    daemon = cs.Daemon()
+
+    def progress(i: int, captures: list) -> None:
+        if (i + 1) % 100 == 0:
+            print(json.dumps({"case": "shim_starts", "process": name,
+                              "progress": i + 1,
+                              "lossy": sum(cs.lossy(c, evals=True)
+                                           for c in captures)}),
+                  flush=True)
+
+    try:
+        got = cs.run_poll(
+            daemon, n, stepless, progress,
+            stderr_dir and os.path.join(stderr_dir,
+                                        f"shim_starts_{name}.stderr"))
+    finally:
+        daemon.stop()
+    if stderr_dir:
+        for suffix, rows in (("jsonl", got["captures"]),
+                             ("ring.jsonl", got["ring"])):
+            with open(os.path.join(stderr_dir,
+                                   f"shim_starts_{name}.{suffix}"), "w") as f:
+                for row in rows:
+                    f.write(json.dumps(row) + "\n")
+    lines, failures = cs.poll_report(got)
+    for line in lines:
+        print(json.dumps({"case": "shim_starts", "process": name,
+                          "report": line}), flush=True)
+    print(json.dumps({
+        "case": "shim_starts", "process": name,
+        "captures": len(got["captures"]), "lossy": len(failures),
+        "warmup_timing": got["warmup_timing"],
+        "during_warmup": got["during_warmup"],
+        "median_step_ms": got["median_step_ms"],
+        "ring_samples": len(got["ring"]), "steps": got["steps"],
+        "last_error": got["last_error"]}), flush=True)
+    return 0
 
 
 def shim_starts(n: int, names: list, stderr_dir: str | None) -> int:
     rc = 0
-    for name in names or SHIM_PROCESSES:
+    for name in names or ("iterations", "duration", "mixed"):
+        if name in ("poll", "stepless"):
+            rc |= poll_process(n, name == "stepless", stderr_dir)
+            continue
         out = subprocess.run(
             [sys.executable, __file__, "--shim-starts-child", str(n),
              ",".join(SHIM_PROCESSES[name])], capture_output=True,
@@ -444,40 +516,37 @@ def shim_starts(n: int, names: list, stderr_dir: str | None) -> int:
     return rc
 
 
-def _window_losses(path: str, raw: str, arm: str, window, t_call: float
-                   ) -> tuple[int, int, int, int, list]:
+def _window_losses(path: str, raw: str, arm: str, window, t_call: float,
+                   stop_ns: int) -> tuple[int, int, int, int, list]:
     """What one capture of --shim-starts lost: the launches without a
-    device record in its finished trace (a duration window's before its
-    profiler stop began: the stop synchronizes the card first, so every
-    earlier launch has run), those of them in the window's first 100 ms,
-    its flash_fwd kernels and all its kernels, and the offsets (ms from
-    the start call) of the launches without a device record that kineto
-    saved before the window opened (in its lead, trimmed by the finish)."""
+    device record in its finished trace made before its profiler stop
+    began at `stop_ns` (trace.unmatched_launches, the rule the shim's
+    finish counts lost_launches by), those of them in the window's first
+    100 ms, its flash_fwd kernels and all its kernels, and the offsets (ms
+    from the start call) of the launches without a device record that
+    kineto saved before the window opened (in its lead, trimmed by the
+    finish)."""
+    from dynolog_tpu_torch.trace import unmatched_launches
+
     with open(path) as f:
         doc = json.load(f)
     events = doc["traceEvents"]
-    lost = _lost_launches(events, doc["baseTimeNanoseconds"] / 1e3)
+    lost = unmatched_launches(events, doc["baseTimeNanoseconds"], stop_ns)
     opened = window.started_ms / 1e3
-    if arm == "duration":
-        lost = [t for t in lost
-                if t < opened + window.timing["window_ms"] / 1e3]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     in_lead = []
     if arm == "duration":
         with open(raw) as f:
             doc = json.load(f)
-        in_lead = [round((t - t_call) * 1e3, 1) for t in _lost_launches(
-            doc["traceEvents"], doc["baseTimeNanoseconds"] / 1e3)
-            if t < opened]
+        in_lead = [round((t - t_call) * 1e3, 1) for t in unmatched_launches(
+            doc["traceEvents"], doc["baseTimeNanoseconds"]) if t < opened]
     return (len(lost), sum(t < opened + 0.1 for t in lost),
             sum("flash_fwd_kernel" in e.get("name", "") for e in kernels),
             len(kernels), in_lead)
 
 
 def shim_starts_child(n: int, arms: tuple) -> int:
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    import chip_smoke as cs
+    cs = _smoke()
 
     from dynolog_tpu_torch.client.shim import (
         TorchProfiler, TraceClient, TraceConfig)
@@ -511,6 +580,7 @@ def shim_starts_child(n: int, arms: tuple) -> int:
         "duration": TraceClient(job_id=1, endpoint="unused",
                                 profiler=KeepRaw())}
     rows = {arm: [] for arm in arms}
+    mismatches = []  # (capture, this count, the finish's lost_launches)
     blank = lossy_run = 0  # consecutive captures blank, and lossy
     for i in range(len(arms) * n):
         arm = arms[i % len(arms)]
@@ -533,10 +603,14 @@ def shim_starts_child(n: int, arms: tuple) -> int:
         if error:
             raise RuntimeError(f"{arm} capture {i}: {error}")
         path, pending = client._export(tmp)
-        if pending is not None and "write_error" in (done := pending.wait()):
+        done = (pending.wait() if pending is not None
+                else client.profiler.last_finish)
+        if "write_error" in done:
             raise RuntimeError(f"{arm} capture {i}: {done}")
         lost, first, fwd, kernels, in_lead = _window_losses(
-            path, raw, arm, window, t_call)
+            path, raw, arm, window, t_call, client.profiler._stop_ns)
+        if lost != done["lost_launches"]:
+            mismatches.append((i, lost, done["lost_launches"]))
         os.unlink(path)
         rows[arm].append((lost, first, fwd,
                           window.timing["profiler_start_ms"], i, in_lead))
@@ -573,6 +647,8 @@ def shim_starts_child(n: int, arms: tuple) -> int:
             "start_ms_median": starts_ms[len(starts_ms) // 2],
             "starts_of_20_ms_or_more": sum(x >= 20 for x in starts_ms),
             "start_ms_max": starts_ms[-1]}), flush=True)
+    print(json.dumps({"case": "shim_starts",
+                      "lost_launches_mismatches": mismatches}), flush=True)
     if {"start_alone", "lead"} <= set(lossy):
         print(json.dumps({
             "case": "shim_starts", "fisher_p_start_alone_loses_more":
@@ -616,9 +692,7 @@ def _split_stops(prof, splits: list) -> None:
 
 
 def ring_child(n: int, warmup: bool, python: bool) -> int:
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    import chip_smoke as cs
+    cs = _smoke()
 
     from dynolog_tpu_torch.client.shim import RingConfig, TraceClient
     from dynolog_tpu_torch.ops import _build
@@ -678,52 +752,86 @@ def ring_child(n: int, warmup: bool, python: bool) -> int:
     return 0
 
 
-# The arms of --warmup-first-step: the warmup's start while the app takes
-# its first steps ("unparked", the shim's order where the client starts
-# before training), or parked at the app's first step() (ROADMAP C18).
-WARMUP_ARMS = ("parked", "unparked")
+# The arms of --warmup-first-step (ROADMAP C18): the warmup as the shim
+# runs it ("shim"); started at once while the app takes its first steps
+# ("unparked"); parked at the app's first step() ("parked", waiting up to
+# WARMUP_FORCED_WAIT_S for it); and parked there with the card drained
+# (torch.cuda.synchronize()) inside the park before the start ("synced").
+WARMUP_ARMS = ("shim", "unparked", "parked", "synced")
+WARMUP_FORCED_WAIT_S = 5.0
 
 
 def warmup_first_step_child(arm: str) -> int:
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    import chip_smoke as cs
-
+    cs = _smoke()
     from dynolog_tpu_torch.client.shim import TraceClient
-    from dynolog_tpu_torch.ops import _build
 
-    _build.build_all()
     trainer = cs.Trainer(cs.dense_config())
     client = TraceClient(job_id=1, endpoint="unused", report_interval_s=0)
-    if arm == "parked":
-        # Waits up to 5 s for the first step() and parks it there.
-        client._park_wait_s = lambda: 5.0
+    if arm != "shim":
+        wait = 0.0 if arm == "unparked" else WARMUP_FORCED_WAIT_S
+        start_parked = client._start_parked
+        client._start_parked = lambda window, _wait, *a, **kw: (
+            start_parked(window, wait, *a, **kw))
+    if arm == "synced":
+        start = client.profiler.start
+
+        def drained_start(*a, **kw):
+            torch.cuda.synchronize()
+            start(*a, **kw)
+
+        client.profiler.start = drained_start
     warmup = threading.Thread(target=client._warmup)
     warmup.start()
-    steps = 0
-    while warmup.is_alive() or steps < 8:
+    spans = []
+    while warmup.is_alive() or len(spans) < 8:
+        b = time.time() * 1e3
         trainer.step()
         client.step()
-        steps += 1
+        spans.append((b, time.time() * 1e3, warmup.is_alive()))
     warmup.join()
     torch.cuda.synchronize()
     print(json.dumps({"case": "warmup_first_step", "arm": arm,
-                      "warmup_timing": client.warmup_timing, "steps": steps,
+                      "warmup_timing": client.warmup_timing,
+                      "steps": len(spans),
+                      "steps_during_warmup_ms": [
+                          round(e - b, 1) for b, e, alive in spans if alive],
                       "last_error": client.last_error}), flush=True)
     return 0
 
 
-def warmup_first_step(n: int) -> int:
-    for arm in WARMUP_ARMS:
-        for i in range(n):
-            out = subprocess.run(
-                [sys.executable, __file__, "--warmup-first-step-child", arm],
-                capture_output=True, text=True, timeout=300)
-            lines = out.stdout.strip().splitlines()
-            print(lines[-1] if out.returncode == 0 and lines else json.dumps(
+def warmup_first_step(n: int, arms: list, parallel: int) -> int:
+    """n fresh processes per arm, `parallel` at a time on the one card, the
+    arms in turns; one JSON line per process: its warmup's timing and
+    steps, or its exit code (negative: the signal that ended it) and the
+    end of its stderr."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    _smoke()  # the repository on sys.path
+    from dynolog_tpu_torch.ops import _build
+
+    _build.build_all()  # once, before the children load the libraries
+
+    def one(job):
+        i, arm = job
+        out = subprocess.run(
+            [sys.executable, "-X", "faulthandler", __file__,
+             "--warmup-first-step-child", arm],
+            capture_output=True, text=True, timeout=600)
+        lines = out.stdout.strip().splitlines()
+        print(json.dumps({"run": i, "rc": out.returncode,
+                          **json.loads(lines[-1])})
+              if out.returncode == 0 and lines else json.dumps(
                 {"case": "warmup_first_step", "arm": arm, "run": i,
-                 "rc": out.returncode, "stderr": out.stderr[-600:]}),
-                flush=True)
+                 "rc": out.returncode, "stderr": out.stderr[-1500:]}),
+              flush=True)
+        return arm, out.returncode
+
+    jobs = [(i, arm) for i in range(n) for arm in arms or WARMUP_ARMS]
+    with ThreadPoolExecutor(max_workers=parallel) as pool:
+        done = list(pool.map(one, jobs))
+    print(json.dumps({"case": "warmup_first_step", "exits": {
+        arm: sorted(rc for a, rc in done if a == arm)
+        for arm in arms or WARMUP_ARMS}}), flush=True)
     return 0
 
 
@@ -743,9 +851,7 @@ def ring(n: int) -> int:
 
 
 def stops() -> int:
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    import chip_smoke as cs
+    cs = _smoke()
     from dynolog_tpu_torch.ops import _build
 
     _build.build_all()
@@ -778,7 +884,12 @@ def main() -> int:
         return shim_starts_child(int(sys.argv[2]),
                                  tuple(sys.argv[3].split(",")))
     if sys.argv[1:2] == ["--warmup-first-step"]:
-        return warmup_first_step(int(sys.argv[2]))
+        arms, parallel = sys.argv[3:], 1
+        if "--parallel" in arms:
+            k = arms.index("--parallel")
+            parallel = int(arms[k + 1])
+            arms = arms[:k] + arms[k + 2:]
+        return warmup_first_step(int(sys.argv[2]), arms, parallel)
     if sys.argv[1:2] == ["--warmup-first-step-child"]:
         return warmup_first_step_child(sys.argv[2])
     if sys.argv[1:2] == ["--ring"]:

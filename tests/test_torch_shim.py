@@ -332,7 +332,7 @@ def test_capture_aborts_when_app_never_steps(tmp_path):
         client.stop()
 
 
-def test_window_left_open_is_dropped_by_the_next_step(tmp_path):
+def test_window_left_open_is_closed_at_its_timeout(tmp_path):
     """The app stops stepping inside a window: the capture times out with
     an error manifest, the poll thread closes the profiler it opened
     (C17: it opens and closes every capture), the training thread's next

@@ -500,8 +500,8 @@ def test_finish_drops_the_lead_steps_device_records(tmp_path, host_spans):
     raw = tmp_path / "raw.json"
     raw.write_text(json.dumps(doc))
     out = tmp_path / "out.json"
-    size = trace.finish_trace(str(raw), str(out), lead_ns=10**18 + 100_000)
-    assert size == out.stat().st_size
+    got = trace.finish_trace(str(raw), str(out), lead_ns=10**18 + 100_000)
+    assert got == {"write_bytes": out.stat().st_size, "lost_launches": 0}
     events = json.loads(out.read_text())["traceEvents"]
     kernels = sorted(e["args"]["correlation"] for e in events
                      if e.get("cat") == "kernel")
@@ -524,7 +524,7 @@ def test_finish_drops_the_lead_steps_device_records(tmp_path, host_spans):
         assert len(planes[0].step_durations_ps) == 2
 
 
-def test_iteration_window_without_lead_is_final_as_saved(tmp_path):
+def test_iteration_window_without_lead_gains_only_the_step_spans(tmp_path):
     """An iteration window without a lead step at host level 2 was final
     as kineto saved it while torch wrote its ProfilerStep#N spans. Every
     capture now records all threads with no schedule (C17), so the finish
@@ -548,3 +548,112 @@ def test_iteration_window_without_lead_is_final_as_saved(tmp_path):
     assert [e["name"] for e in spans] == [
         f"{trace.STEP_PREFIX}0", f"{trace.STEP_PREFIX}1"]
     assert finished["traceEvents"] == saved["traceEvents"] + spans
+
+
+# -- launches whose kernel records a capture lost ---------------------------
+
+_BASE_NS = 10**18
+_LEAD_NS = _BASE_NS + 100_000  # the window opens at ts 100
+_STOP_NS = _BASE_NS + 350_000  # the profiler's stop began at ts 350
+
+
+def _planted_trace() -> dict:
+    """_hand_written_lead_trace with launches planted that have no device
+    record (correlation 20-25): in the lead (cudaLaunchKernel at ts 50),
+    in the window (cudaLaunchKernel at 160, cuLaunchKernel at 170), after
+    the stop began (cudaLaunchKernel at 400), and two in the window that
+    launch no kernel (cudaStreamSynchronize, and a cudaMemcpyAsync whose
+    gpu_memcpy record is there). Two launches of the window lost their
+    records."""
+    doc = _hand_written_lead_trace()
+    for corr, cat, name, ts in (
+            (20, "cuda_runtime", "cudaLaunchKernel", 50.0),
+            (21, "cuda_runtime", "cudaLaunchKernel", 160.0),
+            (22, "cuda_driver", "cuLaunchKernel", 170.0),
+            (23, "cuda_runtime", "cudaLaunchKernel", 400.0),
+            (24, "cuda_runtime", "cudaStreamSynchronize", 180.0),
+            (25, "cuda_runtime", "cudaMemcpyAsync", 190.0)):
+        doc["traceEvents"].append(
+            {"ph": "X", "cat": cat, "name": name, "pid": 1, "tid": 1,
+             "ts": ts, "dur": 2.0, "args": {"correlation": corr}})
+    doc["traceEvents"].append(
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "pid": 0,
+         "tid": 8, "ts": 195.0, "dur": 3.0,
+         "args": {"device": 0, "correlation": 25}})
+    return doc
+
+
+def test_finish_counts_the_windows_lost_launches(tmp_path):
+    """finish_trace counts the launches of the window, made before the
+    stop began, that have no device record: the two planted in the
+    window, not the one in the (trimmed) lead, the one after the stop,
+    the matched ones or the calls that launch no kernel. Without a stop
+    time every unmatched launch left in the window counts."""
+    raw = tmp_path / "raw.json"
+    raw.write_text(json.dumps(_planted_trace()))
+    out = tmp_path / "out.json"
+    got = trace.finish_trace(str(raw), str(out), lead_ns=_LEAD_NS,
+                             stop_ns=_STOP_NS)
+    assert got == {"write_bytes": out.stat().st_size, "lost_launches": 2}
+    events = json.loads(out.read_text())["traceEvents"]
+    assert [t * 1e6 - _BASE_NS / 1e3 for t in trace.unmatched_launches(
+        events, _BASE_NS, _STOP_NS)] == pytest.approx([160.0, 170.0])
+    assert trace.finish_trace(str(raw), str(out), lead_ns=_LEAD_NS)[
+        "lost_launches"] == 3
+    assert trace.finish_trace(str(raw), str(out))["lost_launches"] == 4
+    raw.write_text(json.dumps(_hand_written_lead_trace()))
+    assert trace.finish_trace(str(raw), str(out), lead_ns=_LEAD_NS,
+                              stop_ns=_STOP_NS)["lost_launches"] == 0
+
+
+class PlantedProfiler(FakeFinishingProfiler):
+    """Saves _planted_trace as kineto's and hands its finish (lead and stop
+    at the planted times) to the port's PendingWrite."""
+
+    def export(self, trace_dir, pipelined=False, profile_top=None):
+        path = os.path.join(trace_dir, "run" + shim.TRACE_SUFFIX)
+        raw, _, tmp = shim._finish_files(path)
+        with open(raw, "w") as f:
+            f.write(json.dumps(_planted_trace()))
+        self._pending = PendingWrite(
+            {"raw": raw, "out": tmp, "steps": self._clock.spec(),
+             "lead_ns": _LEAD_NS, "stop_ns": _STOP_NS}, path)
+        return path
+
+
+@pytest.mark.parametrize("finish", ["child", "in_process"])
+def test_lossy_capture_says_so_in_its_manifest(tmp_path, finish):
+    """A capture whose window lost two launches' kernel records, finished
+    in the child or (its spawn refused) in-process: the manifest is ok,
+    as the JAX client's for a trace on disk, its timing's lost_launches
+    is 2, and last_error says what was lost. A capture that lost none
+    has lost_launches 0 and leaves last_error alone."""
+    if finish == "in_process":
+        failpoints.arm("shim.finish_spawn", "error")
+    try:
+        client, cfg = _run_capture(tmp_path, PlantedProfiler())
+        client.stop()
+    finally:
+        failpoints.disarm("shim.finish_spawn")
+    manifest = json.loads(open(cfg.manifest_path(os.getpid())).read())
+    assert manifest["status"] == "ok", manifest
+    assert manifest["timing"]["lost_launches"] == 2
+    assert client.traces_completed == 1
+    assert "2 launches in its window have no kernel record" in (
+        client.last_error or "")
+    jax_client = jax_shim.TraceClient(
+        job_id=1, endpoint="dynotpu_pipe_nodaemon",
+        profiler=jax_shim.RecordingProfiler(), report_interval_s=0)
+    jax_cfg = jax_shim.TraceConfig.parse(
+        f"ACTIVITIES_LOG_FILE={tmp_path}/jax.json\n"
+        "ACTIVITIES_DURATION_MSECS=10")
+    jax_client._run_trace(jax_cfg)
+    jax_client.stop()
+    ref = json.loads(open(jax_cfg.manifest_path(os.getpid())).read())
+    assert ref["status"] == manifest["status"]
+    clean, clean_cfg = _run_capture(tmp_path / "clean",
+                                    FakeFinishingProfiler())
+    clean.stop()
+    manifest = json.loads(open(clean_cfg.manifest_path(os.getpid())).read())
+    assert manifest["timing"]["lost_launches"] == 0
+    assert clean.last_error is None

@@ -173,11 +173,13 @@ def test_every_session_records_all_threads_on_its_chosen_thread(
         assert "schedule" not in row["kwargs"], row
         assert row["start"] == row["stop"], row
     assert {row["start"] for row in sessions.rows} == {poll} != {me}
-    # The warmup may start before the app's first step(): it does not wait.
-    captures = sessions.rows[1:]
-    assert all(row["at_start"] == "opening" for row in captures), captures
-    assert [row["at_stop"] for row in captures].count("closing") == 1
-    assert json.loads(manifests[0].read_text())["timing"]["parked"] is True
+    # The warmup too waits for the app's first step() and starts there.
+    assert all(row["at_start"] == "opening" for row in sessions.rows), (
+        sessions.rows)
+    assert [row["at_stop"] for row in sessions.rows].count("closing") == 1
+    assert client.warmup_timing["parked"] is True
+    for m in manifests:
+        assert json.loads(m.read_text())["timing"]["parked"] is True
 
 
 def _busy_until(stop: threading.Event, work) -> None:
@@ -186,7 +188,7 @@ def _busy_until(stop: threading.Event, work) -> None:
         time.sleep(0.002)
 
 
-def test_duration_window_trims_its_lead(tmp_path):
+def test_duration_window_trims_its_lead(tmp_path, monkeypatch):
     """A duration window opens its profiler a lead before its window: an
     op run only in the lead (a sigmoid) is recorded and trimmed, no event
     of the finished trace lies before the window's started_ms, its steps
@@ -195,7 +197,8 @@ def test_duration_window_trims_its_lead(tmp_path):
                          profiler=TorchProfiler(), report_interval_s=0)
     assert shim.DURATION_LEAD_S > 0
     # A start slower than the lead (the process's first, seconds on the
-    # CPU) leaves none: pay it first.
+    # CPU) leaves none: pay it first, without waiting for a step().
+    monkeypatch.setattr(shim, "WARMUP_PARK_WAIT_S", 0.0)
     client._warmup()
     a = torch.randn(32, 32)
     in_lead = []
@@ -269,7 +272,8 @@ def test_duration_window_against_the_jax_client(tmp_path):
         assert 150 <= window_ms < 300, (ref, ours)
 
 
-def test_synchronized_start_opens_the_profiler_a_lead_early(tmp_path):
+def test_synchronized_start_opens_the_profiler_a_lead_early(tmp_path,
+                                                            monkeypatch):
     """With PROFILE_START_TIME set, the profiler starts early enough for
     its start and lead to end by the start time, and the window opens at
     it; the JAX client starts its profiler at the start time."""
@@ -291,9 +295,10 @@ def test_synchronized_start_opens_the_profiler_a_lead_early(tmp_path):
         job_id=7, endpoint="dynotpu_threads_nodaemon",
         profiler=JaxSeen(), report_interval_s=0)
     lead_ms = shim.DURATION_LEAD_S * 1000
+    monkeypatch.setattr(shim, "WARMUP_PARK_WAIT_S", 0.0)
     try:
         # The profiler's first start in a process can take seconds on the
-        # CPU: pay it outside the measured start.
+        # CPU: pay it outside the measured start, without a step().
         client._warmup()
         at = []
         for name, c, parse in (("port", client, TraceConfig.parse),
@@ -317,13 +322,40 @@ def test_synchronized_start_opens_the_profiler_a_lead_early(tmp_path):
     assert ref["started_ms"] >= at[1] - 1
 
 
+class _HeldOpen(TorchProfiler):
+    """Holds each duration window open, its stop waiting (up to 30 s),
+    until the training thread has run an op since the window opened: a
+    window of 10 ms on a loaded host can pass while that thread is not
+    scheduled at all, and then holds none of its ops."""
+
+    def __init__(self):
+        super().__init__()
+        self.opened = False
+        self.stepped = threading.Event()
+
+    def start(self, trace_dir, lead=False):
+        self.opened = False
+        self.stepped.clear()
+        super().start(trace_dir, lead)
+
+    def open_window(self, at_ns):
+        super().open_window(at_ns)
+        self.opened = True
+
+    def stop(self):
+        if self.opened:
+            self.stepped.wait(30)
+        super().stop()
+
+
 def test_mixed_captures_each_hold_the_training_threads_ops(tmp_path):
     """200 captures in one process, duration and iteration windows in
     turns, each finished in-process (the path that lost the card's
     kernel records soonest): every one is ok and holds cpu_ops of the
-    training thread inside its window."""
+    training thread inside its window. A duration window stays open
+    until the training thread has stepped in it (_HeldOpen)."""
     client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
-                         profiler=TorchProfiler(), report_interval_s=0)
+                         profiler=_HeldOpen(), report_interval_s=0)
     client.profiler.configure({"PROFILE_PYTHON_TRACER_LEVEL": "0"})
     a = torch.randn(16, 16)
     me = threading.get_native_id()
@@ -338,13 +370,19 @@ def test_mixed_captures_each_hold_the_training_threads_ops(tmp_path):
                 f"PROFILE_PYTHON_TRACER_LEVEL=0\nTRACE_JSON=0\n{kind}")
             runner = threading.Thread(target=client._run_trace, args=(cfg,))
             runner.start()
-            while runner.is_alive():
+            deadline = time.time() + 60
+            while runner.is_alive() and time.time() < deadline:
+                opened = client.profiler.opened
                 (a @ a).sum()
+                if opened:
+                    client.profiler.stepped.set()
                 client.step()
                 time.sleep(0.001)
             runner.join(timeout=30)
+            assert not runner.is_alive(), i
             manifest = client.last_manifest
             assert manifest["status"] == "ok", (i, manifest)
+            assert manifest["timing"]["lost_launches"] == 0, (i, manifest)
             doc = json.loads(open(manifest["trace_file"]).read())
             base_us = doc["baseTimeNanoseconds"] / 1e3
             held.append(sum(
@@ -418,16 +456,20 @@ def test_stop_during_the_park_wait_starts_nothing(tmp_path):
 
 @pytest.mark.parametrize("case", ["warmup_before_any_step",
                                   "duration_after_a_pause"])
-def test_start_without_a_park_says_so(case):
+def test_start_without_a_park_says_so(case, monkeypatch):
     """A start that goes ahead without the training thread parked — the
-    warmup of an app that has not stepped yet, a duration capture whose
-    park wait ran out — records parked false in its timing."""
+    warmup of an app that did not step within WARMUP_PARK_WAIT_S, a
+    duration capture of an app that stepped, then did not step within
+    step_start_timeout_s — records parked false in its timing."""
     client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
                          profiler=shim.RecordingProfiler(),
-                         report_interval_s=0)
+                         report_interval_s=0, step_start_timeout_s=0.3)
+    monkeypatch.setattr(shim, "WARMUP_PARK_WAIT_S", 0.2)
     try:
         if case == "warmup_before_any_step":
+            t0 = time.time()
             client._warmup()
+            assert time.time() - t0 >= 0.2
             assert client.warmup_timing["parked"] is False
         else:
             client.step()
@@ -438,3 +480,159 @@ def test_start_without_a_park_says_so(case):
             assert window.timing["parked"] is False
     finally:
         client.stop()
+
+
+def test_warmup_parks_at_the_apps_first_step():
+    """The warmup waits for the app's first step(), drains the card and
+    starts its profiler with the app parked there, and stops it before
+    the app goes on (C18), then saves it, once: the calls the JAX
+    client's warmup makes (one start and one stop before its first
+    poll), which starts at once."""
+    jax_client = jax_shim.TraceClient(
+        job_id=7, endpoint="dynotpu_threads_nodaemon",
+        profiler=jax_shim.RecordingProfiler(), warmup_profiler=True,
+        report_interval_s=0)
+    jax_client._stop.set()
+    jax_client._poll_loop()  # the warmup, then no poll
+    seen = []
+
+    class Seen(shim.RecordingProfiler):
+        def drain(self, device):
+            self.calls.append(("drain", device))
+
+        def start(self, trace_dir, lead=False):
+            seen.append((client._window.state, client._step_count))
+            super().start(trace_dir, lead)
+
+        def stop(self):
+            seen.append((client._window.state, client._step_count))
+            super().stop()
+
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=Seen(), warmup_profiler=True,
+                         report_interval_s=0, device=3)
+    poll = threading.Thread(target=client._warmup)
+    poll.start()
+    time.sleep(0.3)
+    assert seen == [] and client._window.state == "armed"
+    deadline = time.time() + 30
+    while poll.is_alive() and time.time() < deadline:
+        client.step()
+        time.sleep(0.005)
+    poll.join(timeout=30)
+    assert not poll.is_alive()
+    assert seen == [("opening", 1), ("opening", 1)]
+    assert client.warmup_timing["parked"] is True
+    assert client.warmup_timing["lost_launches"] == 0
+    assert [c[0] for c in jax_client.profiler.calls] == ["start", "stop"]
+    assert [c[0] for c in client.profiler.calls] == [
+        "drain", "start", "stop", "export"]
+    assert client.profiler.calls[0] == ("drain", 3)
+    assert client._window is None
+
+
+def test_stop_during_the_warmups_park_wait_starts_nothing():
+    """stop() while the warmup waits for the app's first step(): no
+    profiler starts, warmup_done is set, and no window is left."""
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=shim.RecordingProfiler(),
+                         warmup_profiler=True, report_interval_s=0)
+    client._client = _ConfigsIpc([])
+    poll = threading.Thread(target=client._poll_loop)
+    poll.start()
+    deadline = time.time() + 30
+    while client._window is None and time.time() < deadline:
+        time.sleep(0.005)
+    assert client._window.state == "armed"
+    client.stop()
+    poll.join(timeout=30)
+    assert not poll.is_alive()
+    assert client.profiler.calls == []
+    assert client.warmup_done.is_set() and client.warmup_timing == {}
+    assert client._window is None
+
+
+def test_poll_loop_captures_count_their_lost_launches(tmp_path):
+    """The client as an application starts it — client.start(), the
+    warmup and the ring on, the app training at once without waiting on
+    warmup_done — with duration and iteration captures arriving through
+    the daemon: every manifest is ok with lost_launches 0 (no card, no
+    launch) and parked true, every ring sample's timing has
+    lost_launches 0, and the warmup parked at the app's first step()."""
+    pid = os.getpid()
+    texts, manifests = [], []
+    for i in range(4):
+        kind = ("ACTIVITIES_ITERATIONS=2" if i % 2
+                else "ACTIVITIES_DURATION_MSECS=50")
+        texts.append(f"ACTIVITIES_LOG_FILE={tmp_path}/c{i}.json\n{kind}")
+        manifests.append(tmp_path / f"c{i}_{pid}.json")
+    client = TraceClient(
+        job_id=7, endpoint=f"threads_poll_test_{pid}", poll_interval_s=0.02,
+        report_interval_s=0, warmup_profiler=True,
+        ring=RingConfig(every_n_steps=5, keep=2, window_ms=30,
+                        dir=str(tmp_path / "ring"), model="m",
+                        min_interval_s=0.0))
+    client._client = _ConfigsIpc(texts)
+    a = torch.randn(32, 32)
+    samples = []
+    client.start()
+    try:
+        deadline = time.time() + 90
+        while time.time() < deadline and not (
+                all(m.exists() for m in manifests) and len(samples) >= 2):
+            (a @ a).sum()
+            client.step()
+            if client.ring.captures > len(samples):
+                samples.append(dict(client.ring.last_timing))
+            time.sleep(0.002)
+    finally:
+        client.stop()
+        for proc in client.summary_procs:
+            proc.wait(timeout=60)
+    assert client.warmup_timing["parked"] is True, client.warmup_timing
+    assert len(samples) >= 2, client.last_error
+    for timing in samples:
+        assert timing["lost_launches"] == 0, timing
+    for m in manifests:
+        manifest = json.loads(m.read_text())
+        assert manifest["status"] == "ok", manifest
+        assert manifest["timing"]["lost_launches"] == 0, manifest
+        assert manifest["timing"]["parked"] is True, manifest
+    assert client.last_error is None
+
+
+def test_duration_start_waits_out_a_long_step():
+    """A duration capture that arrives during a step ten times the app's
+    recent ones (an eval's, a checkpoint's), longer than the two recent
+    steps a synchronized start allows for the park: its start waits for
+    the next step() and goes ahead parked there, as an iteration window
+    waits for its first step; park_ms says how long it waited."""
+    seen = []
+
+    class Seen(shim.RecordingProfiler):
+        def start(self, trace_dir, lead=False):
+            seen.append((client._window.state, client._step_count))
+            super().start(trace_dir, lead)
+
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=Seen(), report_interval_s=0)
+    for _ in range(5):
+        client.step()
+        time.sleep(0.02)
+    got = {}
+    runner = threading.Thread(target=lambda: got.update(
+        r=client._capture_window(TraceConfig(duration_ms=20), "unused")))
+    runner.start()
+    time.sleep(0.5)  # the long step: 25 recent steps
+    assert client._park_wait_s() < 0.5 and seen == []
+    deadline = time.time() + 30
+    while runner.is_alive() and time.time() < deadline:
+        client.step()
+        time.sleep(0.005)
+    runner.join(timeout=30)
+    error, window = got["r"]
+    assert error is None
+    assert seen == [("opening", 6)]
+    assert window.timing["parked"] is True
+    assert window.timing["park_ms"] >= 450
+    client.stop()
