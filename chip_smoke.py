@@ -114,7 +114,8 @@ if any phase fails:
    through `dyno gputrace --duration_ms=500`: an ok manifest whose trace
    names the three flash kernels and holds the training thread's
    cpu_ops, and a summary that names no step (its `finish_steps` are
-   logged);
+   logged); every warmup held the app (parked) without waiting for a
+   step() that never comes;
 17. mixed captures: (a) phase 4's trainer in a fresh process
    (`chip_smoke.py --mixed SPEC`) under one TraceClient, after 3
    uncaptured steps: 60 duration windows and 60 `--iterations=2` windows
@@ -130,7 +131,11 @@ if any phase fails:
    with lost_launches 0, every iteration window with the three flash kernels at one count, its
    call count or more where a long step fell inside, every ring sample
    and the warmup with lost_launches 0, and their timing (parked) and
-   the steps over the warmup logged;
+   the steps over the warmup logged; (c) (b)'s process never calling
+   client.step(), the ring off: 100 duration windows, every manifest ok
+   with lost_launches 0 (equal to the launches its trace lacks a kernel
+   record for), every start and the warmup parked (the app's threads
+   held at their next Python event);
 
 then, with two cards or more, phase 10's model trained expert-parallel
 over NCCL (data x expert, one process per card) for two steps, held in
@@ -152,7 +157,8 @@ cards each is logged as not run: NCCL cannot place two ranks on one
 card). `python3 chip_smoke.py --ep` builds the kernels and runs the
 expert-parallel check alone; `python3 chip_smoke.py --mesh` builds them
 and the daemon, and runs phase 12 and the checks (a), (b), (d), (e) and
-(c).
+(c); `python3 chip_smoke.py --stepless` builds them and the daemon, and
+runs phase 17 (c) alone.
 
 The launch counters are zeroed just before each main path (phases 4-5,
 the dense trainer; phase 10, the MoE trainer; phase 12's ring run; phase
@@ -165,8 +171,8 @@ card's name and power limit, a JSON object with one entry per kernel
 (launches: phases 4-5 and 10 together, and in launches_by_path each
 path's own: ring and pp (phase 13), whose plain products launch no
 kernel, fleet (phase 14's trainers together), knobs (phase 15),
-first_capture (phase 16's processes together), mixed and mixed_poll
-(phase 17 (a) and (b)), the
+first_capture (phase 16's processes together), mixed, mixed_poll and
+stepless_poll (phase 17 (a), (b) and (c)), the
 expert-parallel ranks' total as moe_ep, the ranks' totals of (a), (b),
 (d), (e) and (c) as tp, moe_tp, sp, moe_sp and pp_mesh, or null where a
 check did not run), and {"ok": true, "device": ...}.
@@ -175,6 +181,7 @@ check did not run), and {"ok": true, "device": ...}.
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import gc
 import importlib
 import json
@@ -183,6 +190,7 @@ import os
 import re
 import select
 import shutil
+import signal
 import socket
 import statistics
 import struct
@@ -193,6 +201,7 @@ import threading
 import time
 import traceback
 import uuid
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -2346,6 +2355,23 @@ def knob_check(name: str, levels: dict, trace_json: bool, manifest: dict,
     return failures
 
 
+def lost_offsets(manifest: dict) -> str:
+    """Where a capture's launches without a kernel record fall: their
+    count and first and last offsets (ms) from its profiler's start,
+    beside its lead step's and window's ms."""
+    from dynolog_tpu_torch import trace
+
+    with open(manifest["trace_file"]) as f:
+        doc = json.load(f)
+    at = [round(t * 1000 - manifest["started_ms"], 1)
+          for t in trace.unmatched_launches(
+              doc["traceEvents"], doc.get("baseTimeNanoseconds", 0))]
+    return (f"{len(at)} launches without a kernel record, "
+            f"{min(at, default=None)} to {max(at, default=None)} ms after "
+            f"the start; lead {manifest['timing'].get('lead_ms')} ms, "
+            f"window {manifest['timing'].get('window_ms')} ms")
+
+
 def knob_levels(flags: list) -> dict:
     """The tracer levels a capture with these dyno flags runs at."""
     from dynolog_tpu_torch.client.shim import DEFAULT_TRACER_LEVELS
@@ -2418,8 +2444,9 @@ def phase_knobs(F, daemon, smi: str) -> dict:
                         failures.append(f"{name}: manifest {manifest}")
                     continue
                 timing = {k: manifest["timing"].get(k) for k in (
-                    "profiler_start_ms", "window_ms", "profiler_stop_ms",
-                    "export_ms", "write_ms", "trace_bytes")}
+                    "profiler_start_ms", "lead_ms", "window_ms",
+                    "profiler_stop_ms", "export_ms", "write_ms",
+                    "trace_bytes", "lost_launches")}
                 cats: dict = {}
                 summary: dict = {"top_ops": []}
                 if manifest["status"] == "ok":
@@ -2430,8 +2457,11 @@ def phase_knobs(F, daemon, smi: str) -> dict:
                                               group=False)
                     landed.append((name, manifest, trace_json))
                     timings[name].append(timing)
-                failures += knob_check(name, levels, trace_json, manifest,
-                                       summary, cats)
+                found = knob_check(name, levels, trace_json, manifest,
+                                   summary, cats)
+                if found and manifest["status"] == "ok":
+                    found.append(f"{name}: {lost_offsets(manifest)}")
+                failures += found
                 steps = summary.get("steps", {})
                 flash = {k: (r["count"], r["total_ms"]) if r else None
                          for k, r in flash_rows(summary).items()}
@@ -2622,6 +2652,13 @@ def phase_first_capture(daemon, smi: str) -> dict:
             if warmup and not got["warmup_timing"]:
                 failures.append(f"run {run}: the warmup did not run: "
                                 f"{got['last_error']}")
+            elif warmup and not (
+                    got["warmup_timing"].get("parked") is True
+                    and got["warmup_timing"]["park_ms"] < 10_000):
+                # Held at the app's next Python event (C19), not after a
+                # wait of WARMUP_PARK_WAIT_S for a step() that never comes.
+                failures.append(f"run {run}: the warmup was not parked "
+                                f"at once: {got['warmup_timing']}")
             for i, cap in enumerate(got["captures"]):
                 log(f"  run {run} capture {i + 1}: {cap['status']} "
                     f"({cap['mode']}); timing {cap['timing']}; flash "
@@ -2667,11 +2704,12 @@ MIXED_BLANK_STOP = 12  # captures in a row with no kernel record end it
 
 def capture_facts(manifest: dict) -> dict:
     """What a capture holds, from its manifest and its trace: the kind,
-    status, timing (parked, profiler_start_ms, lost_launches, ...), the
-    three flash kernels' records and all kernel records. Where the
-    manifest has no lost_launches (a shim from before it counted them),
-    `recounted` holds the launches without a kernel record made before
-    the window's end, by the port's rule (trace.unmatched_launches)."""
+    status, timing (parked, park, park_ms, profiler_start_ms,
+    lost_launches, ...), the three flash kernels' records and all kernel
+    records, and `recounted`: the launches without a kernel record made
+    before the window's end, by the port's rule
+    (trace.unmatched_launches), which a shim from before the manifest
+    counted them does not give."""
     from dynolog_tpu_torch import trace
 
     t = manifest["timing"]
@@ -2679,7 +2717,8 @@ def capture_facts(manifest: dict) -> dict:
            "error": manifest.get("error"),
            "started_ms": manifest["started_ms"],
            "timing": {k: t.get(k) for k in (
-               "parked", "park_ms", "lost_launches", *TIMING_KEYS)}}
+               "parked", "park", "park_ms", "unparked", "lost_launches",
+               *TIMING_KEYS)}}
     if manifest["status"] != "ok":
         return got
     with open(manifest["trace_file"]) as f:
@@ -2689,11 +2728,19 @@ def capture_facts(manifest: dict) -> dict:
     got.update(kernels=len(kernels), flash={
         name: sum(f"flash_tc::{name}_kernel" in k for k in kernels)
         for name in PRODUCTS})
-    if t.get("lost_launches") is None:
-        got["recounted"] = len(trace.unmatched_launches(
-            events, doc["baseTimeNanoseconds"],
-            (manifest["started_ms"] + t["window_ms"]) * 10**6))
+    got["recounted"] = len(trace.unmatched_launches(
+        events, doc["baseTimeNanoseconds"],
+        (manifest["started_ms"] + t["window_ms"]) * 10**6))
     return got
+
+
+def recount_mismatches(captures: list) -> list:
+    """(index, the finish's lost_launches, the recount) of the captures
+    whose two counts differ."""
+    return [(i, c["timing"]["lost_launches"], c["recounted"])
+            for i, c in enumerate(captures)
+            if "recounted" in c and c["timing"]["lost_launches"] is not None
+            and c["timing"]["lost_launches"] != c["recounted"]]
 
 
 def lost_of(c: dict) -> int | None:
@@ -2889,6 +2936,7 @@ def poll_trainer(spec: dict) -> int:
         "warmup_timing": client.warmup_timing, "during_warmup": during,
         "median_step_ms": round(after[len(after) // 2], 1) if after else None,
         "ring": samples, "steps": steps,
+        "spans": [[round(b, 1), round(e, 1)] for b, e, _ in spans],
         "train_steps": steps + (POLL_EVAL_STEPS - 1) * (
             steps // POLL_EVAL_EVERY),
         "launches": dict(F.launches), "last_error": client.last_error}))
@@ -2942,6 +2990,13 @@ def run_poll(daemon, n: int, stepless: bool, progress=None,
             blank = blank + 1 if not captures[-1].get("kernels") else 0
             if blank == MIXED_BLANK_STOP:
                 break
+    except BaseException:
+        if proc.poll() is None:
+            # The stacks of every thread go to the process's stderr.
+            proc.send_signal(signal.SIGUSR1)
+            time.sleep(2.0)
+            proc.kill()
+        raise
     finally:
         Path(spec["stop"]).touch()
         try:
@@ -2960,13 +3015,35 @@ def run_poll(daemon, n: int, stepless: bool, progress=None,
     return {**got, "captures": captures}
 
 
+def start_steps(got: dict) -> list:
+    """Per on-demand duration capture of a run_poll result, the longest
+    step (host ms; eval steps left out) that overlaps its start, from
+    the park's arm to the start's return (started_ms less the lead,
+    profiler_start_ms and park_ms); None where no step overlaps it."""
+    from dynolog_tpu_torch.client.shim import DURATION_LEAD_S
+
+    spans = [sp for k, sp in enumerate(got.get("spans", []))
+             if k % POLL_EVAL_EVERY != POLL_EVAL_EVERY - 1]
+    out = []
+    for c in got["captures"]:
+        t = c["timing"]
+        if c["kind"] != "duration" or t.get("profiler_start_ms") is None:
+            continue
+        returned = c["started_ms"] - DURATION_LEAD_S * 1000
+        armed = returned - t["profiler_start_ms"] - (t.get("park_ms") or 0)
+        out.append(max(overlapping(spans, armed, returned), default=None))
+    return out
+
+
 def poll_report(got: dict) -> tuple[list, list]:
     """Log lines of a run_poll result, per kind of capture (warmup, ring,
     duration, iterations): its captures, lossy ones (index among the
     samples or the on-demand captures, lost launches, flash records),
-    parked share and profiler_start_ms median
-    and max, and the first capture with no kernel record; and the
-    failures of phase 17 (b)'s rules."""
+    parked share, the parks that held them (step or event) and their
+    park_ms median and max, profiler_start_ms median and max, and the
+    first capture with no kernel record; the on-demand captures whose
+    finish's lost_launches differs from the recount; and the failures of
+    phase 17 (b)'s rules."""
     rows = [{"kind": "warmup", "status": "ok", "timing": got["warmup_timing"]}
             ] if got["warmup_timing"] else []
     rows += [{"kind": "ring", "status": "ok", "timing": t}
@@ -2980,14 +3057,29 @@ def poll_report(got: dict) -> tuple[list, list]:
         bad = [(i, lost_of(c), c.get("flash")) for i, c in mine
                if lossy(c, evals=True)]
         starts = [c["timing"].get("profiler_start_ms") or 0 for _, c in mine]
+        parks = [c["timing"].get("park_ms") or 0 for _, c in mine]
         blank = [i for i, c in mine if c.get("kernels") == 0]
         lines.append(
             f"{len(mine)} {kind}: {len(bad)} lossy {bad[:8]}; parked "
             f"{sum(c['timing'].get('parked') is True for _, c in mine)}"
-            f"/{len(mine)}; profiler_start_ms median "
+            f"/{len(mine)}, by park "
+            f"{dict(Counter(c['timing'].get('park') for _, c in mine))}, "
+            f"park_ms median {statistics.median(parks)}, max {max(parks)}; "
+            f"profiler_start_ms median "
             f"{statistics.median(starts)}, max {max(starts)}; first with no "
             f"kernel record: {blank[0] if blank else None}")
         failures += [f"{kind} capture {b}" for b in bad[:8]]
+    mismatches = recount_mismatches(got["captures"])
+    lines.append(f"lost_launches against the recount: "
+                 f"{len(mismatches)} differ {mismatches[:8]}")
+    over = [ms for ms in start_steps(got) if ms is not None]
+    if over:
+        lines.append(f"the longest step over each duration start: median "
+                     f"{statistics.median(over)}, max {max(over)} ms, over "
+                     f"{len(over)} starts (median step "
+                     f"{got['median_step_ms']} ms)")
+    failures += [f"capture {i}: lost_launches {lost}, recount {n}"
+                 for i, lost, n in mismatches[:8]]
     return lines, failures
 
 
@@ -3028,12 +3120,62 @@ def phase_poll(daemon, smi: str) -> dict:
     return got["launches"]
 
 
+# ------------------------------------------------------------ phase 17 (c)
+
+# Phase 17 (c): phase 17 (b)'s process never calling client.step() (run_poll
+# with stepless: the warmup on, no ring), captured STEPLESS_CAPTURES times
+# in duration windows through dynologd. With its starts unparked, such a
+# process lost its training thread's kernel records from its 54th
+# capture on (ROADMAP C19); the shim now holds its threads at their next
+# Python event for every start, the warmup's too.
+STEPLESS_CAPTURES = 100
+
+
+def phase_stepless(daemon, smi: str) -> dict:
+    """Phase 17 (c): run_poll(stepless) at STEPLESS_CAPTURES. Every
+    capture ok with lost_launches 0 in its manifest, equal to the
+    recount; every start and the warmup parked; each kernel launched in
+    every train step. Returns the process's launches."""
+    t0 = time.time()
+    got = run_poll(daemon, STEPLESS_CAPTURES, stepless=True)
+    lines, failures = poll_report(got)
+    for line in lines:
+        log(f"  {smi}: {line}")
+    log(f"  warmup {got['warmup_timing']}; steps before warmup_done "
+        f"{got['during_warmup']} ms against a median of "
+        f"{got['median_step_ms']} ms")
+    caps = got["captures"]
+    if len(caps) < STEPLESS_CAPTURES:
+        failures.append(f"{len(caps)} of {STEPLESS_CAPTURES} captures: the "
+                        f"last {MIXED_BLANK_STOP} held no kernel record")
+    failures += [f"capture {i}: lost_launches missing from its manifest"
+                 for i, c in enumerate(caps)
+                 if c["status"] == "ok"
+                 and c["timing"]["lost_launches"] is None]
+    failures += [f"capture {i} not parked: {c['timing']}"
+                 for i, c in enumerate(caps)
+                 if c["timing"]["parked"] is not True][:8]
+    if (got["warmup_timing"] or {}).get("parked") is not True:
+        failures.append(f"warmup not parked: {got['warmup_timing']}, "
+                        f"{got['last_error']}")
+    for k, v in got["launches"].items():
+        if v < N_LAYERS * got["train_steps"]:
+            failures.append(f"{k} launched {v} times in "
+                            f"{got['train_steps']} train steps")
+    log(f"  phase 17 (c) took {time.time() - t0:.1f} s, {got['steps']} "
+        f"steps; last_error {got['last_error']}")
+    if failures:
+        raise AssertionError("\n".join(failures))
+    return got["launches"]
+
+
 def main_alone(_build, mode: str) -> int:
     """`chip_smoke.py --ep` (two cards or more): the kernels built and the
     expert-parallel check alone. `chip_smoke.py --mesh` (four cards or
     more): the kernels and the daemon built, phase 12 and the checks (a),
-    (b) and (c)."""
-    need = {"--ep": 2, "--mesh": 4}[mode]
+    (b) and (c). `chip_smoke.py --stepless` (one card): the kernels and
+    the daemon built, phase 17 (c) alone."""
+    need = {"--ep": 2, "--mesh": 4, "--stepless": 1}[mode]
     if torch.cuda.device_count() < need:
         print(f"chip_smoke {mode}: needs {need} cards or more",
               file=sys.stderr)
@@ -3043,11 +3185,23 @@ def main_alone(_build, mode: str) -> int:
         smi = nvidia_smi_line()
         log(f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
         torch.backends.cuda.matmul.allow_tf32 = False
-        if mode == "--mesh":
+        if mode in ("--mesh", "--stepless"):
             daemon_build.start()
         log(f"CUDA kernels built: {_build.build_all()}")
         if mode == "--ep":
             phase_multicard_ep()
+        elif mode == "--stepless":
+            daemon_build.join()
+            if daemon_build.error:
+                raise RuntimeError(f"daemon build failed: "
+                                   f"{daemon_build.error}")
+            daemon = Daemon()
+            try:
+                log("phase 17 (c): the real client in an app that never "
+                    "steps")
+                log(f"  launches {phase_stepless(daemon, smi)}")
+            finally:
+                daemon.stop()
         else:
             log("phase 12: ring attention")
             ring, distance, flash = phase_ring_attention()
@@ -3086,11 +3240,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--mixed"] and len(sys.argv) == 3:
         return mixed_trainer(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--poll"] and len(sys.argv) == 3:
+        # run_poll asks a process that stopped answering for the stacks
+        # of its threads.
+        faulthandler.register(signal.SIGUSR1, all_threads=True)
         return poll_trainer(json.loads(sys.argv[2]))
-    if sys.argv[1:] in (["--ep"], ["--mesh"]):
+    if sys.argv[1:] in (["--ep"], ["--mesh"], ["--stepless"]):
         return main_alone(_build, sys.argv[1])
     if sys.argv[1:]:
-        print("usage: chip_smoke.py [--ep | --mesh]", file=sys.stderr)
+        print("usage: chip_smoke.py [--ep | --mesh | --stepless]",
+              file=sys.stderr)
         return 2
 
     t_start = time.time()
@@ -3182,6 +3340,8 @@ def main() -> int:
         mixed_counts = phase_mixed(smi)
         log("phase 17 (b): the real client")
         poll_counts = phase_poll(daemon, smi)
+        log("phase 17 (c): the real client in an app that never steps")
+        stepless_counts = phase_stepless(daemon, smi)
         log("multi-card expert parallelism")
         ep_counts = phase_multicard_ep()
         log("multi-card tensor, sequence and expert parallelism")
@@ -3212,6 +3372,7 @@ def main() -> int:
                 "first_capture": first_counts[name],
                 "mixed": mixed_counts[name],
                 "mixed_poll": poll_counts[name],
+                "stepless_poll": stepless_counts[name],
                 "moe_ep": ep_counts and ep_counts[name],
                 **{path: mesh_counts[path][name] if mesh_counts else None
                    for path in MESH_CASES},

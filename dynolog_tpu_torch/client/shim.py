@@ -13,23 +13,34 @@ the shim also reports step rate and step-time percentiles to the daemon
 
 The poll thread starts and stops every capture's profiler, as in the JAX
 shim, and records all threads (``profile_all_threads``: torch.profiler
-otherwise records the CPU ops of the starting thread only). In an app
-that calls ``step()``, the training thread parks in ``step()`` while a
-profiler starts: a start that met a kernel launch from another thread
-could lose every later kernel record of the process (ROADMAP C17).
+otherwise records the CPU ops of the starting thread only). Every
+profiler starts with the app parked, its threads held off the card: a
+start that met a kernel launch from another thread could lose every
+later kernel record of the process (ROADMAP C17, C19). In an app that
+calls ``step()``, the training thread parks in ``step()``; in one that
+has not stepped (or whose next ``step()`` did not come in time), every
+app thread the ``threading`` module started, but the shim's own, is held
+at its next Python event (a PEP 669 ``sys.monitoring`` CALL or PY_START,
+on for the park only: ``_EventPark``). A thread waiting on another
+(``Event.wait()``, ``Queue.get()``, an idle pool worker) counts as parked
+and is held where it wakes; one that stays in C otherwise for longer
+than ``EVENT_PARK_WAIT_S`` is left to run. A capture's ``timing`` says
+whether it was ``parked``, by which ``park`` ("step" or "event"), after
+how long (``park_ms``), and which threads were ``waiting``.
 Every capture opens its profiler a lead before its window: a start
 loses its first launches' device records there, not in the window, and
 the finish trims the lead from the trace. A duration capture starts the
 profiler at the training thread's next ``step()``, waiting for it up to
-``step_start_timeout_s`` (at once in an app that never steps, which is
-traced too), opens its window
+``step_start_timeout_s`` (at its threads' next Python event in an app
+that never steps, which is traced too), opens its window
 ``DURATION_LEAD_S`` after the start returned, sleeps the
 window and stops it; the ``step()`` calls that fall in the window only
 mark its ProfilerStep#N spans. An iteration capture's edges are steps:
 the poll thread *arms* a window, the training thread's ``step()`` one
 step before its first iteration (the lead step) parks while the poll
 thread starts the profiler, and the ``step()`` at its end parks while
-the poll thread stops it.
+the poll thread stops it; the window's ``lead_ms`` is the lead step's
+length, from the start's return.
 
 Either way the poll thread then saves kineto's trace and goes back to
 polling. What is left of the trace's save (adding the step spans,
@@ -47,7 +58,7 @@ beside it.
 
 ``TraceClient(warmup_profiler=True)`` pays the profiler's one-time
 start-up cost with a throwaway start/stop on the poll thread before its
-first poll, started with the app parked at its first ``step()``
+first poll, the app parked from before its start to after its stop
 (``WARMUP_PARK_WAIT_S``), and sets ``warmup_done`` when it is over (at
 once without a warmup), so the first capture starts as fast as later
 ones.
@@ -99,16 +110,20 @@ Usage::
 
 from __future__ import annotations
 
+import _thread
+import dis
 import json
 import logging
 import math
 import os
+import queue
 import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import thread as _futures_thread
 from dataclasses import dataclass, field
 
 import dynolog_tpu_torch
@@ -1002,10 +1017,13 @@ class _Window:
     steps) moves it to opening and parks until the poll thread has
     started the profiler; an iteration window is then active, a duration
     window (end_at None, start_at the next step) in its lead until the
-    poll thread makes it active. While active, step() marks its steps;
-    an iteration window's step() at end_at moves it to closing and parks
-    until the poll thread has stopped it (stopped). Every transition
-    happens under the client's step condition."""
+    poll thread makes it active. A duration window (or the warmup's) that
+    no step() moved to opening is parking while the poll thread holds the
+    app's threads at their next Python event (`park`, an _EventPark) and
+    starts the profiler; step() leaves it alone. While active, step()
+    marks its steps; an iteration window's step() at end_at moves it to
+    closing and parks until the poll thread has stopped it (stopped).
+    Every transition happens under the client's step condition."""
 
     def __init__(self, trace_dir: str, start_at: int, end_at: int | None,
                  lead: int = 0):
@@ -1019,6 +1037,223 @@ class _Window:
         self.timing: dict = {}
         self.started_ms = 0
         self._t_start = 0.0
+        self.park: _EventPark | None = None
+
+
+# The prefix of every thread the shim starts (the poll thread, finishers,
+# finish and summary waiters): the event park never holds one.
+THREAD_PREFIX = "dynolog_tpu_torch_"
+# How long a start that found no app thread parked in step() waits for
+# each app thread to reach its next Python event (_EventPark); a thread
+# that stays in C longer (blocked in join(), a socket's accept(), a long
+# call; not one waiting at a wait site, _WAITS, which counts as parked at
+# once) is not held, and the start says "parked": false. The warmup
+# waits WARMUP_PARK_WAIT_S instead: a process's first steps hold the
+# longest calls into C (the card's set-up, its first kernels' loads).
+EVENT_PARK_WAIT_S = 2.0
+# How long a thread held at a Python event waits for the start (the
+# warmup's: and its stop) to return before it goes on regardless.
+EVENT_HOLD_MAX_S = 60.0
+# The sys.monitoring tool ids the event park may take: the two PEP 669
+# leaves unnamed (0-2 and 5 are the debugger's, coverage's, profilers'
+# and optimizers').
+EVENT_PARK_TOOL_IDS = (3, 4)
+# A thread is never held inside these files' code: the shim (its step
+# lock), the threading, queue and logging modules (their locks) and an
+# import (a module's lock), any of which a profiler's start may need;
+# but for the threading module's frames at the foot of every thread it
+# started (_THREAD_FOOT). Nor inside torch.cuda's package (_EventPark):
+# a thread that sets up CUDA holds its _initialization_lock across
+# Python calls, and a profiler's stop synchronizes the card, which takes
+# that lock until CUDA is set up.
+_NO_PARK_FILES = frozenset((
+    __file__, threading.__file__, queue.__file__, logging.__file__,
+    "<frozen importlib._bootstrap>", "<frozen importlib._bootstrap_external>"))
+_THREAD_FOOT = frozenset(f.__code__ for f in (
+    threading.Thread._bootstrap, threading.Thread._bootstrap_inner,
+    threading.Thread.run))
+
+
+def _calls(code, attr: str) -> list[int]:
+    """The offsets of the CALL instructions of `code` that call a
+    method named `attr` (the attribute loaded last before them)."""
+    loaded, offsets = None, []
+    for ins in dis.get_instructions(code):
+        if ins.opname == "LOAD_ATTR":
+            loaded = ins.argval
+        elif ins.opname == "CALL" and loaded == attr:
+            offsets.append(ins.offset)
+    return offsets
+
+
+def _wait_sites() -> tuple[dict, frozenset]:
+    """Where a thread waits in C for another thread: {code: offsets of
+    its blocking calls} for threading.Condition.wait (which Event.wait,
+    Queue.get and put, Semaphore.acquire, Barrier.wait and
+    Future.result wait in), its acquires between releasing the
+    Condition's lock and restoring it, and for an idle ThreadPoolExecutor
+    worker, its SimpleQueue.get; and the offsets in Condition.wait of its
+    _acquire_restore calls, the first Python event of a thread that
+    wakes there, before it holds any lock again."""
+    cond = threading.Condition.wait.__code__
+    released = min(_calls(cond, "_release_save"), default=None)
+    restores = _calls(cond, "_acquire_restore")
+    waits = {cond: frozenset(
+        o for o in _calls(cond, "acquire")
+        if released is not None and released < o < min(restores, default=0))}
+    worker = _futures_thread._worker.__code__
+    waits[worker] = frozenset(_calls(worker, "get"))
+    return waits, frozenset(restores)
+
+
+_WAITS, _WAKES = _wait_sites()
+_COND_WAIT = threading.Condition.wait.__code__
+_WAITING_FILES = frozenset((threading.__file__, queue.__file__))
+
+
+def _app_threads() -> dict:
+    """The threads an event park watches, by ident: the threading
+    module's live threads but the calling one, the shim's own
+    (THREAD_PREFIX) and dummy threads, which the threading module did not
+    start (such as the autograd engine's device threads, which run
+    Python only inside a backward)."""
+    me = threading.get_ident()
+    return {t.ident: t for t in threading.enumerate()
+            if t.ident != me and not isinstance(t, threading._DummyThread)
+            and not t.name.startswith(THREAD_PREFIX)}
+
+
+class _EventPark:
+    """Holds the app's threads off the card while a profiler starts, in
+    an app that does not park in step() (ROADMAP C19): PEP 669's CALL and
+    PY_START events are on, on a free sys.monitoring tool id, from hold()
+    to release(), and a watched thread (_app_threads) that reaches one
+    waits in the callback until release(), at most EVENT_HOLD_MAX_S.
+
+    A thread is not held inside a file of _NO_PARK_FILES or of torch.cuda,
+    inside autograd's backward (a Python Function's backward runs on the
+    calling thread on the CPU; on the card the engine's device thread,
+    which is not watched, runs it while the calling thread waits in C),
+    or at a call of TraceClient.stop() or __exit__(), which ends the
+    wait. A thread blocked at a wait site (_WAITS) counts as parked
+    (`waiting`): it reaches the card only after its next Python event,
+    where it is held (in Condition.wait, at its _acquire_restore call). A
+    thread that stays in C otherwise (loss.backward() on the card, a
+    join(), a socket's accept()) holds the start at most the bound given
+    to hold()."""
+
+    def __init__(self):
+        self.watched = _app_threads()
+        self.held: set[int] = set()
+        self.waiting: set[int] = set()
+        self.escaped: set[int] = set()
+        self._gate = _thread.allocate_lock()
+        self._tool: int | None = None
+        self._released = False
+        torch = sys.modules.get("torch")
+        self._graph_task = getattr(getattr(torch, "_C", None),
+                                   "_current_graph_task_id", None)
+        cuda = getattr(getattr(torch, "cuda", None), "__file__", None)
+        self._no_park_dirs = (os.path.dirname(cuda) + os.sep,) if cuda else ()
+
+    def hold(self, bound_s: float, stop: threading.Event) -> bool:
+        """Turns the events on and waits until every watched thread still
+        alive is held or waiting, `stop` is set or `bound_s` has passed;
+        True if every one is. The events stay on, and the held threads
+        held, until release()."""
+        mon = getattr(sys, "monitoring", None)
+        for tool in EVENT_PARK_TOOL_IDS if mon else ():
+            try:
+                mon.use_tool_id(tool, "dynolog_tpu_torch event park")
+            except ValueError:  # taken
+                continue
+            self._tool = tool
+            break
+        else:
+            return not self.watched
+        self._gate.acquire()
+        for event in (mon.events.CALL, mon.events.PY_START):
+            mon.register_callback(tool, event, self._hold_at_python_event)
+        mon.set_events(tool, mon.events.CALL | mon.events.PY_START)
+        deadline = time.monotonic() + bound_s
+        while self.unheld():
+            if stop.is_set() or time.monotonic() > deadline:
+                return False
+            time.sleep(0.0005)
+        return True
+
+    def unheld(self) -> list[str]:
+        """The names of the watched threads alive, not held and not
+        blocked at a wait site (which updates `waiting`)."""
+        frames = sys._current_frames()
+        self.waiting = {ident for ident in self.watched
+                        if ident not in self.held and ident in frames
+                        and self._blocked(frames[ident])}
+        return [t.name for ident, t in self.watched.items()
+                if ident not in self.held and ident not in self.waiting
+                and t.is_alive()]
+
+    def _blocked(self, frame) -> bool:
+        """Whether `frame`, another thread's innermost, is blocked at a
+        wait site where the thread will be held once it wakes."""
+        return (frame.f_lasti in _WAITS.get(frame.f_code, ())
+                and self._holdable(frame, frame.f_code is _COND_WAIT))
+
+    def _holdable(self, frame, woken: bool) -> bool:
+        """Whether a thread may be held in `frame` (its innermost): none
+        of its frames runs code of _NO_PARK_FILES (but _THREAD_FOOT) or of
+        torch.cuda. Where it has `woken` in Condition.wait, the threading
+        and queue frames it waits in are skipped: they hold no lock but
+        the Condition's, released until its _acquire_restore."""
+        while woken and frame is not None and (
+                frame.f_code.co_filename in _WAITING_FILES
+                and frame.f_code not in _THREAD_FOOT):
+            frame = frame.f_back
+        while frame is not None:
+            name = frame.f_code.co_filename
+            if ((name in _NO_PARK_FILES and frame.f_code not in _THREAD_FOOT)
+                    or name.startswith(self._no_park_dirs)):
+                return False
+            frame = frame.f_back
+        return True
+
+    def release(self) -> bool:
+        """Turns the events off, frees the tool id and lets the held
+        threads go on; False if one went on before (EVENT_HOLD_MAX_S)."""
+        if self._tool is not None:
+            mon = sys.monitoring
+            mon.set_events(self._tool, 0)
+            for event in (mon.events.CALL, mon.events.PY_START):
+                mon.register_callback(self._tool, event, None)
+            mon.free_tool_id(self._tool)
+            self._tool = None
+            self._released = True
+            self._gate.release()
+        return not self.escaped
+
+    def _hold_at_python_event(self, code, offset, *call) -> None:
+        # Its name is trace.PARK_FRAME. Nothing in here runs Python but
+        # this frame (no event fires inside a callback): the held frame
+        # is the only one torch's Python tracer can see and not see end.
+        ident = _thread.get_ident()
+        if (ident not in self.watched or ident in self.held
+                or self._released):
+            return
+        if ((call and getattr(call[0], "__func__", call[0]) in (
+                TraceClient.stop, TraceClient.__exit__))
+                or not self._holdable(sys._getframe(1), (
+                    code is _COND_WAIT and offset in _WAKES))
+                or (self._graph_task is not None
+                    and self._graph_task() != -1)):
+            if ident in self.waiting:
+                # Counted as parked, it runs Python unheld.
+                self.escaped.add(ident)
+            return
+        self.held.add(ident)
+        if self._gate.acquire(True, EVENT_HOLD_MAX_S):
+            self._gate.release()
+        else:
+            self.escaped.add(ident)
 
 
 _BUSY = "a previous capture is still open"
@@ -1028,10 +1263,10 @@ _BUSY = "a previous capture is still open"
 # launch whose kernel record a start lost was made within 55.5 ms after
 # that start returned; starts took 2 ms to 4.7 s.
 DURATION_LEAD_S = 0.1
-# How long the warmup waits for the app's first step() (its next, once it
-# has stepped) to start the profiler with the app parked there, as every
-# other start is (C17); an app that does not step within it is warmed up
-# unparked.
+# How long the warmup waits for the app to park, as every other start
+# does (C17, C19): at its next step() in an app that has stepped, else
+# for each of its threads to reach its next Python event (_EventPark); a
+# start that goes ahead without it says "parked": false.
 WARMUP_PARK_WAIT_S = 10.0
 # What a synchronized duration capture allows its profiler's start: on an
 # H100 80GB HBM3 (700 W) starts with the app parked took a median 19 ms,
@@ -1212,6 +1447,10 @@ class TraceClient:
 
     def _drive_window(self, w: _Window, count: int) -> None:
         if w.state == "active":
+            if w.lead and count == w.start_at:
+                # The lead step's length, from the start's return (C15).
+                w.timing["lead_ms"] = int(
+                    (time.monotonic() - w._t_start) * 1000)
             self.profiler.step()
         if w.state == "armed" and count >= w.start_at - w.lead:
             w.state = "opening"
@@ -1246,13 +1485,15 @@ class TraceClient:
     def _warmup(self) -> None:
         """One throwaway capture on the poll thread at the default levels,
         into a temp dir removed after it; a failure lands in last_error
-        and polling goes on. The app stays parked at its first step()
-        (its next, once it has stepped; waited for at most
-        WARMUP_PARK_WAIT_S) from before the profiler's start to after
-        its stop, the card drained before the start: the process's first
-        profiler session meets no launch and no kernel in flight. It
-        leaves no capture behind: export() takes the stopped one, and the
-        next start() makes its own step clock."""
+        and polling goes on. The app stays parked from before the
+        profiler's start to after its stop, the card drained before the
+        start: the process's first profiler session meets no launch and
+        no kernel in flight. An app that has stepped parks at its next
+        step() (waited for at most WARMUP_PARK_WAIT_S), any other at its
+        threads' next Python event (_EventPark, its threads waited for at
+        most WARMUP_PARK_WAIT_S). It leaves no capture behind: export()
+        takes the stopped one, and the next start() makes its own step
+        clock."""
         tmp = tempfile.mkdtemp(prefix=WARMUP_PREFIX)
         window = _Window(tmp, 0, None)
         try:
@@ -1264,17 +1505,15 @@ class TraceClient:
             # app went on (the aborts were in the stop), 0 of 20 with the
             # card drained first; 0 of 40 with the app parked through
             # the start and stop and the card drained first (this code).
-            if self._start_parked(window, WARMUP_PARK_WAIT_S,
-                                  hold=True) is None:
+            if self._start_parked(
+                    window, WARMUP_PARK_WAIT_S if self._ever_stepped else 0.0,
+                    hold=True, event_wait_s=WARMUP_PARK_WAIT_S) is None:
                 return  # stopped while it waited for the park
             t1 = time.time()
             try:
                 self.profiler.stop()
             finally:
-                with self._step_cv:
-                    self._window = None
-                    window.state = "stopped"  # the app's step() goes on
-                    self._step_cv.notify_all()
+                self._drop_window(window)
             t2 = time.time()
             self.profiler.export(tmp)
             self.warmup_timing = {
@@ -1289,36 +1528,68 @@ class TraceClient:
             shutil.rmtree(tmp, ignore_errors=True)
 
     def _start_parked(self, window: _Window, wait_s: float,
-                      hold: bool = False) -> float | None:
+                      hold: bool = False,
+                      event_wait_s: float | None = None) -> float | None:
         """Makes `window` (a duration window, or the warmup's) the
         client's window and starts the profiler for it on this (the poll)
-        thread, with a lead, once the training thread has parked at its
-        next step() (C17; see _drive_window), waiting at most `wait_s`.
-        The window's timing says whether it was ``parked`` (a start goes
-        ahead without a park in an app that did not step within
-        `wait_s`) and how long it waited for the park (``park_ms``).
-        With `hold` (the warmup) the card is drained first (``drain_ms``)
-        and the training thread stays parked after the start (and parks
-        at its next step() where it was not), until the caller stops the
-        window. Returns the time the start returned, the window in its
-        lead, or None where another window is open or stop() came during
-        the wait. A failed start raises, and leaves no window."""
+        thread, with a lead, once the app is parked (C17, C19): at the
+        training thread's next step() (see _drive_window), waited for at
+        most `wait_s`; where no step() came, at its threads' next Python
+        event (_EventPark, each waited for at most `event_wait_s`, by
+        default EVENT_PARK_WAIT_S). The window's timing says whether it
+        was ``parked``, by which ``park`` ("step" or "event"; None where
+        it was not), how long it waited for the park (``park_ms``), the
+        threads the event park counted as parked while they waited on
+        another thread (``waiting``) and, where a thread was not held,
+        its name (``unparked``). With `hold` (the warmup) the card is
+        drained first (``drain_ms``) and the app stays parked after the start
+        (its training thread parks at its next step() where it was not),
+        until the caller stops the window and releases its park
+        (_release_park). Returns the time the start returned, the window
+        in its lead, or None where another window is open or stop() came
+        during the wait (called before, it starts at once, unparked). A
+        failed start raises, and leaves no window."""
         with self._step_cv:
             if self._window is not None:
                 return None
             window.start_at = self._step_count + 1
             self._window = window
             t_armed = time.time()
-            if wait_s > 0 and not self._stop.is_set():
+            # After stop() (a test that runs the warmup alone) the start
+            # goes ahead at once.
+            waits = not self._stop.is_set()
+            if waits and wait_s > 0:
                 self._step_cv.wait_for(
                     lambda: window.state != "armed" or self._stop.is_set(),
                     timeout=wait_s)
-                if self._stop.is_set():
-                    self._window = None
-                    window.state = "stopped"
-                    self._step_cv.notify_all()
-                    return None
-            window.timing["parked"] = window.state == "opening"
+            if waits and window.state == "armed":
+                window.state = "parking"  # step() leaves it alone now
+        if window.state == "parking" and not self._stop.is_set():
+            # Outside the step lock: a thread inside step() must be able
+            # to leave it and reach its next event.
+            window.park = _EventPark()
+            try:
+                parked = window.park.hold(
+                    EVENT_PARK_WAIT_S if event_wait_s is None
+                    else event_wait_s, self._stop)
+            except BaseException:
+                self._drop_window(window)
+                raise
+            window.timing.update(parked=parked,
+                                 park="event" if parked else None)
+            if not parked:
+                window.timing["unparked"] = window.park.unheld()
+            if window.park.waiting:
+                window.timing["waiting"] = sorted(
+                    window.park.watched[i].name for i in window.park.waiting)
+        else:
+            parked = window.state == "opening"
+            window.timing.update(parked=parked,
+                                 park="step" if parked else None)
+        with self._step_cv:
+            if waits and self._stop.is_set():
+                self._drop_window(window)
+                return None
             t0 = time.time()
             window.timing["park_ms"] = int((t0 - t_armed) * 1000)
             try:
@@ -1329,16 +1600,31 @@ class TraceClient:
                     t0 = time.time()
                 self.profiler.start(window.trace_dir, lead=True)
             except BaseException:
-                self._window = None
-                window.state = "stopped"
-                self._step_cv.notify_all()
+                self._drop_window(window)
                 raise
             if not hold:
                 window.state = "lead"
                 self._step_cv.notify_all()
+                self._release_park(window)
             t1 = time.time()
             window.timing["profiler_start_ms"] = int((t1 - t0) * 1000)
         return t1
+
+    def _drop_window(self, window: _Window) -> None:
+        """Ends `window` (the warmup's after its stop, any other before
+        its start): the app's step() goes on, and its park lets go."""
+        with self._step_cv:
+            self._window = None
+            window.state = "stopped"
+            self._step_cv.notify_all()
+        self._release_park(window)
+
+    def _release_park(self, window: _Window) -> None:
+        """Lets the threads the window's event park holds go on; where
+        one went on before (EVENT_HOLD_MAX_S), the window was not parked
+        throughout."""
+        if window.park is not None and not window.park.release():
+            window.timing.update(parked=False, park=None)
 
     def _park_wait_s(self) -> float:
         """How long a synchronized start allows for the training thread
@@ -1355,10 +1641,13 @@ class TraceClient:
         at its next step(): step_start_timeout_s, as long as an iteration
         window waits for its first step, in an app that has stepped, so
         that a long step (an eval's, a checkpoint's) is waited out; none
-        in an app that never stepped (C17: on an H100 80GB HBM3 at 700 W,
-        a process whose starts went ahead unparked where a wait of two
-        recent steps ran out lost the kernel records of its autograd
-        thread's launches for good after 199 captures)."""
+        in an app that never stepped, whose start parks its threads at
+        their next Python event instead, as one does where this wait ran
+        out (C17: on an H100 80GB HBM3 at 700 W, a process whose starts
+        went ahead unparked where a wait of two recent steps ran out lost
+        the kernel records of its autograd thread's launches for good
+        after 199 captures; C19: one that never stepped lost its training
+        thread's from its 54th capture)."""
         return self.step_start_timeout_s if self._ever_stepped else 0.0
 
     def _poll_loop(self) -> None:
@@ -1660,7 +1949,22 @@ class TraceClient:
             stopped = self._stop.wait(cfg.duration_ms / 1000.0)
         with self._step_cv:
             self._window = None
-        self._stop_profiler(window, "stopped")
+        # An app held at its next Python event for the start is held so
+        # for the stop too (C21): on an H100 80GB HBM3 (700 W), 2 of 14
+        # fresh processes of an app that never steps hung in their first
+        # capture's stop, torch's _disable_profiler against the app's
+        # loss.backward().
+        park = _EventPark() if window.timing.get("park") == "event" else None
+        try:
+            if park is not None:
+                t0 = time.time()
+                window.timing["stop_parked"] = park.hold(
+                    EVENT_PARK_WAIT_S, self._stop)
+                window.timing["stop_park_ms"] = int((time.time() - t0) * 1000)
+            self._stop_profiler(window, "stopped")
+        finally:
+            if park is not None and not park.release():
+                window.timing["stop_parked"] = False
         return ("trace aborted: client stopped" if stopped
                 else window.error), window
 
@@ -1710,7 +2014,8 @@ class TraceClient:
                 self._step_cv.notify_all()
                 return f"profiler start failed: {e}", window
             window.timing["profiler_start_ms"] = int((time.time() - t0) * 1000)
-            window.timing["parked"] = True  # at the lead boundary's step()
+            # At the lead boundary's step().
+            window.timing.update(parked=True, park="step")
             window.started_ms = int(t0 * 1000)
             window._t_start = time.monotonic()
             window.state = "active"

@@ -31,9 +31,10 @@ by ``External id``), not a result shape: torch.profiler records inputs.
 
 ``finish_trace`` is the other half of a capture's save: the shim's finish
 child runs it over the trace kineto wrote (adding the shim's step spans,
-dropping the host ops at host level 0 and an iteration window's lead
-step, and promoting a ring sample to its compact profile), so that no
-parse of a trace runs in the traced process.
+taking the shim's event park out of the Python frames, dropping the
+host ops at host level 0 and a window's lead, and promoting a ring
+sample to its compact profile), so that no parse of a trace runs in the
+traced process.
 
 CLI::
 
@@ -420,6 +421,47 @@ def _trim_lead(events: list, lead_us: float) -> list:
     return kept
 
 
+# The shim's event park (client/shim.py) holds an app thread inside this
+# function, a sys.monitoring callback, while a profiler starts. No profile
+# hook fires inside such a callback, so torch's Python tracer, which
+# records the frames on every thread's stack when it starts, never sees
+# this frame return: it ends it when the frame that called it returns,
+# and each frame below it when that frame's own caller returns.
+PARK_FRAME = "_hold_at_python_event"
+
+
+def _unpark_frames(events: list) -> list:
+    """The events without the event park's frame (PARK_FRAME), each
+    frame it sat on ending where torch's Python tracer ended the frame
+    above it, the park frame's children moved to its caller."""
+    frames = {}
+    for e in events:
+        if e.get("cat") == "python_function" and "args" in e:
+            frames[(e.get("pid"), e.get("tid"),
+                    e["args"].get("Python id"))] = e
+    parks = [e for e in frames.values()
+             if e.get("name", "").endswith(f"): {PARK_FRAME}")]
+    if not parks:
+        return events
+    for park in parks:
+        key = (park.get("pid"), park.get("tid"))
+        chain = [park]
+        while (e := frames.get((*key, chain[-1]["args"].get(
+                "Python parent id")))) is not None:
+            chain.append(e)
+        ends = [float(e["ts"]) + float(e["dur"]) for e in chain]
+        for e, end in zip(chain[1:], ends):
+            e["dur"] = end - float(e["ts"])
+        for child in frames.values():
+            if ((child.get("pid"), child.get("tid")) == key
+                    and child["args"].get("Python parent id")
+                    == park["args"].get("Python id")):
+                child["args"]["Python parent id"] = park["args"].get(
+                    "Python parent id")
+    dropped = {id(e) for e in parks}
+    return [e for e in events if id(e) not in dropped]
+
+
 def unmatched_launches(events: list, base_ns: int,
                        stop_ns: int | None = None) -> list[float]:
     """The epoch times (s) of the kernel launches among a Chrome trace's
@@ -446,7 +488,8 @@ def finish_trace(raw: str, out: str, steps: dict | None = None,
                  top: int = 40) -> dict:
     """Finishes a capture's Chrome trace as kineto saved it at `raw`,
     reading it once, and writes it to `out` (`raw` itself may be `out`):
-    without the host ops (HOST_OP_CATEGORIES) where `drop_host`; without
+    without the event park's frame (_unpark_frames); without the host
+    ops (HOST_OP_CATEGORIES) where `drop_host`; without
     the lead step (see _trim_lead) where the window recorded from one
     step early, `lead_ns` being the epoch ns of its first step; with the
     spans of `steps` ({"times", "tid", "pid"}: see step_events) added,
@@ -464,7 +507,7 @@ def finish_trace(raw: str, out: str, steps: dict | None = None,
                "displayTimeUnit": "ms",
                "baseTimeNanoseconds": steps["times"][0] // 10**9 * 10**9}
     base_ns = doc.get("baseTimeNanoseconds", 0)
-    events = doc["traceEvents"]
+    events = _unpark_frames(doc["traceEvents"])
     if lead_ns is not None:
         events = _trim_lead(events, (lead_ns - base_ns) / 1e3)
     if drop_host:

@@ -66,7 +66,10 @@ whose profiler opens at the window's first step() (start_alone: a
 TorchProfiler without a lead step) or one step() early, the lead step
 trimmed by the finish (lead: the shim as it is); "duration", N 200 ms
 duration windows on the poll thread, the shim's lead before each;
-"mixed", N of each of lead and duration; "poll", chip_smoke.py's phase 17
+"iterations_py0", N windows as "lead" at Python tracer level 0
+(chip_smoke.py phase 15's python_0 capture, whose steps are the
+shortest); "iterations_mix", N of each of lead and lead_py0 in turns
+(phase 15's default capture, then its python_0); "mixed", N of each of lead and duration; "poll", chip_smoke.py's phase 17
 (b) process (the TraceClient started as an application starts one: its
 poll loop, the profiler warmup not waited on, the capture ring, a long
 step every 50 steps) with N duration and N iteration windows in turns
@@ -85,13 +88,21 @@ flash_fwd calls other than 4) as (launches lost, of them in the window's
 first 100 ms, flash_fwd calls, profiler_start_ms, capture index), the
 launches without a kernel record that kineto saved in a duration
 window's lead (trimmed by the finish) with their latest offset from the
-start call, the manifest's profiler_start_ms, and a one-sided Fisher
+start call, the manifest's profiler_start_ms, the lead step's length
+(an iteration window's lead_ms: min, median, max), the captures whose
+kineto save lost any launch's record, lead included, with the offsets
+of those launches from the start's return (losing_captures: capture,
+lead_ms, first three offsets), and a one-sided Fisher
 exact p for "start_alone loses more often than lead". A capture's lost
 launches are counted by the port's rule (trace.unmatched_launches), and
 held against the lost_launches its finish counted (mismatches printed).
 "poll" and "stepless" print chip_smoke.poll_report's line per kind of
 capture (warmup, ring, duration, iterations: lossy ones, parked share,
-profiler_start_ms) and the steps during the warmup. Each process's
+the parks that held them, step or event, and their park_ms: the arm to
+park ms, profiler_start_ms) and the steps during the warmup, the
+captures whose finish's lost_launches differs from the recount, and
+every 100 captures the parked ones so far; every capture's park and
+park_ms are in DIR/shim_starts_PROCESS.jsonl. Each process's
 stderr (kineto's log, with KINETO_LOG_LEVEL=0 its record counts) goes to
 DIR/shim_starts_PROCESS.stderr, and a poll process's captures to
 DIR/shim_starts_PROCESS.jsonl.
@@ -100,12 +111,16 @@ With --warmup-first-step N [ARM ...] [--parallel K] (one card) it starts
 the shim's profiler warmup (TraceClient._warmup, on a side thread as the
 poll loop runs it) in N fresh processes per arm of the dense trainer,
 each before the trainer's first step, K processes at a time: "shim" as
-the shim starts it; "unparked" at once, while the first steps run;
-"parked" waits up to 5 s for the first step() and parks it there while
-the profiler starts; "synced" as parked, with the card drained
-(torch.cuda.synchronize()) inside the park before the start (ROADMAP
-C18). Each process then takes steps until the warmup is over, 8 at
-least. Per process it prints the warmup's timing, the steps and the
+the shim starts it in an app that calls step(); "stepless" in an app
+that never calls step() (ROADMAP C18, C19: held at its next Python
+event); "cuda_init" as stepless, the warmup armed 20 ms into the app
+thread's torch.cuda.init(), before the trainer is built (whether CUDA
+was set up at the arm, and the init's ms, are printed);
+"duration_first" no warmup, the process's first profiler session a 200
+ms duration capture of an app that never calls step(), its manifest's
+timing printed in the warmup's place. Each
+process then takes steps until the warmup is over, 8 at least. Per
+process it prints the warmup's timing, the steps and the
 host times of those taken during the warmup, or the exit code (negative:
 the signal that ended it) and the end of its stderr; then each arm's
 exit codes.
@@ -125,6 +140,7 @@ those that began while the child ran (chip_smoke.finish_steps); and the
 median step.
 """
 
+import functools
 import json
 import math
 import os
@@ -437,6 +453,8 @@ def _fisher_greater(a: int, n_a: int, b: int, n_b: int) -> float:
 # captured through dynologd: the real client with its warmup and ring,
 # and an app that never calls step().
 SHIM_PROCESSES = {"iterations": ("start_alone", "lead"),
+                  "iterations_py0": ("lead_py0",),
+                  "iterations_mix": ("lead", "lead_py0"),
                   "duration": ("duration",),
                   "mixed": ("lead", "duration"),
                   "poll": (), "stepless": ()}
@@ -462,7 +480,9 @@ def poll_process(n: int, stepless: bool, stderr_dir: str | None) -> int:
             print(json.dumps({"case": "shim_starts", "process": name,
                               "progress": i + 1,
                               "lossy": sum(cs.lossy(c, evals=True)
-                                           for c in captures)}),
+                                           for c in captures),
+                              "parked": sum(c["timing"]["parked"] is True
+                                            for c in captures)}),
                   flush=True)
 
     try:
@@ -490,6 +510,7 @@ def poll_process(n: int, stepless: bool, stderr_dir: str | None) -> int:
         "during_warmup": got["during_warmup"],
         "median_step_ms": got["median_step_ms"],
         "ring_samples": len(got["ring"]), "steps": got["steps"],
+        "recount_mismatches": cs.recount_mismatches(got["captures"]),
         "last_error": got["last_error"]}), flush=True)
     return 0
 
@@ -522,10 +543,11 @@ def _window_losses(path: str, raw: str, arm: str, window, t_call: float,
     device record in its finished trace made before its profiler stop
     began at `stop_ns` (trace.unmatched_launches, the rule the shim's
     finish counts lost_launches by), those of them in the window's first
-    100 ms, its flash_fwd kernels and all its kernels, and the offsets (ms
+    100 ms, its flash_fwd kernels and all its kernels, the offsets (ms
     from the start call) of the launches without a device record that
-    kineto saved before the window opened (in its lead, trimmed by the
-    finish)."""
+    kineto saved before a duration window opened (in its lead, trimmed by
+    the finish), and the offsets (ms from the start's return) of every
+    launch without a device record that kineto saved before the stop."""
     from dynolog_tpu_torch.trace import unmatched_launches
 
     with open(path) as f:
@@ -534,15 +556,17 @@ def _window_losses(path: str, raw: str, arm: str, window, t_call: float,
     lost = unmatched_launches(events, doc["baseTimeNanoseconds"], stop_ns)
     opened = window.started_ms / 1e3
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    in_lead = []
-    if arm == "duration":
-        with open(raw) as f:
-            doc = json.load(f)
-        in_lead = [round((t - t_call) * 1e3, 1) for t in unmatched_launches(
-            doc["traceEvents"], doc["baseTimeNanoseconds"]) if t < opened]
+    with open(raw) as f:
+        doc = json.load(f)
+    saved = unmatched_launches(doc["traceEvents"], doc["baseTimeNanoseconds"],
+                               stop_ns)
+    in_lead = [round((t - t_call) * 1e3, 1) for t in saved
+               if t < opened] if arm == "duration" else []
+    returned = opened + window.timing["profiler_start_ms"] / 1e3
     return (len(lost), sum(t < opened + 0.1 for t in lost),
             sum("flash_fwd_kernel" in e.get("name", "") for e in kernels),
-            len(kernels), in_lead)
+            len(kernels), in_lead,
+            [round((t - returned) * 1e3, 1) for t in saved])
 
 
 def shim_starts_child(n: int, arms: tuple) -> int:
@@ -571,12 +595,18 @@ def shim_starts_child(n: int, arms: tuple) -> int:
     class NoLead(KeepRaw):
         lead_step = False
 
+    def py0(prof):
+        prof.configure({"PROFILE_PYTHON_TRACER_LEVEL": "0"})
+        return prof
+
     _build.build_all()
     trainer = cs.Trainer(cs.dense_config())
     clients = {
         "start_alone": TraceClient(job_id=1, endpoint="unused",
                                    profiler=NoLead()),
         "lead": TraceClient(job_id=1, endpoint="unused", profiler=KeepRaw()),
+        "lead_py0": TraceClient(job_id=1, endpoint="unused",
+                                profiler=py0(KeepRaw())),
         "duration": TraceClient(job_id=1, endpoint="unused",
                                 profiler=KeepRaw())}
     rows = {arm: [] for arm in arms}
@@ -607,13 +637,14 @@ def shim_starts_child(n: int, arms: tuple) -> int:
                 else client.profiler.last_finish)
         if "write_error" in done:
             raise RuntimeError(f"{arm} capture {i}: {done}")
-        lost, first, fwd, kernels, in_lead = _window_losses(
+        lost, first, fwd, kernels, in_lead, saved = _window_losses(
             path, raw, arm, window, t_call, client.profiler._stop_ns)
         if lost != done["lost_launches"]:
             mismatches.append((i, lost, done["lost_launches"]))
         os.unlink(path)
         rows[arm].append((lost, first, fwd,
-                          window.timing["profiler_start_ms"], i, in_lead))
+                          window.timing["profiler_start_ms"], i, in_lead,
+                          window.timing.get("lead_ms"), saved))
         blank = blank + 1 if not kernels else 0
         lossy_run = lossy_run + 1 if lost or (
             arm != "duration" and fwd != 4) else 0
@@ -636,6 +667,8 @@ def shim_starts_child(n: int, arms: tuple) -> int:
         lossy[arm] = [r[:5] for r in got
                       if r[0] or (arm != "duration" and r[2] != 4)]
         leads = [r[5] for r in got if r[5]]
+        lead_ms = sorted(r[6] for r in got if r[6] is not None)
+        saved = [x for r in got for x in r[7]]
         print(json.dumps({
             "case": "shim_starts", "arm": arm, "captures": len(got),
             "lossy": lossy[arm],
@@ -646,7 +679,14 @@ def shim_starts_child(n: int, arms: tuple) -> int:
                                        default=None),
             "start_ms_median": starts_ms[len(starts_ms) // 2],
             "starts_of_20_ms_or_more": sum(x >= 20 for x in starts_ms),
-            "start_ms_max": starts_ms[-1]}), flush=True)
+            "start_ms_max": starts_ms[-1],
+            "lead_ms": lead_ms and [lead_ms[0], lead_ms[len(lead_ms) // 2],
+                                    lead_ms[-1]],
+            "captures_losing_any_launch": sum(bool(r[7]) for r in got),
+            "lost_after_start_return_ms": saved and [min(saved), max(saved)],
+            "losing_captures": [(r[4], r[6], r[7][:3]) for r in got
+                                if r[7]][:40]}),
+            flush=True)
     print(json.dumps({"case": "shim_starts",
                       "lost_launches_mismatches": mismatches}), flush=True)
     if {"start_alone", "lead"} <= set(lossy):
@@ -753,45 +793,57 @@ def ring_child(n: int, warmup: bool, python: bool) -> int:
 
 
 # The arms of --warmup-first-step (ROADMAP C18): the warmup as the shim
-# runs it ("shim"); started at once while the app takes its first steps
-# ("unparked"); parked at the app's first step() ("parked", waiting up to
-# WARMUP_FORCED_WAIT_S for it); and parked there with the card drained
-# (torch.cuda.synchronize()) inside the park before the start ("synced").
-WARMUP_ARMS = ("shim", "unparked", "parked", "synced")
-WARMUP_FORCED_WAIT_S = 5.0
+# runs it in an app that calls step() ("shim") and in one that never does
+# ("stepless", ROADMAP C19); as "stepless", with CUDA set up only after
+# the warmup began, which arms CUDA_INIT_LEAD_S into the app thread's
+# torch.cuda.init() ("cuda_init"); and, with no warmup, a first profiler
+# session that is a 200 ms duration capture of an app that never calls
+# step() ("duration_first").
+WARMUP_ARMS = ("shim", "stepless", "cuda_init", "duration_first")
+CUDA_INIT_LEAD_S = 0.02
 
 
 def warmup_first_step_child(arm: str) -> int:
     cs = _smoke()
-    from dynolog_tpu_torch.client.shim import TraceClient
+    from dynolog_tpu_torch.client.shim import TraceClient, TraceConfig
 
-    trainer = cs.Trainer(cs.dense_config())
     client = TraceClient(job_id=1, endpoint="unused", report_interval_s=0)
-    if arm != "shim":
-        wait = 0.0 if arm == "unparked" else WARMUP_FORCED_WAIT_S
-        start_parked = client._start_parked
-        client._start_parked = lambda window, _wait, *a, **kw: (
-            start_parked(window, wait, *a, **kw))
-    if arm == "synced":
-        start = client.profiler.start
+    target, armed = client._warmup, {}
+    if arm == "duration_first":
+        tmp = tempfile.mkdtemp(prefix="dynotpu_first_")
+        target = functools.partial(client._run_trace, TraceConfig.parse(
+            f"ACTIVITIES_LOG_FILE={tmp}/first.json\n"
+            "ACTIVITIES_DURATION_MSECS=200\nTRACE_JSON=0"))
+    if arm == "cuda_init":
+        def late_warmup():
+            time.sleep(CUDA_INIT_LEAD_S)
+            armed["cuda_ready_at_arm"] = torch.cuda.is_initialized()
+            client._warmup()
 
-        def drained_start(*a, **kw):
-            torch.cuda.synchronize()
-            start(*a, **kw)
-
-        client.profiler.start = drained_start
-    warmup = threading.Thread(target=client._warmup)
-    warmup.start()
+        warmup = threading.Thread(target=late_warmup)
+        warmup.start()
+        t0 = time.time()
+        torch.cuda.init()
+        armed["cuda_init_ms"] = round((time.time() - t0) * 1e3, 1)
+        trainer = cs.Trainer(cs.dense_config())
+    else:
+        trainer = cs.Trainer(cs.dense_config())
+        warmup = threading.Thread(target=target)
+        warmup.start()
     spans = []
     while warmup.is_alive() or len(spans) < 8:
         b = time.time() * 1e3
         trainer.step()
-        client.step()
+        if arm == "shim":
+            client.step()
         spans.append((b, time.time() * 1e3, warmup.is_alive()))
     warmup.join()
     torch.cuda.synchronize()
+    if arm == "duration_first":
+        client.warmup_timing = (client.last_manifest or {}).get("timing")
+        shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"case": "warmup_first_step", "arm": arm,
-                      "warmup_timing": client.warmup_timing,
+                      "warmup_timing": client.warmup_timing, **armed,
                       "steps": len(spans),
                       "steps_during_warmup_ms": [
                           round(e - b, 1) for b, e, alive in spans if alive],

@@ -415,6 +415,8 @@ def test_relay_failpoints_agree(site, spec):
     for pkg, (S, fp) in PACKAGES.items():
         child = _leaf_rollup(S, ["a1"], "p0", 2.0)
         fp.disarm_all()
+        # Hit counts live as long as the process: count this run's alone.
+        before = fp.hits(site)
         fp.arm(site, spec)
         try:
             view = S.FleetView(now_ms=lambda: 1_000_000)
@@ -423,7 +425,7 @@ def test_relay_failpoints_agree(site, spec):
                  "wal_seq": seq})) for seq in (1, 1, 2)]
             exports = [view.export_rollup(), view.export_rollup()]
             out[pkg] = (got, exports, view.query(detail=True),
-                        fp.hits(site))
+                        fp.hits(site) - before)
         finally:
             fp.disarm_all()
     assert out["torch"] == out["jax"]

@@ -291,13 +291,15 @@ class KeepingProfiler(TorchProfiler):
 
 
 def _trim_kept(path: str, opened_ns) -> None:
-    """Trims a kept kineto save to its window as the finish does, so that
-    the rewrite before the finish child, which knew no lead, can be held
-    to the finished trace."""
+    """Trims a kept kineto save to its window as the finish does (after
+    taking out the event park's frame, where the app was held at a
+    Python event), so that the rewrite before the finish child, which
+    knew no lead, can be held to the finished trace."""
     with open(path) as f:
         doc = json.load(f)
     doc["traceEvents"] = trace._trim_lead(
-        doc["traceEvents"], (opened_ns - doc["baseTimeNanoseconds"]) / 1e3)
+        trace._unpark_frames(doc["traceEvents"]),
+        (opened_ns - doc["baseTimeNanoseconds"]) / 1e3)
     with open(path, "w") as f:
         json.dump(doc, f)
 
@@ -373,6 +375,31 @@ def test_iteration_window_trims_its_lead_step(tmp_path):
                    "user_annotation" and e["name"].startswith("ProfilerStep"))
     assert spans == [f"{trace.STEP_PREFIX}{n}" for n in range(4)]
     assert trace.summarize(manifest["trace_file"])["steps"]["count"] == 3
+
+
+def test_iteration_window_records_its_lead(tmp_path):
+    """An iteration window's manifest says how long its lead step was,
+    from its profiler's start returning to the step() that opens the
+    window (lead_ms): a start loses the records of launches made just
+    after it (C15), and the lead is what keeps them out of the window."""
+    seen = {}
+
+    class Seen(TorchProfiler):
+        def start(self, trace_dir, lead=False):
+            super().start(trace_dir, lead)
+            seen["returned"] = time.monotonic()
+
+        def step(self):
+            seen.setdefault("first", time.monotonic())
+            super().step()
+
+    client = _serve(tmp_path, f"ACTIVITIES_LOG_FILE={tmp_path}/h.json\n"
+                    "ACTIVITIES_ITERATIONS=2", profiler=Seen())
+    manifest = client.last_manifest
+    assert manifest["status"] == "ok", manifest
+    assert 0 <= manifest["timing"]["lead_ms"] <= (
+        seen["first"] - seen["returned"]) * 1000
+    assert trace.summarize(manifest["trace_file"])["steps"]["count"] == 2
 
 
 def _jax_start_at(base: int, roundup: int) -> int:

@@ -1,6 +1,6 @@
 """Which thread opens each of the port shim's captures, with which profiler
 configuration, and the lead a duration window records before its window
-(dynolog_tpu_torch.client.shim, ROADMAP C15 and C17).
+(dynolog_tpu_torch.client.shim, ROADMAP C15, C17 and C19).
 
 Every capture a process takes — the warmup, duration windows, ring
 samples, iteration windows — starts torch.profiler with
@@ -11,17 +11,25 @@ duration windows came between them. An iteration window opens one step
 early, while the training thread is parked at that step(), and closes
 while it is parked at the window's last step(). A duration window's and
 the warmup's profiler start once the training thread has parked at its
-next step() (at once before the app's first step()), and a start that
-goes ahead without a park says so in its timing. A duration
+next step(), or, in an app that has not stepped (or whose next step()
+did not come in time), once every app thread is held at its next Python
+event (the event park, a sys.monitoring hook on for the park only, C19),
+and a start that goes ahead without a park says so in its timing. A
+duration
 window opens its window DURATION_LEAD_S after its profiler's start
 returned, and a synchronized start starts the profiler early enough for
 the window to open at the start time; the finish trims the lead. Held
 against the JAX client's duration windows where it has one."""
 
+import _thread
 import json
 import os
+import queue
+import socket
+import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 import torch
@@ -34,20 +42,39 @@ from dynolog_tpu_torch.client.shim import (
     RingConfig, TorchProfiler, TraceClient, TraceConfig)
 
 
+# The event park's rule of which threads it watches, as the shim has it.
+_APP_THREADS = shim._app_threads
+
+
+@pytest.fixture(autouse=True)
+def _parks_watch_this_tests_threads(monkeypatch):
+    """An event park watches every app thread of the process. Threads
+    that earlier tests in this worker process left running (a server's
+    accept loop, an idle pool's worker) are not this test's app, and
+    each would hold every start the park's bound: the parks of this
+    test watch the others."""
+    left = {t.ident for t in threading.enumerate()
+            if t is not threading.main_thread()}
+    monkeypatch.setattr(shim, "_app_threads", lambda: {
+        ident: t for ident, t in _APP_THREADS().items()
+        if ident not in left})
+
+
 class _ConfigsIpc:
     """IpcClient double: a live daemon that hands the poll loop one of
-    `texts` per request after start()'s own."""
+    `texts` per request after start()'s own, once `ready()`."""
 
-    def __init__(self, texts: list):
+    def __init__(self, texts: list, ready=lambda: True):
         self.texts = list(texts)
         self.requests = 0
+        self.ready = ready
 
     def register_context(self, *a, **kw):
         return 0
 
     def request_config(self, *a, **kw):
         self.requests += 1
-        if self.requests < 2 or not self.texts:
+        if self.requests < 2 or not self.texts or not self.ready():
             return ""
         return self.texts.pop(0)
 
@@ -136,10 +163,14 @@ def test_every_session_records_all_threads_on_its_chosen_thread(
         ring=RingConfig(every_n_steps=5, keep=2, window_ms=30,
                         dir=str(tmp_path / "ring"), model="m",
                         min_interval_s=0.0))
+    # The captures come once the app has stepped: one that came before
+    # would park the app at its next Python event, as in an app that
+    # never steps.
     client._client = _ConfigsIpc([
         f"ACTIVITIES_LOG_FILE={tmp_path}/d.json\n"
         "ACTIVITIES_DURATION_MSECS=50",
-        f"ACTIVITIES_LOG_FILE={tmp_path}/i.json\nACTIVITIES_ITERATIONS=2"])
+        f"ACTIVITIES_LOG_FILE={tmp_path}/i.json\nACTIVITIES_ITERATIONS=2"],
+        ready=lambda: client._ever_stepped)
     sessions.probe = lambda: client._window and client._window.state
     a = torch.randn(32, 32)
     me = threading.get_native_id()
@@ -173,13 +204,20 @@ def test_every_session_records_all_threads_on_its_chosen_thread(
         assert "schedule" not in row["kwargs"], row
         assert row["start"] == row["stop"], row
     assert {row["start"] for row in sessions.rows} == {poll} != {me}
-    # The warmup too waits for the app's first step() and starts there.
-    assert all(row["at_start"] == "opening" for row in sessions.rows), (
+    # The warmup of an app that has not stepped yet holds its threads at
+    # their next Python event ("parking"; at its next step() where it
+    # stepped first); every capture after it parks at a step().
+    warmup, *captures = sessions.rows
+    assert warmup["at_start"] == warmup["at_stop"] == {
+        "event": "parking", "step": "opening"}[
+            client.warmup_timing["park"]], sessions.rows
+    assert all(row["at_start"] == "opening" for row in captures), (
         sessions.rows)
     assert [row["at_stop"] for row in sessions.rows].count("closing") == 1
     assert client.warmup_timing["parked"] is True
     for m in manifests:
-        assert json.loads(m.read_text())["timing"]["parked"] is True
+        timing = json.loads(m.read_text())["timing"]
+        assert timing["parked"] is True and timing["park"] == "step"
 
 
 def _busy_until(stop: threading.Event, work) -> None:
@@ -454,40 +492,75 @@ def test_stop_during_the_park_wait_starts_nothing(tmp_path):
     assert client._window is None
 
 
+class _Gate:
+    """A lock a thread blocks on in C by a bare acquire (wait()), not at
+    a wait site the event park knows, until set()."""
+
+    def __init__(self):
+        self._lock = _thread.allocate_lock()
+        self._lock.acquire()
+        self._set = False
+
+    def wait(self):
+        self._lock.acquire()
+        self._lock.release()  # on to the next waiter
+
+    def set(self):
+        if not self._set:
+            self._set = True
+            self._lock.release()
+
+
+def _blocked_in_c(name: str = "blocked_in_c"):
+    """An app thread that stays in C (a bare lock acquire) until its gate
+    is set: it reaches no Python event, so no event park holds it."""
+    release = _Gate()
+    app = threading.Thread(target=release.wait, name=name)
+    app.start()
+    return release, app
+
+
 @pytest.mark.parametrize("case", ["warmup_before_any_step",
                                   "duration_after_a_pause"])
 def test_start_without_a_park_says_so(case, monkeypatch):
-    """A start that goes ahead without the training thread parked — the
-    warmup of an app that did not step within WARMUP_PARK_WAIT_S, a
-    duration capture of an app that stepped, then did not step within
-    step_start_timeout_s — records parked false in its timing."""
+    """A start that goes ahead without the app parked — the warmup of an
+    app that has not stepped, a duration capture of an app that stepped,
+    then did not step within step_start_timeout_s — where an app thread
+    stays in C past the event park's bound records parked false, no
+    park, and that thread's name as unparked in its timing."""
     client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
                          profiler=shim.RecordingProfiler(),
                          report_interval_s=0, step_start_timeout_s=0.3)
     monkeypatch.setattr(shim, "WARMUP_PARK_WAIT_S", 0.2)
+    monkeypatch.setattr(shim, "EVENT_PARK_WAIT_S", 0.2)
+    release, app = _blocked_in_c()
     try:
         if case == "warmup_before_any_step":
             t0 = time.time()
             client._warmup()
             assert time.time() - t0 >= 0.2
-            assert client.warmup_timing["parked"] is False
+            timing = client.warmup_timing
         else:
             client.step()
             client.step()  # then no step for longer than the wait
             error, window = client._capture_window(
                 TraceConfig(duration_ms=20), "unused")
             assert error is None
-            assert window.timing["parked"] is False
+            timing = window.timing
+        assert timing["parked"] is False and timing["park"] is None
+        assert timing["unparked"] == ["blocked_in_c"]
     finally:
+        release.set()
+        app.join(timeout=30)
         client.stop()
 
 
 def test_warmup_parks_at_the_apps_first_step():
-    """The warmup waits for the app's first step(), drains the card and
-    starts its profiler with the app parked there, and stops it before
-    the app goes on (C18), then saves it, once: the calls the JAX
-    client's warmup makes (one start and one stop before its first
-    poll), which starts at once."""
+    """The warmup of an app that has stepped waits for its first step()
+    after the warmup armed, drains the card and starts its profiler with
+    the app parked there, and stops it before the app goes on (C18),
+    then saves it, once: the calls the JAX client's warmup makes (one
+    start and one stop before its first poll), which starts at once."""
     jax_client = jax_shim.TraceClient(
         job_id=7, endpoint="dynotpu_threads_nodaemon",
         profiler=jax_shim.RecordingProfiler(), warmup_profiler=True,
@@ -511,6 +584,7 @@ def test_warmup_parks_at_the_apps_first_step():
     client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
                          profiler=Seen(), warmup_profiler=True,
                          report_interval_s=0, device=3)
+    client.step()  # the app has stepped before the warmup
     poll = threading.Thread(target=client._warmup)
     poll.start()
     time.sleep(0.3)
@@ -521,8 +595,9 @@ def test_warmup_parks_at_the_apps_first_step():
         time.sleep(0.005)
     poll.join(timeout=30)
     assert not poll.is_alive()
-    assert seen == [("opening", 1), ("opening", 1)]
+    assert seen == [("opening", 2), ("opening", 2)]
     assert client.warmup_timing["parked"] is True
+    assert client.warmup_timing["park"] == "step"
     assert client.warmup_timing["lost_launches"] == 0
     assert [c[0] for c in jax_client.profiler.calls] == ["start", "stop"]
     assert [c[0] for c in client.profiler.calls] == [
@@ -531,22 +606,107 @@ def test_warmup_parks_at_the_apps_first_step():
     assert client._window is None
 
 
-def test_stop_during_the_warmups_park_wait_starts_nothing():
-    """stop() while the warmup waits for the app's first step(): no
-    profiler starts, warmup_done is set, and no window is left."""
+def test_warmup_holds_an_app_that_has_not_stepped():
+    """The warmup of an app that has not stepped yet holds its thread at
+    its next Python event, before its first step(), without waiting for
+    one; drains the card, starts its profiler and stops it with that
+    thread held throughout (C18, C19), then saves it, once: the calls
+    the JAX client's warmup makes (one start and one stop before its
+    first poll), which starts at once."""
+    jax_client = jax_shim.TraceClient(
+        job_id=7, endpoint="dynotpu_threads_nodaemon",
+        profiler=jax_shim.RecordingProfiler(), warmup_profiler=True,
+        report_interval_s=0)
+    jax_client._stop.set()
+    jax_client._poll_loop()  # the warmup, then no poll
+    seen, spins = [], [0]
+
+    class Seen(shim.RecordingProfiler):
+        def drain(self, device):
+            self.calls.append(("drain", device))
+
+        def start(self, trace_dir, lead=False):
+            seen.append((client._window.state, client._step_count, spins[0]))
+            super().start(trace_dir, lead)
+
+        def stop(self):
+            seen.append((client._window.state, client._step_count, spins[0]))
+            super().stop()
+
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=Seen(), warmup_profiler=True,
+                         report_interval_s=0, device=3)
+    go, done = threading.Event(), threading.Event()
+
+    def app():
+        while not go.is_set():  # the app, not stepping yet
+            spins[0] += 1
+            time.sleep(0.001)
+        while not done.is_set():
+            client.step()
+            time.sleep(0.001)
+
+    thread = threading.Thread(target=app)
+    thread.start()
+    try:
+        t0 = time.time()
+        client._warmup()  # on this thread, the poll thread's role
+        took = time.time() - t0
+        go.set()
+    finally:
+        go.set()
+        done.set()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    assert took < shim.WARMUP_PARK_WAIT_S
+    assert seen[0] == seen[1] and seen[0][:2] == ("parking", 0), seen
+    assert client.warmup_timing["parked"] is True
+    assert client.warmup_timing["park"] == "event"
+    assert client.warmup_timing["lost_launches"] == 0
+    assert [c[0] for c in jax_client.profiler.calls] == ["start", "stop"]
+    assert [c[0] for c in client.profiler.calls] == [
+        "drain", "start", "stop", "export"]
+    assert client.profiler.calls[0] == ("drain", 3)
+    assert client._window is None
+
+
+def test_stop_during_the_warmups_park_wait_starts_nothing(monkeypatch):
+    """stop() while the warmup waits for the app's threads to park (one
+    stays in C): no profiler starts, warmup_done is set, no window is
+    left, and the threads it held go on. stop() comes from a thread the
+    park does not watch (one the threading module did not start)."""
+    monkeypatch.setattr(shim, "WARMUP_PARK_WAIT_S", 600.0)
+    release, blocked = _blocked_in_c()
     client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
                          profiler=shim.RecordingProfiler(),
                          warmup_profiler=True, report_interval_s=0)
     client._client = _ConfigsIpc([])
+    seen, stopped = [], _thread.allocate_lock()
+    stopped.acquire()
+
+    def operator():
+        deadline = time.time() + 30
+        while time.time() < deadline and not (
+                client._window is not None
+                and client._window.state == "parking"):
+            time.sleep(0.005)
+        seen.append(client._window and client._window.state)
+        client.stop()
+        stopped.release()
+
     poll = threading.Thread(target=client._poll_loop)
     poll.start()
-    deadline = time.time() + 30
-    while client._window is None and time.time() < deadline:
-        time.sleep(0.005)
-    assert client._window.state == "armed"
-    client.stop()
-    poll.join(timeout=30)
+    _thread.start_new_thread(operator, ())
+    try:
+        # This thread is held at its next event until stop() ends the
+        # park's wait.
+        assert stopped.acquire(timeout=60)
+        poll.join(timeout=30)
+    finally:
+        release.set()
+        blocked.join(timeout=30)
     assert not poll.is_alive()
+    assert seen == ["parking"]
     assert client.profiler.calls == []
     assert client.warmup_done.is_set() and client.warmup_timing == {}
     assert client._window is None
@@ -558,7 +718,8 @@ def test_poll_loop_captures_count_their_lost_launches(tmp_path):
     warmup_done — with duration and iteration captures arriving through
     the daemon: every manifest is ok with lost_launches 0 (no card, no
     launch) and parked true, every ring sample's timing has
-    lost_launches 0, and the warmup parked at the app's first step()."""
+    lost_launches 0, and the warmup parked (at the app's next Python
+    event, or its first step())."""
     pid = os.getpid()
     texts, manifests = [], []
     for i in range(4):
@@ -636,3 +797,661 @@ def test_duration_start_waits_out_a_long_step():
     assert window.timing["parked"] is True
     assert window.timing["park_ms"] >= 450
     client.stop()
+
+
+# ---------------------------------------------------------------- C19
+
+
+class _Counted(shim.RecordingProfiler):
+    """RecordingProfiler that reads an app thread's loop counter when its
+    start and stop begin and when they return (``seen``: (call, before,
+    after))."""
+
+    def __init__(self, counter: list):
+        super().__init__()
+        self.counter = counter
+        self.seen: list[tuple] = []
+
+    def start(self, trace_dir, lead=False):
+        before = self.counter[0]
+        time.sleep(0.02)  # a start that takes a while
+        super().start(trace_dir, lead)
+        self.seen.append(("start", before, self.counter[0]))
+
+    def stop(self):
+        before = self.counter[0]
+        time.sleep(0.02)
+        super().stop()
+        self.seen.append(("stop", before, self.counter[0]))
+
+
+def _spinning(stop: threading.Event, counter: list, work=None) -> None:
+    """An app thread that never calls step(): counts its loops (and runs
+    `work` in each) until `stop`."""
+    while not stop.is_set():
+        if work is not None:
+            work()
+        counter[0] += 1
+        time.sleep(0.0005)
+
+
+def _tools_clean() -> bool:
+    return all(sys.monitoring.get_tool(t) is None
+               and sys.monitoring.get_events(t) == 0
+               for t in shim.EVENT_PARK_TOOL_IDS)
+
+
+@pytest.mark.parametrize("kind", ["warmup", "duration", "ring"])
+def test_stepless_app_is_held_at_every_start(kind, tmp_path):
+    """An app thread that never calls step() is held at its next Python
+    event from before each profiler start to after it returned (the
+    warmup's: to after its stop), and over each stop (C21): its loop
+    counter does not move over them, while it runs between captures. The
+    timing (the warmup's, the manifest's, the ring's last_timing) says
+    parked, by the event park, and stop_parked."""
+    counter, stop = [0], threading.Event()
+    client = TraceClient(
+        job_id=7, endpoint="dynotpu_threads_nodaemon",
+        profiler=_Counted(counter), report_interval_s=0,
+        ring=RingConfig(every_n_steps=5, keep=2, window_ms=30,
+                        dir=str(tmp_path / "ring"), model="m",
+                        min_interval_s=0.0))
+    app = threading.Thread(target=_spinning, args=(stop, counter))
+    app.start()
+    timings = []
+    try:
+        for i in range(3):
+            moved, deadline = counter[0], time.time() + 30
+            while counter[0] == moved and time.time() < deadline:
+                time.sleep(0.005)
+            assert counter[0] > moved  # it runs between captures
+            if kind == "warmup":
+                client._warmup()
+                timings.append(client.warmup_timing)
+            elif kind == "duration":
+                client._run_trace(TraceConfig.parse(
+                    f"ACTIVITIES_LOG_FILE={tmp_path}/d{i}.json\n"
+                    "ACTIVITIES_DURATION_MSECS=30"))
+                assert client.last_manifest["status"] == "ok"
+                timings.append(client.last_manifest["timing"])
+            else:
+                assert client.ring.capture(client._ring_sample), (
+                    client.ring.last_error)
+                timings.append(client.ring.last_timing)
+            assert _tools_clean()
+    finally:
+        stop.set()
+        app.join(timeout=30)
+        client.stop()
+    starts = [s for s in client.profiler.seen if s[0] == "start"]
+    assert len(starts) == 3
+    assert all(before == after for _, before, after in starts), starts
+    seen = client.profiler.seen
+    assert [c for c, _, _ in seen] == ["start", "stop"] * 3
+    if kind == "warmup":
+        # Held from before the start to after the stop.
+        assert all(seen[k][1] == seen[k + 1][2] for k in (0, 2, 4)), seen
+    else:
+        # Held over each stop too (C21).
+        assert all(before == after for _, before, after in seen), seen
+    for timing in timings:
+        assert timing["parked"] is True and timing["park"] == "event", (
+            timing)
+        assert "unparked" not in timing and timing["park_ms"] >= 0
+        if kind != "warmup":
+            assert timing["stop_parked"] is True, timing
+            assert timing["stop_park_ms"] >= 0
+
+
+@pytest.mark.parametrize("blocker", ["lock_acquire", "join", "sleep",
+                                     "accept"])
+def test_thread_in_c_does_not_hold_a_start_past_its_bound(blocker,
+                                                          monkeypatch):
+    """A thread that stays in C, other than at a wait site the park
+    knows, reaches no Python event: the start waits for it
+    EVENT_PARK_WAIT_S, no longer, holds the threads that did reach one,
+    and goes ahead with parked false and that thread named."""
+    monkeypatch.setattr(shim, "EVENT_PARK_WAIT_S", 1.0)
+    release = _Gate()
+    listener = socket.socket()
+    listener.bind(("127.0.0.1", 0))
+    listener.listen(1)
+    joined = threading.Thread(target=release.wait, name="joined")
+    joined.start()
+
+    def blocked():
+        if blocker == "lock_acquire":
+            release.wait()
+        elif blocker == "join":
+            joined.join()
+        elif blocker == "sleep":
+            time.sleep(4.0)
+        else:
+            listener.accept()[0].close()
+
+    counter, stop = [0], threading.Event()
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=_Counted(counter), report_interval_s=0)
+    app = threading.Thread(target=_spinning, args=(stop, counter))
+    in_c = threading.Thread(target=blocked, name="in_c")
+    in_c.start()
+    time.sleep(0.5)  # the thread is in C
+    app.start()
+    try:
+        t0 = time.time()
+        error, window = client._capture_window(
+            TraceConfig(duration_ms=20), "unused")
+        took = time.time() - t0
+    finally:
+        release.set()
+        stop.set()
+        if blocker == "accept":
+            socket.create_connection(listener.getsockname()).close()
+        for t in (in_c, app, joined):
+            t.join(timeout=30)
+        listener.close()
+        client.stop()
+    assert error is None
+    assert window.timing["parked"] is False and window.timing["park"] is None
+    # The threads in C were not held (this one arms the park); the
+    # spinning app thread was.
+    assert sorted(window.timing["unparked"]) == ["in_c", "joined"]
+    assert 1.0 <= window.timing["park_ms"] / 1000 < 2.5
+    assert took < 3.5
+    (_, before, after), = [s for s in client.profiler.seen
+                           if s[0] == "start"]
+    assert before == after
+    assert _tools_clean()
+
+
+class _Waking(_Counted):
+    """_Counted whose start first wakes a waiting app thread (`wake`),
+    gives it time to run, and keeps its count of wakes (`woke_in_start`)."""
+
+    def __init__(self, counter: list, woke: list, wake):
+        super().__init__(counter)
+        self.woke, self.wake = woke, wake
+        self.woke_in_start = None
+
+    def start(self, trace_dir, lead=False):
+        self.wake()
+        time.sleep(0.1)
+        self.woke_in_start = self.woke[0]
+        super().start(trace_dir, lead)
+
+
+@pytest.mark.parametrize("waiter", ["event_wait", "queue_get",
+                                    "idle_pool_worker"])
+def test_thread_waiting_on_another_is_parked_at_once(waiter, monkeypatch):
+    """A thread waiting on another (Event.wait(), Queue.get(), an idle
+    ThreadPoolExecutor's worker) cannot reach the card before its next
+    Python event: the start counts it as parked, with no wait for it, and
+    names it ``waiting``; the start wakes it, and it is held where it
+    wakes until the start has returned."""
+    monkeypatch.setattr(shim, "EVENT_PARK_WAIT_S", 5.0)
+    counter, woke, stop = [0], [0], threading.Event()
+
+    def count():
+        woke[0] += 1
+
+    pool, thread = None, None
+    if waiter == "idle_pool_worker":
+        pool = ThreadPoolExecutor(1, thread_name_prefix="waiter")
+        pool.submit(int).result()  # its worker is up, then idle
+
+        def wake():
+            pool.submit(count)
+    else:
+        event, items = threading.Event(), queue.Queue()
+
+        def wait():
+            event.wait() if waiter == "event_wait" else items.get()
+            count()
+
+        thread = threading.Thread(target=wait, name="waiter")
+        thread.start()
+
+        def wake():
+            event.set() if waiter == "event_wait" else items.put(None)
+
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=_Waking(counter, woke, wake),
+                         report_interval_s=0)
+    app = threading.Thread(target=_spinning, args=(stop, counter))
+    app.start()
+    time.sleep(0.3)  # the waiter is in its wait
+    try:
+        t0 = time.time()
+        error, window = client._capture_window(
+            TraceConfig(duration_ms=20), "unused")
+        took = time.time() - t0
+        deadline = time.time() + 30
+        while not woke[0] and time.time() < deadline:
+            time.sleep(0.005)
+    finally:
+        stop.set()
+        app.join(timeout=30)
+        if thread is not None:
+            wake()
+            thread.join(timeout=30)
+        if pool is not None:
+            pool.shutdown(wait=True)
+        client.stop()
+    assert error is None
+    assert window.timing["parked"] is True
+    assert window.timing["park"] == "event"
+    assert window.timing["waiting"] == [
+        "waiter_0" if pool is not None else "waiter"], window.timing
+    assert window.timing["park_ms"] < 1000 and took < 3.0
+    # Woken in the start, it ran only after the start returned.
+    assert client.profiler.woke_in_start == 0 and woke[0] == 1
+    (_, before, after), = [s for s in client.profiler.seen
+                           if s[0] == "start"]
+    assert before == after
+    assert _tools_clean()
+
+
+def test_warmup_parks_an_app_waiting_for_it():
+    """The README's usage: the app's thread waits for warmup_done after
+    start(). Waiting in Event.wait(), it counts as parked: the warmup
+    starts with no wait for it (WARMUP_PARK_WAIT_S is 10 s) and says
+    parked by the event park, that thread waiting."""
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=shim.RecordingProfiler(),
+                         warmup_profiler=True, report_interval_s=0)
+    client._client = _ConfigsIpc([])
+    done = _thread.allocate_lock()
+    done.acquire()
+
+    def poll():
+        time.sleep(0.3)  # this thread is in its wait by then
+        try:
+            client._poll_loop()
+        finally:
+            done.release()
+
+    _thread.start_new_thread(poll, ())
+    try:
+        t0 = time.time()
+        assert client.warmup_done.wait(timeout=120)
+        took = time.time() - t0
+    finally:
+        client.stop()
+        assert done.acquire(timeout=60)
+    timing = client.warmup_timing
+    assert timing["parked"] is True and timing["park"] == "event", timing
+    assert timing["waiting"] == [threading.current_thread().name]
+    assert timing["park_ms"] < 1000 and took < 0.3 + 2.0
+    assert _tools_clean()
+
+
+def test_a_thread_setting_up_cuda_is_not_held_with_its_lock(monkeypatch):
+    """A thread that sets up CUDA holds torch.cuda's _initialization_lock
+    across Python calls, and a profiler's stop synchronizes the card,
+    which takes that lock until CUDA is set up (torch.cuda._lazy_init).
+    The warmup's park holds no thread inside torch.cuda: its stop, which
+    takes the lock, does not wait for a held thread (EVENT_HOLD_MAX_S);
+    the thread is held once it has left torch.cuda, from before the
+    start to after the stop."""
+    monkeypatch.setattr(shim, "EVENT_HOLD_MAX_S", 5.0)
+    gate, counter, stop, left = _Gate(), [0], threading.Event(), []
+
+    def set_up():
+        # Stands in for torch._C._cuda_init(), in C while the park arms.
+        gate.wait()
+        return False
+
+    monkeypatch.setattr(torch.cuda, "_is_in_bad_fork", set_up)
+
+    def app():
+        try:
+            torch.cuda._lazy_init()
+        except Exception as e:  # noqa: BLE001 - no CUDA on this host
+            left.append(type(e).__name__)
+        else:
+            left.append(None)
+        _spinning(stop, counter)
+
+    class TakesTheLock(_Counted):
+        def stop(self):
+            with torch.cuda._initialization_lock:
+                super().stop()
+
+    def release_once_armed():
+        deadline = time.time() + 30
+        while time.time() < deadline and not any(
+                sys.monitoring.get_events(t)
+                for t in shim.EVENT_PARK_TOOL_IDS):
+            time.sleep(0.001)
+        time.sleep(0.05)
+        gate.set()
+
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=TakesTheLock(counter), report_interval_s=0)
+    thread = threading.Thread(target=app, name="cuda_setup")
+    thread.start()
+    time.sleep(0.3)  # inside _lazy_init, holding the lock, in C
+    _thread.start_new_thread(release_once_armed, ())
+    try:
+        t0 = time.time()
+        client._warmup()
+        took = time.time() - t0
+    finally:
+        gate.set()
+        stop.set()
+        thread.join(timeout=30)
+    assert len(left) == 1  # it left _lazy_init
+    assert took < shim.EVENT_HOLD_MAX_S
+    assert client.warmup_timing["parked"] is True, client.warmup_timing
+    assert client.warmup_timing["park"] == "event"
+    (_, b0, a0), (_, b1, a1) = client.profiler.seen
+    assert b0 == a0 == b1 == a1
+    assert _tools_clean()
+
+
+class _Doubled(torch.autograd.Function):
+    """A Python Function whose backward is slow, and says where it runs."""
+
+    inside = [False]
+    threads: set = set()
+
+    @staticmethod
+    def forward(ctx, x):
+        return x * 2
+
+    @staticmethod
+    def backward(ctx, grad):
+        _Doubled.inside[0] = True
+        _Doubled.threads.add(threading.get_ident())
+        for _ in range(50):
+            grad = grad + 0.0  # Python events inside the backward
+            time.sleep(0.0002)
+        _Doubled.inside[0] = False
+        return grad * 2
+
+
+@pytest.mark.parametrize("kind", ["duration", "warmup"])
+def test_autograd_backward_is_not_held_mid_backward(kind):
+    """On the CPU a Python Function's backward runs on the thread that
+    called backward(), with Python events inside it: the event park does
+    not hold that thread there (nor deadlocks), but at its next event
+    after backward() returned; the start is parked."""
+    counter, stop, at_start = [0], threading.Event(), []
+    x = torch.randn(64, requires_grad=True)
+    _Doubled.threads.clear()
+
+    def train():
+        _Doubled.apply(x).sum().backward()
+
+    class Seen(_Counted):
+        def start(self, trace_dir, lead=False):
+            at_start.append(_Doubled.inside[0])
+            super().start(trace_dir, lead)
+
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=Seen(counter), report_interval_s=0)
+    app = threading.Thread(target=_spinning, args=(stop, counter, train))
+    app.start()
+    try:
+        for _ in range(5):
+            if kind == "warmup":
+                client._warmup()
+                timing = client.warmup_timing
+            else:
+                error, window = client._capture_window(
+                    TraceConfig(duration_ms=10), "unused")
+                assert error is None
+                timing = window.timing
+            assert timing["parked"] is True and timing["park"] == "event"
+    finally:
+        stop.set()
+        app.join(timeout=30)
+        client.stop()
+    assert not app.is_alive()
+    assert _Doubled.threads == {app.ident}
+    assert at_start == [False] * 5
+
+
+def test_event_park_watches_the_apps_threads_only():
+    """The threads an event park watches: the threading module's live
+    threads but the arming thread, the shim's own (THREAD_PREFIX) and
+    dummy threads (started outside the threading module, such as the
+    autograd engine's)."""
+    release = threading.Event()
+    app = threading.Thread(target=release.wait, name="app")
+    own = threading.Thread(target=release.wait,
+                           name=shim.THREAD_PREFIX + "finisher")
+    dummy = []
+
+    def foreign():
+        dummy.append(threading.current_thread())  # registers a dummy
+        release.wait()
+
+    got = {}
+    arming = threading.Thread(
+        target=lambda: got.update(watched=_APP_THREADS()))
+    for t in (app, own):
+        t.start()
+    _thread.start_new_thread(foreign, ())
+    deadline = time.time() + 10
+    while not dummy and time.time() < deadline:
+        time.sleep(0.001)
+    try:
+        arming.start()
+        arming.join(timeout=10)
+    finally:
+        release.set()
+        for t in (app, own):
+            t.join(timeout=10)
+    assert isinstance(dummy[0], threading._DummyThread)
+    # Threads earlier tests in this process left running are watched too.
+    watched = set(got["watched"])
+    assert {app.ident, threading.main_thread().ident} <= watched
+    assert not {own.ident, dummy[0].ident, arming.ident} & watched
+
+
+def test_a_call_of_stop_is_never_held(tmp_path, monkeypatch):
+    """A thread that calls stop() while a start waits for the app's
+    threads to park is not held there: stop() ends the wait, nothing
+    starts, and the capture ends in an error manifest."""
+    monkeypatch.setattr(shim, "EVENT_PARK_WAIT_S", 600.0)
+    release, blocked = _blocked_in_c()
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=shim.RecordingProfiler(),
+                         report_interval_s=0)
+    ran = _thread.allocate_lock()
+    ran.acquire()
+
+    def runner():
+        try:
+            client._run_trace(TraceConfig.parse(
+                f"ACTIVITIES_LOG_FILE={tmp_path / 's.json'}\n"
+                "ACTIVITIES_DURATION_MSECS=50"))
+        finally:
+            ran.release()
+
+    try:
+        t0 = time.time()
+        # Not threading's start(), whose wait for the new thread would
+        # hold this thread where it wakes once the park is armed.
+        _thread.start_new_thread(runner, ())
+        spins = 0
+        # No call in this loop: once the park is armed, this thread's
+        # next call is the one to stop().
+        while (client._window is None or client._window.state != "parking"
+               ) and spins < 10**9:
+            spins += 1
+        client.stop()
+        took = time.time() - t0
+        finished = ran.acquire(timeout=30)
+    finally:
+        release.set()
+        blocked.join(timeout=30)
+    assert finished and took < 5
+    assert [c for c in client.profiler.calls if c[0] == "start"] == []
+    manifest = json.loads((tmp_path / f"s_{os.getpid()}.json").read_text())
+    assert manifest["status"] == "error" and "client stopped" in manifest[
+        "error"], manifest
+    assert client._window is None and _tools_clean()
+
+
+@pytest.mark.parametrize("taken", [(), (3,), (3, 4)])
+def test_sys_monitoring_is_left_as_found(taken):
+    """After every start, and after stop(), the event park's tool id is
+    free again with no event on, and a tool id another tool holds is
+    left to it (with none free, the start goes ahead unparked, naming
+    the threads it could not hold)."""
+    for tool in taken:
+        sys.monitoring.use_tool_id(tool, "another tool")
+    counter, stop = [0], threading.Event()
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=_Counted(counter), report_interval_s=0)
+    app = threading.Thread(target=_spinning, args=(stop, counter),
+                           name="app")
+    app.start()
+    try:
+        timings = []
+        for _ in range(2):
+            error, window = client._capture_window(
+                TraceConfig(duration_ms=10), "unused")
+            assert error is None
+            timings.append(window.timing)
+            for tool in shim.EVENT_PARK_TOOL_IDS:
+                assert sys.monitoring.get_events(tool) == 0
+                assert sys.monitoring.get_tool(tool) == (
+                    "another tool" if tool in taken else None)
+        stop.set()
+        app.join(timeout=30)
+        client.stop()
+        for tool in shim.EVENT_PARK_TOOL_IDS:
+            assert sys.monitoring.get_events(tool) == 0
+            assert sys.monitoring.get_tool(tool) == (
+                "another tool" if tool in taken else None)
+        held = len(taken) < len(shim.EVENT_PARK_TOOL_IDS)
+        for timing in timings:
+            assert timing["parked"] is held, timing
+            assert timing.get("unparked", ["app"]) == ["app"]
+    finally:
+        stop.set()
+        app.join(timeout=30)
+        for tool in taken:
+            sys.monitoring.free_tool_id(tool)
+
+
+def test_duration_capture_keeps_the_app_threads_frames(tmp_path):
+    """A duration capture of an app that never steps, at
+    PROFILE_PYTHON_TRACER_LEVEL=1 (torch's Python tracer installs its own
+    profile function on every thread at the start, while the event park
+    holds the app): the trace holds the app thread's frames, none of the
+    park's (trace.PARK_FRAME, the park's callback), and no call of the
+    app's loop body outlasts the window (torch's tracer never sees the
+    park's frame return; the finish mends the frames below it)."""
+    assert shim._EventPark._hold_at_python_event.__name__ == trace.PARK_FRAME
+    a = torch.randn(32, 32)
+
+    def body():
+        torch.relu(a @ a)
+
+    counter, stop = [0], threading.Event()
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=TorchProfiler(), report_interval_s=0)
+    app = threading.Thread(target=_spinning, args=(stop, counter, body))
+    app.start()
+    try:
+        for i in range(2):  # the first start is the process's slowest
+            client._run_trace(TraceConfig.parse(
+                f"ACTIVITIES_LOG_FILE={tmp_path}/f{i}.json\n"
+                "ACTIVITIES_DURATION_MSECS=300\n"
+                "PROFILE_PYTHON_TRACER_LEVEL=1"))
+    finally:
+        stop.set()
+        app.join(timeout=30)
+        client.stop()
+    manifest = client.last_manifest
+    assert manifest["status"] == "ok", manifest
+    assert manifest["timing"]["park"] == "event"
+    events = json.loads(open(manifest["trace_file"]).read())["traceEvents"]
+    frames = [e for e in events if e.get("cat") == "python_function"
+              and e.get("tid") == app.native_id]
+    assert not [e for e in events
+                if trace.PARK_FRAME in e.get("name", "")]
+    bodies = [e for e in frames if e["name"].endswith(": body")]
+    assert bodies and any(e["name"].endswith(": _spinning") for e in frames)
+    window_us = manifest["timing"]["window_ms"] * 1000
+    assert max(e["dur"] for e in bodies) < window_us / 2, bodies[:3]
+
+
+def test_finish_drops_the_park_frame_and_mends_the_frames_below():
+    """trace._unpark_frames on the frames torch's Python tracer records
+    for a thread held in the park's callback while it started: the
+    park's frame goes, each frame below it ends where the tracer ended
+    the one above it, and the park's children move to its caller;
+    another thread's frames are left alone."""
+    def frame(tid, pid_, fid, name, ts, dur):
+        return {"ph": "X", "cat": "python_function", "pid": 1, "tid": tid,
+                "name": name, "ts": ts, "dur": dur,
+                "args": {"Python id": fid, "Python parent id": pid_}}
+
+    park = f"dynolog_tpu_torch/client/shim.py(1): {trace.PARK_FRAME}"
+    events = [
+        frame(5, None, 1, "app.py(1): main", 0.0, 1000.0),
+        frame(5, 1, 2, "app.py(9): loop", 0.0, 1000.0),
+        frame(5, 2, 3, "app.py(20): work", 0.0, 900.0),
+        frame(5, 3, 4, park, 0.0, 30.0),
+        frame(5, 4, 5, "app.py(30): inner", 10.0, 5.0),
+        frame(6, None, 4, "other.py(1): run", 0.0, 1000.0),
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "pid": 1,
+         "tid": 5, "ts": 12.0, "dur": 1.0},
+    ]
+    got = trace._unpark_frames(events)
+    by = {(e["tid"], e["name"]): e for e in got}
+    assert (5, park) not in by and len(got) == len(events) - 1
+    assert by[(5, "app.py(20): work")]["dur"] == 30.0
+    assert by[(5, "app.py(9): loop")]["dur"] == 900.0
+    assert by[(5, "app.py(1): main")]["dur"] == 1000.0
+    assert by[(5, "app.py(30): inner")]["args"]["Python parent id"] == 3
+    assert by[(6, "other.py(1): run")]["dur"] == 1000.0
+    assert trace._unpark_frames(got) == got
+
+
+def test_stepless_capture_against_the_jax_client(tmp_path):
+    """Beside tests/test_torch_shim.py's
+    test_duration_capture_of_an_app_that_never_steps: the same duration
+    capture of an app thread that never calls step(), through both
+    clients. Both manifests are ok in duration mode; the port's start
+    held the app at its next Python event (parked, park "event") and its
+    trace holds the app's aten::mm ops inside the window."""
+    stop, counter = threading.Event(), [0]
+    a = torch.randn(64, 64)
+    app = threading.Thread(target=_spinning, args=(
+        stop, counter, lambda: torch.relu(a @ a)))
+    app.start()
+    text = "ACTIVITIES_LOG_FILE={}\nACTIVITIES_DURATION_MSECS=300"
+    jax_client = jax_shim.TraceClient(
+        job_id=7, endpoint="dynotpu_threads_nodaemon",
+        profiler=jax_shim.RecordingProfiler(), report_interval_s=0)
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=TorchProfiler(), report_interval_s=0)
+    try:
+        jax_client._run_trace(JaxTraceConfig.parse(
+            text.format(tmp_path / "jax.json")))
+        client._run_trace(TraceConfig.parse(
+            text.format(tmp_path / "port.json")))
+    finally:
+        stop.set()
+        app.join(timeout=30)
+        jax_client.stop()
+        client.stop()
+    pid = os.getpid()
+    ref = json.loads((tmp_path / f"jax_{pid}.json").read_text())
+    ours = json.loads((tmp_path / f"port_{pid}.json").read_text())
+    assert ref["status"] == ours["status"] == "ok", (ref, ours)
+    assert ref["mode"] == ours["mode"] == "duration"
+    assert ours["timing"]["parked"] is True
+    assert ours["timing"]["park"] == "event"
+    doc = json.loads(open(ours["trace_file"]).read())
+    base_us = doc["baseTimeNanoseconds"] / 1e3
+    assert [e for e in doc["traceEvents"]
+            if e.get("cat") == "cpu_op" and e.get("name") == "aten::mm"
+            and e.get("tid") == app.native_id
+            and e["ts"] + base_us >= ours["started_ms"] * 1e3]
