@@ -132,10 +132,13 @@ if any phase fails:
    call count or more where a long step fell inside, every ring sample
    and the warmup with lost_launches 0, and their timing (parked) and
    the steps over the warmup logged; (c) (b)'s process never calling
-   client.step(), the ring off: 100 duration windows, every manifest ok
+   client.step(), the ring off, with four idle threads beside its
+   training thread (in time.sleep(), Thread.join(), a socket's accept()
+   and an idle asyncio loop): 100 duration windows, every manifest ok
    with lost_launches 0 (equal to the launches its trace lacks a kernel
    record for), every start and the warmup parked (the app's threads
-   held at their next Python event);
+   held at their next Python event, the idle ones counted as waiting)
+   after a park of under 1000 ms;
 
 then, with two cards or more, phase 10's model trained expert-parallel
 over NCCL (data x expert, one process per card) for two steps, held in
@@ -2384,6 +2387,46 @@ def knob_levels(flags: list) -> dict:
     return levels
 
 
+def knob_capture(daemon, client, trainer, job_id: int, log_file: str,
+                 flags: list, mid_window=None) -> tuple[dict, int]:
+    """One capture of phase 15: `dyno gputrace` with `flags`, then the
+    training thread steps, with no synchronize per step, until the
+    capture's manifest has landed. `mid_window()`, where given, runs on
+    the training thread once in the middle of the window (after the
+    step() that ends the window's first step). Returns the manifest and
+    the steps taken."""
+    prev, n_steps, mid_done = client.last_manifest, 0, None
+    dyno_gputrace(daemon.port, job_id, log_file, flags)
+    deadline = time.time() + 120
+    while client.last_manifest is prev and time.time() < deadline:
+        trainer.step()
+        client.step()
+        n_steps += 1
+        w = client._window
+        if (mid_window is not None and w is not None and w is not mid_done
+                and w.state == "active" and w.end_at is not None
+                and client._step_count == w.end_at - 1):
+            mid_window()
+            mid_done = w
+    torch.cuda.synchronize()
+    return json.loads(manifest_path(log_file).read_text()), n_steps
+
+
+def knob_trace(manifest: dict) -> tuple[dict, dict]:
+    """A phase 15 capture's trace read as the phase reads it, on the
+    training thread: its events by category and its summary
+    (trace.summarize, ungrouped); none for a capture that failed."""
+    from dynolog_tpu_torch import trace
+
+    cats: dict = {}
+    if manifest["status"] != "ok":
+        return cats, {"top_ops": []}
+    with open(manifest["trace_file"]) as f:
+        for e in json.load(f)["traceEvents"]:
+            cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    return cats, trace.summarize(manifest["trace_file"], group=False)
+
+
 def phase_knobs(F, daemon, smi: str) -> dict:
     """Phase 15: phase 4's trainer under one shim, captured KNOB_ROUNDS
     times for each entry of KNOB_CAPTURES (in turns) through the dyno
@@ -2422,16 +2465,9 @@ def phase_knobs(F, daemon, smi: str) -> dict:
                 levels = knob_levels(flags)
                 trace_json = "--notrace_json" not in flags
                 log_file = str(tmp / f"{name}_{rnd}.json")
-                prev = client.last_manifest
-                dyno_gputrace(daemon.port, job_id, log_file, flags)
-                deadline = time.time() + 120
-                while (client.last_manifest is prev
-                       and time.time() < deadline):
-                    trainer.step()
-                    client.step()
-                    n_steps += 1
-                torch.cuda.synchronize()
-                manifest = json.loads(manifest_path(log_file).read_text())
+                manifest, steps = knob_capture(daemon, client, trainer,
+                                               job_id, log_file, flags)
+                n_steps += steps
                 if max(levels.values()) < 1:
                     error = manifest.get("error", "")
                     log(f"  {smi}: {name} {flags}: status "
@@ -2447,14 +2483,8 @@ def phase_knobs(F, daemon, smi: str) -> dict:
                     "profiler_start_ms", "lead_ms", "window_ms",
                     "profiler_stop_ms", "export_ms", "write_ms",
                     "trace_bytes", "lost_launches")}
-                cats: dict = {}
-                summary: dict = {"top_ops": []}
+                cats, summary = knob_trace(manifest)
                 if manifest["status"] == "ok":
-                    with open(manifest["trace_file"]) as f:
-                        for e in json.load(f)["traceEvents"]:
-                            cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
-                    summary = trace.summarize(manifest["trace_file"],
-                                              group=False)
                     landed.append((name, manifest, trace_json))
                     timings[name].append(timing)
                 found = knob_check(name, levels, trace_json, manifest,
@@ -2717,8 +2747,8 @@ def capture_facts(manifest: dict) -> dict:
            "error": manifest.get("error"),
            "started_ms": manifest["started_ms"],
            "timing": {k: t.get(k) for k in (
-               "parked", "park", "park_ms", "unparked", "lost_launches",
-               *TIMING_KEYS)}}
+               "parked", "park", "park_ms", "unparked", "waiting",
+               "lost_launches", *TIMING_KEYS)}}
     if manifest["status"] != "ok":
         return got
     with open(manifest["trace_file"]) as f:
@@ -2891,14 +2921,17 @@ def poll_trainer(spec: dict) -> int:
     """`chip_smoke.py --poll SPEC`: phase 17 (b)'s process. Trains until
     the file spec["stop"] exists, under a TraceClient on the dynologd at
     spec["endpoint"] with the warmup and (unless spec["stepless"]) the
-    ring on. Writes the warmup's timing, the host times (ms) of the steps
-    that ended before warmup_done and the median of the 200 after them,
-    each ring sample's timing, the steps and train steps, the launches
-    and last_error to spec["result"]."""
+    ring on, beside IDLE_THREADS where spec["idle"]. Writes the warmup's
+    timing, the host times (ms) of the steps that ended before
+    warmup_done and the median of the 200 after them, each ring sample's
+    timing, the steps and train steps, the launches and last_error to
+    spec["result"]."""
     from dynolog_tpu_torch.client import RingConfig, TraceClient
 
     F = importlib.import_module("dynolog_tpu_torch.ops.flash_attention")
     trainer = Trainer(dense_config())
+    if spec.get("idle"):
+        start_idle_threads()
     stepless = spec["stepless"]
     ring = None if stepless else RingConfig(
         every_n_steps=POLL_RING_EVERY, window_ms=POLL_WINDOW_MS, keep=2,
@@ -2944,18 +2977,19 @@ def poll_trainer(spec: dict) -> int:
 
 
 def run_poll(daemon, n: int, stepless: bool, progress=None,
-             stderr_path: str | None = None) -> dict:
-    """Starts poll_trainer in a process of its own and captures it through
-    the dyno CLI n times in each kind (duration and iteration windows in
-    turns; n duration windows where `stepless`), each capture's manifest
-    awaited and its trace read (capture_facts) and deleted before the
-    next; stops after MIXED_BLANK_STOP captures in a row with no kernel
-    record. `progress(i, captures)` is called after each. Returns the
-    process's result with "captures"."""
+             stderr_path: str | None = None, idle: bool = False) -> dict:
+    """Starts poll_trainer in a process of its own (with IDLE_THREADS
+    where `idle`) and captures it through the dyno CLI n times in each
+    kind (duration and iteration windows in turns; n duration windows
+    where `stepless`), each capture's manifest awaited and its trace read
+    (capture_facts) and deleted before the next; stops after
+    MIXED_BLANK_STOP captures in a row with no kernel record.
+    `progress(i, captures)` is called after each. Returns the process's
+    result with "captures"."""
     tmp = Path(tempfile.mkdtemp(prefix="dynotpu_poll_"))
     job_id = 7800 + os.getpid() % 100 + (50 if stepless else 0)
     spec = {"job_id": job_id, "endpoint": daemon.endpoint,
-            "stepless": stepless, "ring_dir": str(tmp / "ring"),
+            "stepless": stepless, "idle": idle, "ring_dir": str(tmp / "ring"),
             "stop": str(tmp / "stop"), "result": str(tmp / "result.json")}
     err = open(stderr_path, "w") if stderr_path else None
     proc = subprocess.Popen(
@@ -3123,27 +3157,69 @@ def phase_poll(daemon, smi: str) -> dict:
 # ------------------------------------------------------------ phase 17 (c)
 
 # Phase 17 (c): phase 17 (b)'s process never calling client.step() (run_poll
-# with stepless: the warmup on, no ring), captured STEPLESS_CAPTURES times
-# in duration windows through dynologd. With its starts unparked, such a
-# process lost its training thread's kernel records from its 54th
-# capture on (ROADMAP C19); the shim now holds its threads at their next
-# Python event for every start, the warmup's too.
+# with stepless: the warmup on, no ring), beside IDLE_THREADS, captured
+# STEPLESS_CAPTURES times in duration windows through dynologd. With its
+# starts unparked, such a process lost its training thread's kernel
+# records from its 54th capture on (ROADMAP C19); the shim now holds its
+# threads at their next Python event for every start, the warmup's too,
+# and counts a thread idle in a known blocking call as parked at once
+# (C19's remainder: before, each such thread held every start 2 s and
+# left it unparked).
 STEPLESS_CAPTURES = 100
+# The idle threads of a stepless app (a server, a notebook) beside its
+# training thread, by name: each waits for good in a blocking call.
+IDLE_THREADS = ("idle_sleep", "idle_join", "idle_accept", "idle_asyncio")
+PARK_MS_LIMIT = 1000  # a start's park_ms in phase 17 (c)
+
+
+def start_idle_threads() -> None:
+    """IDLE_THREADS, daemon threads: one in time.sleep(3600), one in
+    Thread.join() of a thread that never ends (it waits on an Event no
+    one sets), one in accept() on a listening socket no one connects to,
+    and one running an asyncio loop with nothing scheduled."""
+    import asyncio
+
+    listener = socket.socket()
+    listener.bind(("127.0.0.1", 0))
+    listener.listen(1)
+    never = threading.Thread(target=threading.Event().wait,
+                             name="idle_never", daemon=True)
+    never.start()
+    loop = asyncio.new_event_loop()
+    for name, target in (("idle_sleep", lambda: time.sleep(3600)),
+                         ("idle_join", never.join),
+                         ("idle_accept", listener.accept),
+                         ("idle_asyncio", loop.run_forever)):
+        threading.Thread(target=target, name=name, daemon=True).start()
+
+
+def idle_unwaited(got: dict) -> list:
+    """The starts of a run_poll result with idle threads (the warmup,
+    then each capture by index) whose timing does not name every one of
+    IDLE_THREADS as waiting: (start, its waiting names)."""
+    starts = [("warmup", got["warmup_timing"] or {})] + [
+        (i, c["timing"]) for i, c in enumerate(got["captures"])]
+    return [(k, t.get("waiting")) for k, t in starts
+            if not set(IDLE_THREADS) <= set(t.get("waiting") or ())]
 
 
 def phase_stepless(daemon, smi: str) -> dict:
-    """Phase 17 (c): run_poll(stepless) at STEPLESS_CAPTURES. Every
+    """Phase 17 (c): run_poll(stepless, idle) at STEPLESS_CAPTURES. Every
     capture ok with lost_launches 0 in its manifest, equal to the
-    recount; every start and the warmup parked; each kernel launched in
-    every train step. Returns the process's launches."""
+    recount; every start and the warmup parked, in under PARK_MS_LIMIT
+    ms; each kernel launched in every train step. Returns the process's
+    launches."""
     t0 = time.time()
-    got = run_poll(daemon, STEPLESS_CAPTURES, stepless=True)
+    got = run_poll(daemon, STEPLESS_CAPTURES, stepless=True, idle=True)
     lines, failures = poll_report(got)
     for line in lines:
         log(f"  {smi}: {line}")
     log(f"  warmup {got['warmup_timing']}; steps before warmup_done "
         f"{got['during_warmup']} ms against a median of "
         f"{got['median_step_ms']} ms")
+    unwaited = idle_unwaited(got)
+    log(f"  starts without every idle thread waiting: {len(unwaited)} "
+        f"{unwaited[:4]}")
     caps = got["captures"]
     if len(caps) < STEPLESS_CAPTURES:
         failures.append(f"{len(caps)} of {STEPLESS_CAPTURES} captures: the "
@@ -3155,9 +3231,14 @@ def phase_stepless(daemon, smi: str) -> dict:
     failures += [f"capture {i} not parked: {c['timing']}"
                  for i, c in enumerate(caps)
                  if c["timing"]["parked"] is not True][:8]
-    if (got["warmup_timing"] or {}).get("parked") is not True:
+    warmup = got["warmup_timing"] or {}
+    if warmup.get("parked") is not True:
         failures.append(f"warmup not parked: {got['warmup_timing']}, "
                         f"{got['last_error']}")
+    failures += [f"{k} park_ms {t.get('park_ms')}" for k, t in [
+        ("warmup", warmup)] + [(f"capture {i}", c["timing"])
+                               for i, c in enumerate(caps)]
+        if (t.get("park_ms") or 0) >= PARK_MS_LIMIT][:8]
     for k, v in got["launches"].items():
         if v < N_LAYERS * got["train_steps"]:
             failures.append(f"{k} launched {v} times in "

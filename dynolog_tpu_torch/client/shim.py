@@ -22,9 +22,11 @@ has not stepped (or whose next ``step()`` did not come in time), every
 app thread the ``threading`` module started, but the shim's own, is held
 at its next Python event (a PEP 669 ``sys.monitoring`` CALL or PY_START,
 on for the park only: ``_EventPark``). A thread waiting on another
-(``Event.wait()``, ``Queue.get()``, an idle pool worker) counts as parked
-and is held where it wakes; one that stays in C otherwise for longer
-than ``EVENT_PARK_WAIT_S`` is left to run. A capture's ``timing`` says
+thread or on the outside (``Event.wait()``, ``Queue.get()``, ``join()``,
+``time.sleep()``, a socket's ``accept()`` or ``recv()``, an idle pool
+worker or asyncio loop) counts as parked and is held where it wakes; one
+that stays in C otherwise for longer than ``EVENT_PARK_WAIT_S`` is left
+to run. A capture's ``timing`` says
 whether it was ``parked``, by which ``park`` ("step" or "event"), after
 how long (``park_ms``), and which threads were ``waiting``.
 Every capture opens its profiler a lead before its window: a start
@@ -52,7 +54,8 @@ whose ``timing`` gets the child's ``write_ms`` and ``write_bytes``, and
 ``lost_launches``: the kernel launches of the window, made before the
 stop began, whose kernel records the capture lost (torch.profiler can
 lose them, XLA's capture does not; the manifest stays ``ok`` with its
-trace on disk, and ``last_error`` says what was lost). A second child
+trace on disk, and ``last_error`` says what was lost; None at device
+tracer level 0, which records no kernel). A second child
 at low priority then writes the trace's summary (``<run>.summary.json``)
 beside it.
 
@@ -112,6 +115,8 @@ from __future__ import annotations
 
 import _thread
 import dis
+import functools
+import inspect
 import json
 import logging
 import math
@@ -123,7 +128,6 @@ import sys
 import tempfile
 import threading
 import time
-from concurrent.futures import thread as _futures_thread
 from dataclasses import dataclass, field
 
 import dynolog_tpu_torch
@@ -821,6 +825,17 @@ class PendingWrite:
         return dict(self.result)
 
 
+def _free_session(prof) -> None:
+    """Frees a stopped torch.profiler.profile's results (its autograd
+    profiler, which holds kineto's) now, on the calling thread. The
+    profile holds bound methods of itself in its action_map: a reference
+    cycle that, left alone, the cyclic GC frees on whichever thread's
+    allocation sets it off, possibly the app's inside a later capture's
+    window (ROADMAP C22)."""
+    prof.profiler = None
+    getattr(prof, "action_map", {}).clear()
+
+
 class TorchProfiler(CaptureKnobs):
     """Default profiler backend: a torch.profiler capture at the tracer
     levels of the capture's config (``configure``; see profile_options).
@@ -855,7 +870,7 @@ class TorchProfiler(CaptureKnobs):
         self._prof = None
         self._stopped = None
         self._clock: _StepClock | None = None
-        self._host_on = True
+        self._host_on = self._device_on = True
         self._lead = False
         self._opens_ns: int | None = None
         self._stop_ns: int | None = None
@@ -875,6 +890,7 @@ class TorchProfiler(CaptureKnobs):
                 " leave torch.profiler no activity")
         opts = profile_options(levels, torch.cuda.is_available())
         self._host_on = levels["host_tracer_level"] >= 1
+        self._device_on = levels["device_tracer_level"] >= 1
         self._lead = lead
         self._opens_ns = None
         if opts["activities"]:
@@ -921,6 +937,8 @@ class TorchProfiler(CaptureKnobs):
         self._stop_ns = time.time_ns()
         if prof is not None:
             prof.stop()
+        if self._stopped is not None:  # stopped, never saved
+            _free_session(self._stopped)
         self._stopped = prof
 
     def _finish_spec(self, path: str, profile_top: int | None) -> dict:
@@ -929,7 +947,7 @@ class TorchProfiler(CaptureKnobs):
         spec = {"raw": raw, "out": tmp, "steps": self._clock.spec(),
                 "drop_host": not self._host_on,
                 "lead_ns": self._opens_ns if self._lead else None,
-                "stop_ns": self._stop_ns}
+                "stop_ns": self._stop_ns, "device": self._device_on}
         if profile_top is not None:
             spec.update(profile=path[: -len(TRACE_SUFFIX)]
                         + SAMPLE_PROFILE_SUFFIX,
@@ -943,7 +961,8 @@ class TorchProfiler(CaptureKnobs):
         capture is complete only once its PendingWrite
         (take_pending_write) is; with `profile_top` the finish also
         writes the trace's compact_profile(top) at the PendingWrite's
-        profile_path."""
+        profile_path. The session's results are freed before it
+        returns (_free_session)."""
         prof, self._stopped = self._stopped, None
         path = os.path.join(trace_dir, _unique_run_name() + TRACE_SUFFIX)
         spec = self._finish_spec(path, profile_top)
@@ -959,6 +978,9 @@ class TorchProfiler(CaptureKnobs):
         except BaseException:
             _unlink_all(raw, tmp)
             raise
+        finally:
+            if prof is not None:
+                _free_session(prof)
         _unlink_all(raw)
         return path
 
@@ -1045,11 +1067,12 @@ class _Window:
 THREAD_PREFIX = "dynolog_tpu_torch_"
 # How long a start that found no app thread parked in step() waits for
 # each app thread to reach its next Python event (_EventPark); a thread
-# that stays in C longer (blocked in join(), a socket's accept(), a long
-# call; not one waiting at a wait site, _WAITS, which counts as parked at
-# once) is not held, and the start says "parked": false. The warmup
-# waits WARMUP_PARK_WAIT_S instead: a process's first steps hold the
-# longest calls into C (the card's set-up, its first kernels' loads).
+# that stays in C longer (a long call, a bare lock acquire, a ctypes call;
+# not one waiting at a wait site, _WAITS, or in a blocking builtin,
+# _BLOCKING, which counts as parked at once) is not held, and the start
+# says "parked": false. The warmup waits WARMUP_PARK_WAIT_S instead: a
+# process's first steps hold the longest calls into C (the card's set-up,
+# its first kernels' loads).
 EVENT_PARK_WAIT_S = 2.0
 # How long a thread held at a Python event waits for the start (the
 # warmup's: and its stop) to return before it goes on regardless.
@@ -1087,28 +1110,128 @@ def _calls(code, attr: str) -> list[int]:
 
 
 def _wait_sites() -> tuple[dict, frozenset]:
-    """Where a thread waits in C for another thread: {code: offsets of
-    its blocking calls} for threading.Condition.wait (which Event.wait,
-    Queue.get and put, Semaphore.acquire, Barrier.wait and
-    Future.result wait in), its acquires between releasing the
-    Condition's lock and restoring it, and for an idle ThreadPoolExecutor
-    worker, its SimpleQueue.get; and the offsets in Condition.wait of its
-    _acquire_restore calls, the first Python event of a thread that
-    wakes there, before it holds any lock again."""
+    """Where a thread waits in the threading module's Python for another
+    thread: {code: offsets of its blocking calls} for
+    threading.Condition.wait (which Event.wait, Queue.get and put,
+    Semaphore.acquire, Barrier.wait and Future.result wait in), its
+    acquires between releasing the Condition's lock and restoring it,
+    and for Thread.join, _wait_for_tstate_lock's acquire, whose lock it
+    releases before it leaves the module; and the offsets in
+    Condition.wait of its _acquire_restore calls, the first Python event
+    of a thread that wakes there, before it holds any lock again."""
     cond = threading.Condition.wait.__code__
     released = min(_calls(cond, "_release_save"), default=None)
     restores = _calls(cond, "_acquire_restore")
     waits = {cond: frozenset(
         o for o in _calls(cond, "acquire")
         if released is not None and released < o < min(restores, default=0))}
-    worker = _futures_thread._worker.__code__
-    waits[worker] = frozenset(_calls(worker, "get"))
+    join = getattr(threading.Thread, "_wait_for_tstate_lock", None)
+    if join is not None:
+        waits[join.__code__] = frozenset(_calls(join.__code__, "acquire"))
     return waits, frozenset(restores)
 
 
+def _blocking_builtins() -> tuple:
+    """The builtins a thread waits in, for another thread or for the
+    outside, holding no lock and launching nothing: time.sleep;
+    select.select and the poll methods of the objects the selectors
+    module waits in (an idle asyncio loop, a socketserver); a socket's
+    _accept (socket.accept's), recv, recv_into and recvfrom; and
+    SimpleQueue.get (an idle ThreadPoolExecutor worker's)."""
+    import _queue
+    import _socket
+    import select
+
+    found = [time.sleep, select.select]
+    methods = [(_socket.socket, ("_accept", "recv", "recv_into", "recvfrom")),
+               (_queue.SimpleQueue, ("get",))]
+    if hasattr(select, "poll"):
+        methods.append((type(select.poll()), ("poll",)))
+    for name, method in (("epoll", "poll"), ("devpoll", "poll"),
+                         ("kqueue", "control")):
+        if hasattr(select, name):
+            methods.append((getattr(select, name), (method,)))
+    for cls, names in methods:
+        found += [vars(cls)[name] for name in names]
+    return tuple(found)
+
+
+# The instructions that load the root of a call's load chain, and the
+# frame's namespaces each looks its name up in, in order.
+_NAME_LOADS = {
+    "LOAD_FAST": ("f_locals",), "LOAD_FAST_CHECK": ("f_locals",),
+    "LOAD_DEREF": ("f_locals",), "LOAD_GLOBAL": ("f_globals", "f_builtins"),
+    "LOAD_NAME": ("f_locals", "f_globals", "f_builtins")}
+_JUMPS = frozenset(dis.hasjrel + dis.hasjabs)
+
+
+@functools.lru_cache(maxsize=4096)
+def _load_chain(code, offset: int) -> tuple | None:
+    """How the CALL at `offset` in `code` loads its callable: (the root's
+    load instruction, the root's name, the attribute names loaded off
+    it), read back from the CALL over its arguments by their stack
+    effects; None where the instruction is no CALL or the callable is not
+    such a chain (a jump among its arguments, a subscript, a call)."""
+    ins = list(dis.get_instructions(code))
+    at = next((k for k, i in enumerate(ins) if i.offset == offset), None)
+    if at is None or ins[at].opname != "CALL":
+        return None
+    k, left, attrs = at - 1, ins[at].arg, []
+    while k >= 0 and (left > 0 or ins[k].opname == "LOAD_ATTR"):
+        i = ins[k]
+        if i.is_jump_target or i.opcode in _JUMPS:
+            return None
+        if left > 0:
+            left -= dis.stack_effect(
+                i.opcode, i.arg if i.opcode >= dis.HAVE_ARGUMENT else None)
+        else:
+            attrs.append(i.argval)
+        k -= 1
+    if left != 0 or k < 0 or ins[k].opname not in _NAME_LOADS:
+        return None
+    return ins[k].opname, ins[k].argval, tuple(reversed(attrs))
+
+
+def _blocking_call(frame) -> bool:
+    """Whether `frame`, another thread's innermost, is in a call of one
+    of _BLOCKING: the callable of the CALL at its f_lasti, resolved
+    from its load chain through the frame's namespaces and the chain's
+    attributes (inspect.getattr_static: no descriptor or __getattr__
+    runs), is one of those objects. A name alone is not enough."""
+    chain = _load_chain(frame.f_code, frame.f_lasti)
+    if chain is None:
+        return False
+    op, name, attrs = chain
+    for space in _NAME_LOADS[op]:
+        names = getattr(frame, space)
+        if name in names:
+            obj = names[name]
+            break
+    else:
+        return False
+    try:
+        for attr in attrs:
+            obj = inspect.getattr_static(obj, attr)
+    except Exception:  # noqa: BLE001 - not resolved: not known to block
+        return False
+    return any(obj is b for b in _BLOCKING)
+
+
 _WAITS, _WAKES = _wait_sites()
+_BLOCKING = _blocking_builtins()
 _COND_WAIT = threading.Condition.wait.__code__
 _WAITING_FILES = frozenset((threading.__file__, queue.__file__))
+
+
+def _past_waits(frame):
+    """The first frame from `frame` down outside the threading and queue
+    modules (a thread's foot frames, _THREAD_FOOT, count as outside):
+    where a thread that waited in their code runs next once it has left
+    it, holding none of their locks."""
+    while (frame is not None and frame.f_code.co_filename in _WAITING_FILES
+           and frame.f_code not in _THREAD_FOOT):
+        frame = frame.f_back
+    return frame
 
 
 def _app_threads() -> dict:
@@ -1135,26 +1258,43 @@ class _EventPark:
     calling thread on the CPU; on the card the engine's device thread,
     which is not watched, runs it while the calling thread waits in C),
     or at a call of TraceClient.stop() or __exit__(), which ends the
-    wait. A thread blocked at a wait site (_WAITS) counts as parked
-    (`waiting`): it reaches the card only after its next Python event,
-    where it is held (in Condition.wait, at its _acquire_restore call). A
-    thread that stays in C otherwise (loss.backward() on the card, a
-    join(), a socket's accept()) holds the start at most the bound given
-    to hold()."""
+    wait. A thread blocked at a wait site of the threading module
+    (_WAITS: Condition.wait, Thread.join) or in a blocking builtin
+    (_BLOCKING: time.sleep, a socket's accept and receives, the
+    selectors' waits, SimpleQueue.get) counts as parked (`waiting`): it
+    reaches the card only after its next Python event, where it is held:
+    in Condition.wait at its _acquire_restore call, else at the latest at
+    the first instruction it runs in its resume frame (_past_waits of its
+    innermost), whose code gets INSTRUCTION events before the thread
+    counts. A thread that stays in C otherwise (loss.backward() on the
+    card, a bare lock acquire, a ctypes call) holds the start at most the
+    bound given to hold()."""
 
     def __init__(self):
         self.watched = _app_threads()
         self.held: set[int] = set()
         self.waiting: set[int] = set()
         self.escaped: set[int] = set()
+        # A waiting thread's resume frame, and the codes that have
+        # INSTRUCTION events on for resume frames.
+        self._resume: dict = {}
+        self._stepped: set = set()
         self._gate = _thread.allocate_lock()
         self._tool: int | None = None
         self._released = False
         torch = sys.modules.get("torch")
         self._graph_task = getattr(getattr(torch, "_C", None),
                                    "_current_graph_task_id", None)
-        cuda = getattr(getattr(torch, "cuda", None), "__file__", None)
-        self._no_park_dirs = (os.path.dirname(cuda) + os.sep,) if cuda else ()
+        dirs = {}
+        for name in ("cuda", "autograd"):
+            path = getattr(getattr(torch, name, None), "__file__", None)
+            dirs[name] = (os.path.dirname(path) + os.sep,) if path else ()
+        self._no_park_dirs = dirs["cuda"]
+        self._no_wait_dirs = dirs["cuda"] + dirs["autograd"]
+
+    @staticmethod
+    def _events(mon) -> tuple:
+        return mon.events.CALL, mon.events.PY_START, mon.events.INSTRUCTION
 
     def hold(self, bound_s: float, stop: threading.Event) -> bool:
         """Turns the events on and waits until every watched thread still
@@ -1172,7 +1312,7 @@ class _EventPark:
         else:
             return not self.watched
         self._gate.acquire()
-        for event in (mon.events.CALL, mon.events.PY_START):
+        for event in self._events(mon):
             mon.register_callback(tool, event, self._hold_at_python_event)
         mon.set_events(tool, mon.events.CALL | mon.events.PY_START)
         deadline = time.monotonic() + bound_s
@@ -1184,35 +1324,55 @@ class _EventPark:
 
     def unheld(self) -> list[str]:
         """The names of the watched threads alive, not held and not
-        blocked at a wait site (which updates `waiting`)."""
-        frames = sys._current_frames()
-        self.waiting = {ident for ident in self.watched
-                        if ident not in self.held and ident in frames
-                        and self._blocked(frames[ident])}
+        waiting (which updates `waiting`). A thread counts as waiting only
+        while the events are on, in a snapshot taken once its resume
+        frame's code has INSTRUCTION events on: woken any earlier, it is
+        not at its wait in it."""
+        resume = {}
+        while self._tool is not None:
+            frames = sys._current_frames()
+            resume = {}
+            for ident in self.watched:
+                if ident not in self.held and ident in frames:
+                    at = self._resume_frame(frames[ident])
+                    if at is not None:
+                        resume[ident] = at
+            new = {f.f_code for f in resume.values()} - self._stepped
+            if not new:
+                break
+            for code in new:
+                sys.monitoring.set_local_events(
+                    self._tool, code, sys.monitoring.events.INSTRUCTION)
+            self._stepped |= new
+        self._resume, self.waiting = resume, set(resume)
         return [t.name for ident, t in self.watched.items()
                 if ident not in self.held and ident not in self.waiting
                 and t.is_alive()]
 
-    def _blocked(self, frame) -> bool:
-        """Whether `frame`, another thread's innermost, is blocked at a
-        wait site where the thread will be held once it wakes."""
-        return (frame.f_lasti in _WAITS.get(frame.f_code, ())
-                and self._holdable(frame, frame.f_code is _COND_WAIT))
+    def _resume_frame(self, frame):
+        """Where `frame`, another thread's innermost, blocked at a wait
+        site (_WAITS) or in a blocking builtin (_BLOCKING), is held once
+        it wakes, at the latest: its resume frame (_past_waits), which it
+        reaches holding none of the threading module's locks. None where
+        it is not at such a wait, or may not be held there, or is inside
+        torch.autograd's code (a backward, where it would not be held
+        once woken)."""
+        if not (frame.f_lasti in _WAITS.get(frame.f_code, ())
+                or _blocking_call(frame)):
+            return None
+        frame = _past_waits(frame)
+        return frame if frame is not None and self._holdable(
+            frame, self._no_wait_dirs) else None
 
-    def _holdable(self, frame, woken: bool) -> bool:
+    def _holdable(self, frame, no_dirs: tuple | None = None) -> bool:
         """Whether a thread may be held in `frame` (its innermost): none
         of its frames runs code of _NO_PARK_FILES (but _THREAD_FOOT) or of
-        torch.cuda. Where it has `woken` in Condition.wait, the threading
-        and queue frames it waits in are skipped: they hold no lock but
-        the Condition's, released until its _acquire_restore."""
-        while woken and frame is not None and (
-                frame.f_code.co_filename in _WAITING_FILES
-                and frame.f_code not in _THREAD_FOOT):
-            frame = frame.f_back
+        torch.cuda (or of `no_dirs`' packages)."""
+        no_dirs = self._no_park_dirs if no_dirs is None else no_dirs
         while frame is not None:
             name = frame.f_code.co_filename
             if ((name in _NO_PARK_FILES and frame.f_code not in _THREAD_FOOT)
-                    or name.startswith(self._no_park_dirs)):
+                    or name.startswith(no_dirs)):
                 return False
             frame = frame.f_back
         return True
@@ -1223,11 +1383,14 @@ class _EventPark:
         if self._tool is not None:
             mon = sys.monitoring
             mon.set_events(self._tool, 0)
-            for event in (mon.events.CALL, mon.events.PY_START):
+            for code in self._stepped:
+                mon.set_local_events(self._tool, code, 0)
+            for event in self._events(mon):
                 mon.register_callback(self._tool, event, None)
             mon.free_tool_id(self._tool)
             self._tool = None
             self._released = True
+            self._resume = {}
             self._gate.release()
         return not self.escaped
 
@@ -1239,10 +1402,19 @@ class _EventPark:
         if (ident not in self.watched or ident in self.held
                 or self._released):
             return
+        frame = sys._getframe(1)
+        resume = self._resume.get(ident)
+        if code is _COND_WAIT and offset in _WAKES:
+            # Woken in Condition.wait, before it takes its lock again.
+            frame = _past_waits(frame)
+        elif (resume is not None and frame is not resume
+              and frame.f_code.co_filename in _WAITING_FILES):
+            # A waiting thread on its way out of the threading or queue
+            # modules' code, to its resume frame.
+            return
         if ((call and getattr(call[0], "__func__", call[0]) in (
                 TraceClient.stop, TraceClient.__exit__))
-                or not self._holdable(sys._getframe(1), (
-                    code is _COND_WAIT and offset in _WAKES))
+                or not self._holdable(frame)
                 or (self._graph_task is not None
                     and self._graph_task() != -1)):
             if ident in self.waiting:

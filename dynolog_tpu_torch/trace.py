@@ -485,7 +485,7 @@ def unmatched_launches(events: list, base_ns: int,
 def finish_trace(raw: str, out: str, steps: dict | None = None,
                  drop_host: bool = False, lead_ns: int | None = None,
                  stop_ns: int | None = None, profile: str | None = None,
-                 top: int = 40) -> dict:
+                 top: int = 40, device: bool = True) -> dict:
     """Finishes a capture's Chrome trace as kineto saved it at `raw`,
     reading it once, and writes it to `out` (`raw` itself may be `out`):
     without the event park's frame (_unpark_frames); without the host
@@ -497,8 +497,10 @@ def finish_trace(raw: str, out: str, steps: dict | None = None,
     writes the finished trace's compact_profile(top) there. Returns the
     finished trace's bytes and the launches of its window that have no
     device record, made before `stop_ns` where given (unmatched_launches):
-    {"write_bytes", "lost_launches"}. The shim runs this in a child
-    process."""
+    {"write_bytes", "lost_launches"}; lost_launches is None where the
+    capture did not record the `device` (its device tracer off), whose
+    launches have no device record by design. The shim runs this in a
+    child process."""
     if os.path.exists(raw):
         with open(raw) as f:
             doc = json.load(f)
@@ -512,7 +514,8 @@ def finish_trace(raw: str, out: str, steps: dict | None = None,
         events = _trim_lead(events, (lead_ns - base_ns) / 1e3)
     if drop_host:
         events = [e for e in events if e.get("cat") not in HOST_OP_CATEGORIES]
-    lost = len(unmatched_launches(events, base_ns, stop_ns))
+    lost = (len(unmatched_launches(events, base_ns, stop_ns)) if device
+            else None)
     if steps is not None:
         events.extend(step_events(base_ns=base_ns, **steps))
     doc["traceEvents"] = events

@@ -75,7 +75,14 @@ poll loop, the profiler warmup not waited on, the capture ring, a long
 step every 50 steps) with N duration and N iteration windows in turns
 through a dynologd of its own (`dyno gputrace`), each finished in the
 shim's child; "stepless", the same process never calling step(), N
-duration windows. A process whose captures opened the profiler two ways
+duration windows; "stepless_idle", "stepless" beside chip_smoke's
+IDLE_THREADS (in time.sleep(), Thread.join(), accept() and an idle
+asyncio loop), which the event park counts as parked at once (it
+prints the starts whose waiting threads lack one of them); "knobs",
+chip_smoke.py phase 15's process in a child of its own, N rounds of its
+eight knob captures through a dynologd of its own, a JSON line per
+capture (knobs_child); "knobs_gc", the same with a gc.collect() on the
+training thread in the middle of each window. A process whose captures opened the profiler two ways
 (the duration windows with profile_all_threads, the iteration windows
 thread-local under a schedule) ended up with no kernel record in any
 trace (ROADMAP C17); each process stops once 12 captures in a row hold
@@ -457,20 +464,23 @@ SHIM_PROCESSES = {"iterations": ("start_alone", "lead"),
                   "iterations_mix": ("lead", "lead_py0"),
                   "duration": ("duration",),
                   "mixed": ("lead", "duration"),
-                  "poll": (), "stepless": ()}
+                  "poll": (), "stepless": (), "stepless_idle": (),
+                  "knobs": (), "knobs_gc": ()}
 
 
-def poll_process(n: int, stepless: bool, stderr_dir: str | None) -> int:
+def poll_process(n: int, stepless: bool, stderr_dir: str | None,
+                 idle: bool = False) -> int:
     """chip_smoke.run_poll for n captures of each kind (n duration windows
-    where `stepless`) against a dynologd of its own: a progress line
-    every 100 captures, then poll_report's lines and, with `stderr_dir`,
-    every capture's facts in DIR/shim_starts_NAME.jsonl, every ring
-    sample's timing (with the ms it was seen at) in
-    DIR/shim_starts_NAME.ring.jsonl."""
+    where `stepless`; beside chip_smoke.IDLE_THREADS where `idle`)
+    against a dynologd of its own: a progress line every 100 captures,
+    then poll_report's lines (with `idle`, the starts whose waiting
+    threads lack an idle one) and, with `stderr_dir`, every capture's
+    facts in DIR/shim_starts_NAME.jsonl, every ring sample's timing
+    (with the ms it was seen at) in DIR/shim_starts_NAME.ring.jsonl."""
     cs = _smoke()
     from dynolog_tpu_torch.ops import _build
 
-    name = "stepless" if stepless else "poll"
+    name = ("stepless_idle" if idle else "stepless") if stepless else "poll"
     _build.build_all()
     cs.DaemonBuild().run()
     daemon = cs.Daemon()
@@ -489,7 +499,7 @@ def poll_process(n: int, stepless: bool, stderr_dir: str | None) -> int:
         got = cs.run_poll(
             daemon, n, stepless, progress,
             stderr_dir and os.path.join(stderr_dir,
-                                        f"shim_starts_{name}.stderr"))
+                                        f"shim_starts_{name}.stderr"), idle)
     finally:
         daemon.stop()
     if stderr_dir:
@@ -511,15 +521,197 @@ def poll_process(n: int, stepless: bool, stderr_dir: str | None) -> int:
         "median_step_ms": got["median_step_ms"],
         "ring_samples": len(got["ring"]), "steps": got["steps"],
         "recount_mismatches": cs.recount_mismatches(got["captures"]),
+        "idle_unwaited": cs.idle_unwaited(got) if idle else None,
         "last_error": got["last_error"]}), flush=True)
+    return 0
+
+
+def _step_records(path: str) -> list:
+    """Per ProfilerStep#N span of a finished trace, in order (the last
+    one runs from the window's last step() to the stop): the kernel
+    launches made inside it (as trace.unmatched_launches counts them) and
+    those of them with a device record, joined by correlation."""
+    from dynolog_tpu_torch import trace
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = {(e.get("args") or {}).get("correlation") for e in events
+              if e.get("cat") in trace.DEVICE_CATS}
+    launches = [(float(e["ts"]), (e.get("args") or {}).get("correlation"))
+                for e in events if e.get("cat") in trace.LAUNCH_CATS
+                and "Launch" in e.get("name", "")]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") == "user_annotation"
+                   and e.get("name", "").startswith(trace.STEP_PREFIX))
+    out = []
+    for t0, t1 in spans:
+        mine = [c for t, c in launches if t0 <= t < t1]
+        out.append([len(mine), sum(c in device for c in mine)])
+    return out
+
+
+def _loss_side(steps: list) -> str | None:
+    """Where a capture's poorest step (fewest device records) lost them:
+    "device" where it made about as many launches as the richest step
+    (its kernel records alone are missing), "host" where its launches
+    are missing too; None without a step."""
+    if not steps:
+        return None
+    launches, records = min(steps, key=lambda s: s[1])
+    return ("device" if launches >= 0.9 * max(s[0] for s in steps)
+            else "host")
+
+
+def knobs_child(n: int, gc_mid: bool) -> int:
+    """chip_smoke.py phase 15's process (`--shim-starts N knobs`): its
+    dense trainer under one TraceClient (its poll loop, one TorchProfiler
+    reconfigured by each capture) against a dynologd of its own, taken
+    through n rounds of every entry of chip_smoke.KNOB_CAPTURES in order
+    through `dyno gputrace`, each capture as the phase takes it
+    (chip_smoke.knob_capture: no synchronize per step while it waits for
+    the manifest; knob_trace, knob_check). With `gc_mid` (knobs_gc) the
+    training thread runs gc.collect() once in the middle of each window.
+    Prints a line per capture: its knob, steps, flash records, launches
+    and device records per step, lost_launches, lead_ms, the saved
+    sessions still alive in the middle of its window (and, with
+    `gc_mid`, those the collection freed there); for a lossy capture
+    (knob_check's failures, or lost launches where the device tracer
+    ran: at device level 0 the finish counts every launch as lost)
+    chip_smoke.lost_offsets and the side of the loss (_loss_side), and
+    each line's seconds since the first capture. Then the lossy count
+    per knob. A round's traces are deleted once the next round is
+    over."""
+    import gc
+    import weakref
+
+    cs = _smoke()
+    from dynolog_tpu_torch import trace
+    from dynolog_tpu_torch.client import TraceClient
+    from dynolog_tpu_torch.ops import _build
+
+    name = "knobs_gc" if gc_mid else "knobs"
+    _build.build_all()
+    build = cs.DaemonBuild()
+    build.run()
+    if build.error:
+        raise RuntimeError(f"daemon build failed: {build.error}")
+    daemon = cs.Daemon()
+    trainer = cs.Trainer(cs.dense_config())
+    job_id = 5600 + os.getpid() % 1000
+    tmp = tempfile.mkdtemp(prefix="dynotpu_knobs_")
+    client = TraceClient(job_id=job_id, endpoint=daemon.endpoint,
+                         poll_interval_s=0.2, report_interval_s=1.0)
+    sessions, mids = [], []  # weakrefs to saved sessions; per window
+    save = client.profiler.export
+
+    def export(trace_dir, **kw):
+        if client.profiler._stopped is not None:
+            sessions.append(weakref.ref(client.profiler._stopped))
+        return save(trace_dir, **kw)
+
+    def mid_window():
+        sessions[:] = [r for r in sessions if r() is not None]
+        alive = len(sessions)
+        if gc_mid:
+            gc.collect()
+        mids.append((alive, alive - sum(r() is not None for r in sessions)))
+
+    client.profiler.export = export
+    lossy = {knob: [] for knob in cs.KNOB_CAPTURES}
+    old, files = [], []
+    try:
+        if not client.start():
+            raise RuntimeError("the knobs process's shim could not register")
+        for _ in range(cs.STEPS):
+            trainer.step()
+            client.step()
+            torch.cuda.synchronize()
+        t_start = time.time()
+        for rnd in range(n):
+            for path in old:
+                for f in (path, path.replace(trace.TRACE_SUFFIX,
+                                             trace.SUMMARY_SUFFIX)):
+                    if os.path.exists(f):
+                        os.unlink(f)
+            old, files = files, []
+            for knob, flags in cs.KNOB_CAPTURES.items():
+                log_file = os.path.join(tmp, f"{knob}_{rnd}.json")
+                mids.clear()
+                manifest, _ = cs.knob_capture(daemon, client, trainer, job_id,
+                                              log_file, flags, mid_window)
+                files.append(str(cs.manifest_path(log_file)))
+                levels = cs.knob_levels(flags)
+                cats, summary = cs.knob_trace(manifest)
+                timing = manifest.get("timing") or {}
+                if max(levels.values()) < 1:
+                    found = [] if manifest["status"] == "error" and all(
+                        f"{k}=0" in manifest.get("error", "") for k in (
+                            "PROFILE_PYTHON_TRACER_LEVEL",
+                            "PROFILE_HOST_TRACER_LEVEL",
+                            "PROFILE_DEVICE_TRACER_LEVEL")) else [
+                                f"{knob}: manifest {manifest}"]
+                else:
+                    found = cs.knob_check(knob, levels,
+                                          "--notrace_json" not in flags,
+                                          manifest, summary, cats)
+                row = {"case": "shim_starts", "process": name, "round": rnd,
+                       "knob": knob, "status": manifest["status"],
+                       "steps": summary.get("steps", {}).get("count"),
+                       "flash": {k: r and r["count"] for k, r in
+                                 cs.flash_rows(summary).items()},
+                       "lost_launches": timing.get("lost_launches"),
+                       "lead_ms": timing.get("lead_ms"),
+                       "alive_mid_window": mids[0][0] if mids else None,
+                       "freed_mid_window": (mids[0][1] if mids and gc_mid
+                                            else None),
+                       "t_s": round(time.time() - t_start, 1)}
+                if manifest["status"] == "ok":
+                    files.append(manifest["trace_file"])
+                    row["per_step"] = _step_records(manifest["trace_file"])
+                if found or (timing.get("lost_launches")
+                             and levels["device_tracer_level"] >= 1):
+                    row["failures"] = found
+                    if manifest["status"] == "ok":
+                        row["lost_offsets"] = cs.lost_offsets(manifest)
+                        row["loss"] = _loss_side(
+                            row["per_step"][:cs.ITERATIONS])
+                    lossy[knob].append(rnd)
+                print(json.dumps(row), flush=True)
+    finally:
+        client.stop()
+        for proc in client.summary_procs:
+            proc.wait(timeout=120)
+        daemon.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"case": "shim_starts", "process": name, "rounds": n,
+                      "lossy_by_knob": {k: len(v) for k, v in lossy.items()},
+                      "lossy_rounds": lossy}), flush=True)
     return 0
 
 
 def shim_starts(n: int, names: list, stderr_dir: str | None) -> int:
     rc = 0
     for name in names or ("iterations", "duration", "mixed"):
-        if name in ("poll", "stepless"):
-            rc |= poll_process(n, name == "stepless", stderr_dir)
+        if name in ("poll", "stepless", "stepless_idle"):
+            rc |= poll_process(n, name != "poll", stderr_dir,
+                               name == "stepless_idle")
+            continue
+        if name in ("knobs", "knobs_gc"):
+            # Its lines stream to this process's stdout as they come.
+            err = (open(os.path.join(stderr_dir, f"shim_starts_{name}.stderr"),
+                        "w") if stderr_dir else None)
+            try:
+                out = subprocess.run(
+                    [sys.executable, __file__, "--knobs-child", str(n),
+                     "1" if name == "knobs_gc" else "0"], stderr=err)
+            finally:
+                if err:
+                    err.close()
+            if out.returncode != 0:
+                rc = 1
+                print(f"shim-starts process {name} exited "
+                      f"{out.returncode}", flush=True)
             continue
         out = subprocess.run(
             [sys.executable, __file__, "--shim-starts-child", str(n),
@@ -932,6 +1124,8 @@ def main() -> int:
             stderr_dir = names[k + 1]
             names = names[:k] + names[k + 2:]
         return shim_starts(int(sys.argv[2]), names, stderr_dir)
+    if sys.argv[1:2] == ["--knobs-child"]:
+        return knobs_child(int(sys.argv[2]), sys.argv[3] == "1")
     if sys.argv[1:2] == ["--shim-starts-child"]:
         return shim_starts_child(int(sys.argv[2]),
                                  tuple(sys.argv[3].split(",")))

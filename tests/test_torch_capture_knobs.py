@@ -367,6 +367,48 @@ def test_no_tracer_left_is_an_error_manifest(client, tmp_path):
     assert "python_function" in _cats(_events(manifest["trace_file"]))
 
 
+def _knob_text(flags: list) -> str:
+    """The config text the dyno CLI writes for these gputrace flags."""
+    return "\n".join(
+        "TRACE_JSON=0" if flag == "--notrace_json"
+        else "PROFILE_" + flag.lstrip("-").partition("=")[0].upper()
+        + "=" + flag.partition("=")[2] for flag in flags)
+
+
+def test_one_profiler_through_every_knob_capture_keeps_its_steps(client,
+                                                                  tmp_path):
+    """chip_smoke.py phase 15's cycle on the CPU: one TorchProfiler,
+    reconfigured by each capture's config, through every entry of its
+    KNOB_CAPTURES in order (sessions with the CPU activity and without
+    it, a start that raises). Each capture runs at the levels the JAX
+    capture runs at for the same config; every one that runs a tracer
+    keeps both its steps and loses no launch (counts none at device
+    level 0), and the one with no tracer left is an error manifest
+    naming the three knobs."""
+    import chip_smoke
+
+    for name, flags in chip_smoke.KNOB_CAPTURES.items():
+        text = _knob_text(flags)
+        manifest = _capture(client, tmp_path, text, name,
+                            n=chip_smoke.ITERATIONS)
+        ref = jax_shim.JaxProfiler()
+        ref.configure(_raw(text)[0])
+        levels = chip_smoke.knob_levels(flags)
+        assert client.profiler.levels == levels == _jax_levels(ref), name
+        if max(levels.values()) < 1:
+            assert manifest["status"] == "error", manifest
+            assert all(k in manifest["error"] for k in (
+                "PROFILE_PYTHON_TRACER_LEVEL=0", "PROFILE_HOST_TRACER_LEVEL=0",
+                "PROFILE_DEVICE_TRACER_LEVEL=0")), manifest["error"]
+            continue
+        assert manifest["status"] == "ok", manifest
+        # None where the device tracer is off: no kernel is recorded.
+        assert manifest["timing"]["lost_launches"] == (
+            0 if levels["device_tracer_level"] >= 1 else None), manifest
+        summary = trace.summarize(manifest["trace_file"])
+        assert summary["steps"]["count"] == chip_smoke.ITERATIONS, name
+
+
 def _summary_path(trace_file: str) -> str:
     return trace_file[: -len(trace.TRACE_SUFFIX)] + trace.SUMMARY_SUFFIX
 

@@ -13,12 +13,14 @@ in-process, and an iteration window that records from one step early is
 trimmed to its own steps; the window's steps are held against the JAX
 client's choice."""
 
+import gc
 import json
 import os
 import re
 import shutil
 import threading
 import time
+import weakref
 
 import pytest
 import torch
@@ -402,6 +404,59 @@ def test_iteration_window_records_its_lead(tmp_path):
     assert trace.summarize(manifest["trace_file"])["steps"]["count"] == 2
 
 
+@pytest.mark.parametrize("saved", ["in_process", "pipelined", "unsaved"])
+def test_stopped_session_is_freed_without_the_cyclic_gc(tmp_path, saved):
+    """A stopped torch.profiler.profile holds bound methods of itself
+    (its action_map), a reference cycle: left alone, its results (the
+    autograd profiler, which holds kineto's) live on until a cyclic
+    collection frees them, on whichever thread's allocation sets it off,
+    possibly the app's inside a later capture's window (ROADMAP C22).
+    With the GC off, the session and its autograd profiler are gone once
+    export() returns, pipelined or not, or, where a session was stopped
+    and never saved, once the next one stops; the saved trace keeps its
+    steps."""
+    a = torch.randn(32, 32)
+    prof = TorchProfiler()
+
+    def session():
+        prof.start(str(tmp_path))
+        for _ in range(2):
+            (a @ a).sum()
+            prof.step()
+        prof.stop()
+        return weakref.ref(prof._stopped), weakref.ref(prof._stopped.profiler)
+
+    def alive(refs) -> list:
+        # Not in the assert, whose rewrite would keep what r() returns.
+        return [r() is not None for r in refs]
+
+    # A process's first start sets torch up, and what that keeps (a
+    # warning's frames, under pytest) may hold the session: not checked.
+    session()
+    prof.export(str(tmp_path))
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        refs = session()
+        assert alive(refs) == [True, True]
+        if saved == "unsaved":
+            later = session()
+        else:
+            path = prof.export(str(tmp_path), pipelined=saved == "pipelined")
+        assert alive(refs) == [False, False]
+        if saved == "unsaved":
+            assert alive(later) == [True, True]
+            path = prof.export(str(tmp_path))
+            assert alive(later) == [False, False]
+    finally:
+        if enabled:
+            gc.enable()
+    if saved == "pipelined":
+        assert prof.take_pending_write().wait()["lost_launches"] == 0
+    assert trace.summarize(path)["steps"]["count"] == 2
+
+
 def _jax_start_at(base: int, roundup: int) -> int:
     """The step at which the JAX client's iteration window begins when it
     is armed at step `base`, read from its start timeout."""
@@ -628,6 +683,10 @@ def test_finish_counts_the_windows_lost_launches(tmp_path):
     assert trace.finish_trace(str(raw), str(out), lead_ns=_LEAD_NS)[
         "lost_launches"] == 3
     assert trace.finish_trace(str(raw), str(out))["lost_launches"] == 4
+    # A capture that did not record the device lost nothing.
+    assert trace.finish_trace(str(raw), str(out), lead_ns=_LEAD_NS,
+                              stop_ns=_STOP_NS, device=False)[
+        "lost_launches"] is None
     raw.write_text(json.dumps(_hand_written_lead_trace()))
     assert trace.finish_trace(str(raw), str(out), lead_ns=_LEAD_NS,
                               stop_ns=_STOP_NS)["lost_launches"] == 0
@@ -635,7 +694,12 @@ def test_finish_counts_the_windows_lost_launches(tmp_path):
 
 class PlantedProfiler(FakeFinishingProfiler):
     """Saves _planted_trace as kineto's and hands its finish (lead and stop
-    at the planted times) to the port's PendingWrite."""
+    at the planted times; the `device` recorded or not) to the port's
+    PendingWrite."""
+
+    def __init__(self, device: bool = True):
+        super().__init__()
+        self.device = device
 
     def export(self, trace_dir, pipelined=False, profile_top=None):
         path = os.path.join(trace_dir, "run" + shim.TRACE_SUFFIX)
@@ -644,7 +708,8 @@ class PlantedProfiler(FakeFinishingProfiler):
             f.write(json.dumps(_planted_trace()))
         self._pending = PendingWrite(
             {"raw": raw, "out": tmp, "steps": self._clock.spec(),
-             "lead_ns": _LEAD_NS, "stop_ns": _STOP_NS}, path)
+             "lead_ns": _LEAD_NS, "stop_ns": _STOP_NS,
+             "device": self.device}, path)
         return path
 
 
@@ -684,3 +749,26 @@ def test_lossy_capture_says_so_in_its_manifest(tmp_path, finish):
     manifest = json.loads(open(clean_cfg.manifest_path(os.getpid())).read())
     assert manifest["timing"]["lost_launches"] == 0
     assert clean.last_error is None
+
+
+def test_capture_without_the_device_tracer_loses_no_launch(tmp_path):
+    """At PROFILE_DEVICE_TRACER_LEVEL=0 the profiler records no kernel,
+    so every launch of the window lacks its kernel record by design: the
+    finish counts none as lost (lost_launches None), the manifest is ok
+    and last_error stays None. TorchProfiler hands the finish the
+    capture's device level."""
+    client, cfg = _run_capture(tmp_path, PlantedProfiler(device=False))
+    client.stop()
+    manifest = json.loads(open(cfg.manifest_path(os.getpid())).read())
+    assert manifest["status"] == "ok", manifest
+    assert manifest["timing"]["lost_launches"] is None
+    assert client.last_error is None
+    prof = TorchProfiler()
+    for level, device in (("0", False), ("1", True)):
+        prof.configure({"PROFILE_DEVICE_TRACER_LEVEL": level})
+        prof.start(str(tmp_path))
+        prof.step()
+        prof.stop()
+        path = str(tmp_path / ("d" + level + shim.TRACE_SUFFIX))
+        assert prof._finish_spec(path, None)["device"] is device
+        prof.export(str(tmp_path))

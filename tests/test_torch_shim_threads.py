@@ -22,14 +22,18 @@ the window to open at the start time; the finish trims the lead. Held
 against the JAX client's duration windows where it has one."""
 
 import _thread
+import asyncio
+import ctypes
 import json
 import os
 import queue
+import selectors
 import socket
 import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -52,12 +56,13 @@ def _parks_watch_this_tests_threads(monkeypatch):
     that earlier tests in this worker process left running (a server's
     accept loop, an idle pool's worker) are not this test's app, and
     each would hold every start the park's bound: the parks of this
-    test watch the others."""
-    left = {t.ident for t in threading.enumerate()
+    test watch the others. They are told apart as objects, not by their
+    idents: a thread of this test can reuse the ident of one that ended
+    since."""
+    left = {t for t in threading.enumerate()
             if t is not threading.main_thread()}
     monkeypatch.setattr(shim, "_app_threads", lambda: {
-        ident: t for ident, t in _APP_THREADS().items()
-        if ident not in left})
+        ident: t for ident, t in _APP_THREADS().items() if t not in left})
 
 
 class _ConfigsIpc:
@@ -903,31 +908,26 @@ def test_stepless_app_is_held_at_every_start(kind, tmp_path):
             assert timing["stop_park_ms"] >= 0
 
 
-@pytest.mark.parametrize("blocker", ["lock_acquire", "join", "sleep",
-                                     "accept"])
+@pytest.mark.parametrize("blocker", ["lock_acquire", "ctypes_usleep"])
 def test_thread_in_c_does_not_hold_a_start_past_its_bound(blocker,
                                                           monkeypatch):
-    """A thread that stays in C, other than at a wait site the park
-    knows, reaches no Python event: the start waits for it
-    EVENT_PARK_WAIT_S, no longer, holds the threads that did reach one,
-    and goes ahead with parked false and that thread named."""
+    """A thread that stays in C, other than at a wait the park knows (a
+    bare lock acquire, which leaves it holding the lock when it wakes; a
+    ctypes call, which could launch work from C), reaches no Python
+    event: the start waits for it EVENT_PARK_WAIT_S, no longer, holds the
+    threads that did reach one, and goes ahead with parked false and that
+    thread named."""
     monkeypatch.setattr(shim, "EVENT_PARK_WAIT_S", 1.0)
     release = _Gate()
-    listener = socket.socket()
-    listener.bind(("127.0.0.1", 0))
-    listener.listen(1)
     joined = threading.Thread(target=release.wait, name="joined")
     joined.start()
+    libc = ctypes.CDLL(None)
 
     def blocked():
         if blocker == "lock_acquire":
             release.wait()
-        elif blocker == "join":
-            joined.join()
-        elif blocker == "sleep":
-            time.sleep(4.0)
         else:
-            listener.accept()[0].close()
+            libc.usleep(3_500_000)
 
     counter, stop = [0], threading.Event()
     client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
@@ -945,11 +945,8 @@ def test_thread_in_c_does_not_hold_a_start_past_its_bound(blocker,
     finally:
         release.set()
         stop.set()
-        if blocker == "accept":
-            socket.create_connection(listener.getsockname()).close()
         for t in (in_c, app, joined):
             t.join(timeout=30)
-        listener.close()
         client.stop()
     assert error is None
     assert window.timing["parked"] is False and window.timing["park"] is None
@@ -965,89 +962,235 @@ def test_thread_in_c_does_not_hold_a_start_past_its_bound(blocker,
 
 
 class _Waking(_Counted):
-    """_Counted whose start first wakes a waiting app thread (`wake`),
-    gives it time to run, and keeps its count of wakes (`woke_in_start`)."""
+    """_Counted whose start first wakes a waiting app thread (`wake`, its
+    seconds kept in `wake_s`), gives it time to run, keeps its count of
+    wakes (`woke_in_start`) and what `probe()` finds then (`probed`)."""
 
-    def __init__(self, counter: list, woke: list, wake):
+    def __init__(self, counter: list, woke: list, wake, probe=None):
         super().__init__(counter)
-        self.woke, self.wake = woke, wake
-        self.woke_in_start = None
+        self.woke, self.wake, self.probe = woke, wake, probe
+        self.woke_in_start = self.probed = None
+        self.wake_s = 0.0
 
     def start(self, trace_dir, lead=False):
+        t0 = time.time()
         self.wake()
+        self.wake_s = time.time() - t0
         time.sleep(0.1)
         self.woke_in_start = self.woke[0]
+        if self.probe is not None:
+            self.probed = self.probe()
         super().start(trace_dir, lead)
 
 
-@pytest.mark.parametrize("waiter", ["event_wait", "queue_get",
-                                    "idle_pool_worker"])
-def test_thread_waiting_on_another_is_parked_at_once(waiter, monkeypatch):
-    """A thread waiting on another (Event.wait(), Queue.get(), an idle
-    ThreadPoolExecutor's worker) cannot reach the card before its next
-    Python event: the start counts it as parked, with no wait for it, and
-    names it ``waiting``; the start wakes it, and it is held where it
-    wakes until the start has returned."""
-    monkeypatch.setattr(shim, "EVENT_PARK_WAIT_S", 5.0)
-    counter, woke, stop = [0], [0], threading.Event()
+# How long a sleeping waiter sleeps: the start it is counted parked for
+# (0.3 s after it began) waits out its sleep, so that it wakes inside.
+SLEEP_S = 2.0
+
+
+def _waiter(kind: str, woke: list) -> SimpleNamespace:
+    """An app thread named "waiter" (an idle pool's "waiter_0") that
+    waits in `kind`'s call, then adds one to woke[0] (with no call in
+    between, so that only an event at an instruction can hold it before
+    it does): `thread` (None for the pool), `wake()`, `done()` (wakes
+    it where it still waits, and cleans up), and the thread it joins
+    (`joined`) or the Condition it waits on (`cond`)."""
 
     def count():
         woke[0] += 1
 
-    pool, thread = None, None
-    if waiter == "idle_pool_worker":
+    if kind == "idle_pool_worker":
         pool = ThreadPoolExecutor(1, thread_name_prefix="waiter")
         pool.submit(int).result()  # its worker is up, then idle
-
-        def wake():
-            pool.submit(count)
-    else:
+        return SimpleNamespace(thread=None, wake=lambda: pool.submit(count),
+                               done=pool.shutdown)
+    got = SimpleNamespace(joined=None, cond=None)
+    closers, cleanup = [], None
+    if kind in ("event_wait", "queue_get"):
         event, items = threading.Event(), queue.Queue()
+        got.cond = event._cond if kind == "event_wait" else items.not_empty
 
         def wait():
-            event.wait() if waiter == "event_wait" else items.get()
-            count()
-
-        thread = threading.Thread(target=wait, name="waiter")
-        thread.start()
+            event.wait() if kind == "event_wait" else items.get()
 
         def wake():
-            event.set() if waiter == "event_wait" else items.put(None)
+            event.set() if kind == "event_wait" else items.put(None)
+    elif kind == "join":
+        # The shim's threads are not watched: this one ends in the start.
+        gate = threading.Event()
+        joined = threading.Thread(target=gate.wait,
+                                  name=shim.THREAD_PREFIX + "joined")
+        joined.start()
+        wait, wake, got.joined = joined.join, gate.set, joined
+    elif kind in ("sleep", "from_time_sleep"):
+        ends = []
 
+        def wait():
+            ends.append(time.monotonic() + SLEEP_S)
+            if kind == "sleep":
+                time.sleep(SLEEP_S)
+            else:
+                from time import sleep
+                sleep(SLEEP_S)  # the callee resolved, not its name
+
+        def wake():
+            time.sleep(max(ends[0] - time.monotonic(), 0.0) + 0.05)
+    elif kind == "accept":
+        listener = socket.socket()
+        listener.bind(("127.0.0.1", 0))
+        listener.listen(1)
+        closers.append(listener)
+
+        def wait():
+            listener.accept()[0].close()
+
+        def wake():
+            closers.append(socket.create_connection(listener.getsockname()))
+    elif kind in ("recv", "selector"):
+        a, b = socket.socketpair()
+        closers += [a, b]
+
+        def wait():
+            if kind == "recv":
+                a.recv(1)
+            else:
+                with selectors.DefaultSelector() as sel:
+                    sel.register(a, selectors.EVENT_READ)
+                    sel.select()
+
+        def wake():
+            b.send(b"x")
+    else:  # an asyncio loop with nothing scheduled
+        loop = asyncio.new_event_loop()
+
+        def wait():
+            loop.run_forever()  # count() runs in it once woken
+
+        def wake():
+            loop.call_soon_threadsafe(count)
+
+        def cleanup():
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(timeout=30)
+            loop.close()
+
+    def run():
+        wait()
+        if kind != "asyncio":
+            woke[0] += 1
+
+    thread = threading.Thread(target=run, name="waiter")
+    thread.start()
+
+    def done():
+        if thread.is_alive() and kind != "asyncio":
+            wake()
+        if cleanup is not None:
+            cleanup()
+        thread.join(timeout=30)
+        for c in closers:
+            c.close()
+    got.thread, got.wake, got.done = thread, wake, done
+    return got
+
+
+WAITERS = ["event_wait", "queue_get", "idle_pool_worker", "join", "sleep",
+           "from_time_sleep", "accept", "recv", "selector", "asyncio"]
+
+
+@pytest.mark.parametrize("waiter", WAITERS)
+def test_thread_waiting_on_another_is_parked_at_once(waiter, monkeypatch):
+    """A thread waiting on another thread or on the outside (Event.wait(),
+    Queue.get(), an idle ThreadPoolExecutor's worker, Thread.join(),
+    time.sleep() however it was imported, a socket's accept() or recv(),
+    an idle selector or asyncio loop) cannot reach the card before its
+    next Python event: the start counts it as parked, with no wait for it
+    (under 0.5 s, EVENT_PARK_WAIT_S is 5 s), and names it ``waiting``;
+    woken in the start, it is held where it wakes until the start has
+    returned."""
+    monkeypatch.setattr(shim, "EVENT_PARK_WAIT_S", 5.0)
+    counter, woke, stop = [0], [0], threading.Event()
+    w = _waiter(waiter, woke)
     client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
-                         profiler=_Waking(counter, woke, wake),
+                         profiler=_Waking(counter, woke, w.wake),
                          report_interval_s=0)
-    app = threading.Thread(target=_spinning, args=(stop, counter))
+    app = threading.Thread(target=_spinning, args=(stop, counter),
+                           name="app")
     app.start()
     time.sleep(0.3)  # the waiter is in its wait
     try:
         t0 = time.time()
         error, window = client._capture_window(
             TraceConfig(duration_ms=20), "unused")
-        took = time.time() - t0
+        took = time.time() - t0 - client.profiler.wake_s
         deadline = time.time() + 30
         while not woke[0] and time.time() < deadline:
             time.sleep(0.005)
     finally:
         stop.set()
         app.join(timeout=30)
-        if thread is not None:
-            wake()
-            thread.join(timeout=30)
-        if pool is not None:
-            pool.shutdown(wait=True)
+        w.done()
         client.stop()
     assert error is None
     assert window.timing["parked"] is True
     assert window.timing["park"] == "event"
-    assert window.timing["waiting"] == [
-        "waiter_0" if pool is not None else "waiter"], window.timing
-    assert window.timing["park_ms"] < 1000 and took < 3.0
+    # The spinning app thread, caught in its time.sleep(), counts too.
+    name = "waiter" if w.thread is not None else "waiter_0"
+    assert name in window.timing["waiting"], window.timing
+    assert set(window.timing["waiting"]) <= {name, "app"}, window.timing
+    assert window.timing["park_ms"] < 500 and took < 3.0, window.timing
     # Woken in the start, it ran only after the start returned.
     assert client.profiler.woke_in_start == 0 and woke[0] == 1
     (_, before, after), = [s for s in client.profiler.seen
                            if s[0] == "start"]
     assert before == after
+    assert _tools_clean()
+
+
+@pytest.mark.parametrize("waiter", ["join", "event_wait", "queue_get"])
+def test_woken_thread_is_held_holding_no_lock_of_threadings(waiter):
+    """A thread woken in the threading module's wait (Thread.join()'s,
+    Condition.wait()'s) is held at its next Python event where it holds
+    none of that module's locks: the joined thread's state lock released
+    (join's _stop() done), the Condition's lock free, the module's own
+    locks free; it runs on only after the start."""
+    counter, woke, found = [0], [0], {}
+
+    def probe():
+        found["held"] = w.thread.ident in client._window.park.held
+        locks = [threading._active_limbo_lock,
+                 threading._shutdown_locks_lock]
+        if w.joined is not None:
+            # Its _stop() ran: the joined thread's state lock is released.
+            found["joined_stopped"] = (w.joined._is_stopped
+                                       and w.joined._tstate_lock is None)
+        else:
+            locks.append(w.cond._lock)
+        found["free"] = []
+        for lock in locks:
+            free = lock.acquire(timeout=1.0)
+            found["free"].append(free)
+            if free:
+                lock.release()
+        return found
+
+    w = _waiter(waiter, woke)
+    client = TraceClient(job_id=7, endpoint="dynotpu_threads_nodaemon",
+                         profiler=_Waking(counter, woke, w.wake, probe),
+                         report_interval_s=0)
+    time.sleep(0.3)  # the waiter is in its wait
+    try:
+        error, window = client._capture_window(
+            TraceConfig(duration_ms=20), "unused")
+        w.thread.join(timeout=30)
+    finally:
+        w.done()
+        client.stop()
+    assert error is None and window.timing["parked"] is True
+    assert client.profiler.probed is found
+    assert found["held"] and all(found["free"]), found
+    assert found.get("joined_stopped", True), found
+    assert client.profiler.woke_in_start == 0 and woke[0] == 1
     assert _tools_clean()
 
 
