@@ -71,6 +71,9 @@ CONFIG_TYPE_ACTIVITIES = 0x2
 
 # Worst-case datagram we accept (metadata + config payload).
 _MAX_DGRAM = 1 << 20
+# Tries of each span of a burst on a full receive queue (send_spans): the
+# backoffs, 10 ms doubling, wait up to 630 ms for the daemon to drain it.
+SPAN_RETRIES = 6
 
 
 def _socket_dir() -> str | None:
@@ -169,15 +172,22 @@ class IpcClient:
         retries: int = 10,
         sleep_s: float = 0.01,
         sock: socket.socket | None = None,
+        retry_absent: bool = True,
     ) -> bool:
-        """Send with exponential backoff (sync_send analog)."""
+        """Send with exponential backoff (sync_send analog). Without
+        `retry_absent` only a full receive queue is waited out: a peer that
+        is not there fails at once."""
         frame = METADATA.pack(len(payload), msg_type) + payload
         addr = _address(dest)
         for _ in range(retries):
             try:
                 (sock or self.sock).sendto(frame, addr)
                 return True
-            except (BlockingIOError, ConnectionRefusedError, FileNotFoundError):
+            except BlockingIOError:
+                time.sleep(sleep_s)
+            except (ConnectionRefusedError, FileNotFoundError):
+                if not retry_absent:
+                    return False
                 time.sleep(sleep_s)
                 sleep_s *= 2
         return False
@@ -399,7 +409,8 @@ class IpcClient:
         # telemetry, not correctness — never stall the app's shim thread.
         return self.send(MSG_TYPE_PERF_STATS, payload, dest, retries=2)
 
-    def send_span(self, span, dest: str = DAEMON_ENDPOINT) -> bool:
+    def send_span(self, span, dest: str = DAEMON_ENDPOINT,
+                  retries: int = 2, retry_absent: bool = True) -> bool:
         """Fire-and-forget completed-span report (obs.Span or anything
         with its fields; the daemon merges it into the `selftrace` ring
         and feeds trace.convert durations to the scrape histogram).
@@ -417,12 +428,25 @@ class IpcClient:
             0,
             span.name.encode(errors="replace")[:47],
         )
-        return self.send(MSG_TYPE_SPAN, payload, dest, retries=2)
+        return self.send(MSG_TYPE_SPAN, payload, dest, retries=retries,
+                         retry_absent=retry_absent)
 
     def send_spans(self, spans, dest: str = DAEMON_ENDPOINT) -> int:
         """send_span() each; returns how many were accepted by the
-        socket layer (delivery is still fire-and-forget)."""
-        return sum(1 for s in spans if self.send_span(s, dest=dest))
+        socket layer (delivery is still fire-and-forget). A capture's
+        spans come in a burst longer than a datagram socket's receive
+        queue (net.unix.max_dgram_qlen, 10 by default), which the daemon
+        drains after each of its 10 ms sleeps: each span waits for room up
+        to SPAN_RETRIES backoffs, until one finds none (the rest then get
+        one try each). An absent daemon fails each at once."""
+        sent, retries = 0, SPAN_RETRIES
+        for s in spans:
+            if self.send_span(s, dest=dest, retries=retries,
+                              retry_absent=False):
+                sent += 1
+            else:
+                retries = 1
+        return sent
 
 
 def pid_ancestry(max_depth: int = 10) -> list[int]:

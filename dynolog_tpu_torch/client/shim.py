@@ -59,6 +59,43 @@ tracer level 0, which records no kernel). A second child
 at low priority then writes the trace's summary (``<run>.summary.json``)
 beside it.
 
+Each phase of a capture is one ``obs`` span under the capture's trace-id
+(the manifest's ``trace_ctx``), sent to dynologd after the manifest, where
+``dyno selftrace --trace_id=<id>`` serves them on the unix clock that the
+manifest and kineto's trace use too. The manifest lists them as well
+(``spans``: Chrome-trace "X" events, ``ts`` and ``dur`` in us), all but
+its own ``shim.artifact_write``. Each phase is timed once: its
+``timing`` key is its span's ``dur_us // 1000``. The tree, on the poll
+thread but where it says otherwise:
+
+    shim.capture           arming to the end of kineto's save
+      shim.park            park_ms: arming to the app parked, or the
+                           event park's hold
+      shim.profiler_start  profiler_start_ms
+      shim.lead            lead_ms: the start's return to the window's
+                           opening (a duration window's DURATION_LEAD_S;
+                           an iteration window's lead step, ended by the
+                           training thread's step() that opens it)
+      shim.window          window_ms: the window's opening to the stop's
+                           beginning; an iteration window counts from the
+                           start's return, so its shim.lead (the lead
+                           step) lies inside it, and an event-parked
+                           window holds its stop's park:
+        shim.stop_park     stop_park_ms
+      shim.profiler_stop   profiler_stop_ms (ROADMAP C16)
+      shim.export          export_ms: the save in this process
+        shim.kineto_save   kineto's export_chrome_trace
+        shim.free_session  the session's release (_free_session)
+        shim.finish        write_ms: the PendingWrite, spawning its child
+                           to the rename (its own thread)
+      shim.step_held       the training thread parked in step() at a
+                           window's edge (the training thread; no key)
+    shim.artifact_write    the manifest's write
+
+A ring sample's shim.capture lies under ``shim.ring_capture``. The warmup
+records its park, ``shim.drain`` (drain_ms), start, stop and export under
+a ``shim.warmup`` of a trace-id of its own (``warmup_timing``).
+
 ``TraceClient(warmup_profiler=True)`` pays the profiler's one-time
 start-up cost with a throwaway start/stop on the poll thread before its
 first poll, the app parked from before its start to after its stop
@@ -114,6 +151,7 @@ Usage::
 from __future__ import annotations
 
 import _thread
+import collections
 import dis
 import functools
 import inspect
@@ -417,11 +455,9 @@ class CaptureRing:
         self._last_capture_t = time.monotonic()
         tmp = tempfile.mkdtemp(prefix="dynolog_tpu_torch_ring_cap_")
         try:
-            t0 = time.time()
-            with obs.span("shim.ring_capture"):
+            with obs.span("shim.ring_capture") as take_span:
                 got, timing = take(tmp)
-            t1 = time.time()
-            with obs.span("shim.ring_promote"):
+            with obs.span("shim.ring_promote") as promote:
                 if isinstance(got, PendingWrite):
                     done = got.wait(30.0)
                     if "write_error" in done:
@@ -433,10 +469,10 @@ class CaptureRing:
                     with open(got, "rb") as f:
                         profile = trace.compact_profile(
                             f.read(), top=self.config.top_ops)
-            path = self._store(profile)
+                path = self._store(profile)
             self.last_timing = {
-                **timing, "take_ms": int((t1 - t0) * 1000),
-                "promote_ms": int((time.time() - t1) * 1000),
+                **timing, "take_ms": _ms(take_span),
+                "promote_ms": _ms(promote),
                 "trace_bytes": profile["trace_bytes"]}
             self.captures += 1
             self.last_path = path
@@ -728,6 +764,12 @@ def _finish_files(path: str) -> tuple[str, str, str]:
     return path + ".raw.tmp", path + ".spec.tmp", path + ".tmp"
 
 
+def _ms(span: obs.Span) -> int:
+    """A recorded span's length in whole ms: the timing key of its
+    phase."""
+    return span.dur_us // 1000
+
+
 def _unlink_all(*paths: str) -> None:
     for p in paths:
         try:
@@ -757,6 +799,9 @@ class PendingWrite:
         self.result: dict | None = None
         self.error: str | None = None
         self._spec = spec
+        # The context it is made in (its capture's shim.export), for its
+        # shim.finish span on its own thread, which contextvars miss.
+        self._ctx = obs.current()
         self._proc: subprocess.Popen | None = None
         self._done = threading.Event()
         # Unsupervised by design: one per capture, joined through wait()
@@ -785,22 +830,24 @@ class PendingWrite:
             return None
 
     def _run(self) -> None:
-        t0 = time.time()
         raw, spec_path, tmp = _finish_files(self.path)
         try:
-            self._proc = self._spawn(spec_path)
-            if self._proc is None:
-                finished = trace.finish_trace(**self._spec)
-            else:
-                out, err = self._proc.communicate()
-                if self._proc.returncode != 0:
-                    tail = err.decode(errors="replace").strip().splitlines()
-                    raise RuntimeError(
-                        f"finish child exited {self._proc.returncode}"
-                        + (f": {tail[-1]}" if tail else ""))
-                finished = json.loads(out.decode().strip().splitlines()[-1])
-            os.replace(tmp, self.path)
-            self.result = {"write_ms": int((time.time() - t0) * 1000),
+            with obs.span("shim.finish", ctx=self._ctx) as span:
+                self._proc = self._spawn(spec_path)
+                if self._proc is None:
+                    finished = trace.finish_trace(**self._spec)
+                else:
+                    out, err = self._proc.communicate()
+                    if self._proc.returncode != 0:
+                        tail = err.decode(
+                            errors="replace").strip().splitlines()
+                        raise RuntimeError(
+                            f"finish child exited {self._proc.returncode}"
+                            + (f": {tail[-1]}" if tail else ""))
+                    finished = json.loads(
+                        out.decode().strip().splitlines()[-1])
+                os.replace(tmp, self.path)
+            self.result = {"write_ms": _ms(span),
                            "write_bytes": os.path.getsize(self.path),
                            "lost_launches": finished["lost_launches"]}
         except Exception as e:  # noqa: BLE001 - the finish is its own
@@ -969,7 +1016,8 @@ class TorchProfiler(CaptureKnobs):
         raw, _, tmp = _finish_files(path)
         try:
             if prof is not None:
-                prof.export_chrome_trace(raw)
+                with obs.span("shim.kineto_save"):
+                    prof.export_chrome_trace(raw)
             if pipelined:
                 self._pending_write = PendingWrite(spec, path)
                 return path
@@ -980,7 +1028,8 @@ class TorchProfiler(CaptureKnobs):
             raise
         finally:
             if prof is not None:
-                _free_session(prof)
+                with obs.span("shim.free_session"):
+                    _free_session(prof)
         _unlink_all(raw)
         return path
 
@@ -1058,8 +1107,13 @@ class _Window:
         self.error: str | None = None
         self.timing: dict = {}
         self.started_ms = 0
-        self._t_start = 0.0
         self.park: _EventPark | None = None
+        # The capture's span context (the poll thread makes the window
+        # inside it), for the training thread's shim.step_held spans.
+        self.ctx = obs.current()
+        # An iteration window's shim.lead: begun by the poll thread at the
+        # start's return, ended and recorded by the lead step's end.
+        self.lead_span: obs.Span | None = None
 
 
 # The prefix of every thread the shim starts (the poll thread, finishers,
@@ -1444,6 +1498,10 @@ WARMUP_PARK_WAIT_S = 10.0
 # H100 80GB HBM3 (700 W) starts with the app parked took a median 19 ms,
 # at most 143 ms in 300 captures of a mixed process (C17).
 SYNC_START_ALLOWANCE_S = 0.25
+# How many of the spans already sent to dynologd the shim keeps, so that a
+# manifest written after another capture's flush still lists all of its
+# capture's spans (a capture records about 15).
+SENT_SPANS_KEPT = 512
 
 
 class TraceClient:
@@ -1518,6 +1576,9 @@ class TraceClient:
         # the lock that serializes the captures' manifests.
         self._finishers: list[threading.Thread] = []
         self._finish_lock = threading.Lock()
+        # The last spans sent to dynologd, for later manifests (_spans_of).
+        self._sent_spans: collections.deque = collections.deque(
+            maxlen=SENT_SPANS_KEPT)
         self.instance_rank: int | None = None
         self.traces_completed = 0
         self.last_error: str | None = None
@@ -1619,10 +1680,12 @@ class TraceClient:
 
     def _drive_window(self, w: _Window, count: int) -> None:
         if w.state == "active":
-            if w.lead and count == w.start_at:
-                # The lead step's length, from the start's return (C15).
-                w.timing["lead_ms"] = int(
-                    (time.monotonic() - w._t_start) * 1000)
+            if w.lead_span is not None and count == w.start_at:
+                # The lead step's end (C15): its span ends here.
+                w.lead_span.dur_us = max(
+                    int(time.time() * 1e6) - w.lead_span.start_us, 0)
+                obs.JOURNAL.record(w.lead_span)
+                w.timing["lead_ms"] = _ms(w.lead_span)
             self.profiler.step()
         if w.state == "armed" and count >= w.start_at - w.lead:
             w.state = "opening"
@@ -1640,16 +1703,17 @@ class TraceClient:
         # started the iteration windows; with every start parked, 600 ran
         # clean). An iteration window's edges stay these step() calls.
         self._step_cv.notify_all()
-        self._step_cv.wait_for(lambda: w.state not in ("opening", "closing"))
+        with obs.span("shim.step_held", ctx=w.ctx):
+            self._step_cv.wait_for(
+                lambda: w.state not in ("opening", "closing"))
 
     def _stop_profiler(self, w: _Window, state: str) -> None:
-        w.timing["window_ms"] = int((time.monotonic() - w._t_start) * 1000)
-        t0 = time.time()
-        try:
-            self.profiler.stop()
-        except Exception as e:  # noqa: BLE001 - never kill the app
-            w.error = w.error or f"profiler stop failed: {e}"
-        w.timing["profiler_stop_ms"] = int((time.time() - t0) * 1000)
+        with obs.span("shim.profiler_stop") as span:
+            try:
+                self.profiler.stop()
+            except Exception as e:  # noqa: BLE001 - never kill the app
+                w.error = w.error or f"profiler stop failed: {e}"
+        w.timing["profiler_stop_ms"] = _ms(span)
         w.state = state
 
     # -- poll thread -----------------------------------------------------
@@ -1665,33 +1729,36 @@ class TraceClient:
         threads' next Python event (_EventPark, its threads waited for at
         most WARMUP_PARK_WAIT_S). It leaves no capture behind: export()
         takes the stopped one, and the next start() makes its own step
-        clock."""
+        clock. Its spans lie under a shim.warmup of a trace-id of its own."""
         tmp = tempfile.mkdtemp(prefix=WARMUP_PREFIX)
-        window = _Window(tmp, 0, None)
         try:
-            # C18: on an H100 80GB HBM3 (700 W), fresh processes of the
-            # dense trainer died (SIGABRT) in their first profiler session
-            # when it met the app's launches: 1 of 20 with the warmup
-            # started at once, 1 of 20 and 3 of 20 with it started with
-            # the app parked at its first step() but stopped while the
-            # app went on (the aborts were in the stop), 0 of 20 with the
-            # card drained first; 0 of 40 with the app parked through
-            # the start and stop and the card drained first (this code).
-            if self._start_parked(
-                    window, WARMUP_PARK_WAIT_S if self._ever_stepped else 0.0,
-                    hold=True, event_wait_s=WARMUP_PARK_WAIT_S) is None:
-                return  # stopped while it waited for the park
-            t1 = time.time()
-            try:
-                self.profiler.stop()
-            finally:
-                self._drop_window(window)
-            t2 = time.time()
-            self.profiler.export(tmp)
+            with obs.span("shim.warmup"):
+                window = _Window(tmp, 0, None)
+                # C18: on an H100 80GB HBM3 (700 W), fresh processes of the
+                # dense trainer died (SIGABRT) in their first profiler
+                # session when it met the app's launches: 1 of 20 with the
+                # warmup started at once, 1 of 20 and 3 of 20 with it
+                # started with the app parked at its first step() but
+                # stopped while the app went on (the aborts were in the
+                # stop), 0 of 20 with the card drained first; 0 of 40 with
+                # the app parked through the start and stop and the card
+                # drained first (this code).
+                if self._start_parked(
+                        window,
+                        WARMUP_PARK_WAIT_S if self._ever_stepped else 0.0,
+                        hold=True, event_wait_s=WARMUP_PARK_WAIT_S) is None:
+                    return  # stopped while it waited for the park
+                with obs.span("shim.profiler_stop") as stop:
+                    try:
+                        self.profiler.stop()
+                    finally:
+                        self._drop_window(window)
+                with obs.span("shim.export") as export:
+                    self.profiler.export(tmp)
             self.warmup_timing = {
                 **window.timing,
-                "profiler_stop_ms": int((t2 - t1) * 1000),
-                "export_ms": int((time.time() - t2) * 1000),
+                "profiler_stop_ms": _ms(stop),
+                "export_ms": _ms(export),
                 "lost_launches": getattr(self.profiler, "last_finish",
                                          {}).get("lost_launches")}
         except Exception as e:  # noqa: BLE001 - warmup must never kill polling
@@ -1726,61 +1793,62 @@ class TraceClient:
                 return None
             window.start_at = self._step_count + 1
             self._window = window
-            t_armed = time.time()
-            # After stop() (a test that runs the warmup alone) the start
-            # goes ahead at once.
-            waits = not self._stop.is_set()
-            if waits and wait_s > 0:
-                self._step_cv.wait_for(
-                    lambda: window.state != "armed" or self._stop.is_set(),
-                    timeout=wait_s)
-            if waits and window.state == "armed":
-                window.state = "parking"  # step() leaves it alone now
-        if window.state == "parking" and not self._stop.is_set():
-            # Outside the step lock: a thread inside step() must be able
-            # to leave it and reach its next event.
-            window.park = _EventPark()
-            try:
-                parked = window.park.hold(
-                    EVENT_PARK_WAIT_S if event_wait_s is None
-                    else event_wait_s, self._stop)
-            except BaseException:
-                self._drop_window(window)
-                raise
-            window.timing.update(parked=parked,
-                                 park="event" if parked else None)
-            if not parked:
-                window.timing["unparked"] = window.park.unheld()
-            if window.park.waiting:
-                window.timing["waiting"] = sorted(
-                    window.park.watched[i].name for i in window.park.waiting)
-        else:
-            parked = window.state == "opening"
-            window.timing.update(parked=parked,
-                                 park="step" if parked else None)
+        # After stop() (a test that runs the warmup alone) the start goes
+        # ahead at once.
+        waits = not self._stop.is_set()
+        try:
+            with obs.span("shim.park") as park:
+                with self._step_cv:
+                    if waits and wait_s > 0:
+                        self._step_cv.wait_for(
+                            lambda: (window.state != "armed"
+                                     or self._stop.is_set()),
+                            timeout=wait_s)
+                    if waits and window.state == "armed":
+                        window.state = "parking"  # step() leaves it alone
+                if window.state == "parking" and not self._stop.is_set():
+                    # Outside the step lock: a thread inside step() must be
+                    # able to leave it and reach its next event.
+                    window.park = _EventPark()
+                    parked = window.park.hold(
+                        EVENT_PARK_WAIT_S if event_wait_s is None
+                        else event_wait_s, self._stop)
+                    window.timing.update(parked=parked,
+                                         park="event" if parked else None)
+                    if not parked:
+                        window.timing["unparked"] = window.park.unheld()
+                    if window.park.waiting:
+                        window.timing["waiting"] = sorted(
+                            window.park.watched[i].name
+                            for i in window.park.waiting)
+                else:
+                    parked = window.state == "opening"
+                    window.timing.update(parked=parked,
+                                         park="step" if parked else None)
+        except BaseException:
+            self._drop_window(window)
+            raise
+        window.timing["park_ms"] = _ms(park)
         with self._step_cv:
             if waits and self._stop.is_set():
                 self._drop_window(window)
                 return None
-            t0 = time.time()
-            window.timing["park_ms"] = int((t0 - t_armed) * 1000)
             try:
                 if hold and hasattr(self.profiler, "drain"):
-                    self.profiler.drain(self.device)
-                    window.timing["drain_ms"] = int(
-                        (time.time() - t0) * 1000)
-                    t0 = time.time()
-                self.profiler.start(window.trace_dir, lead=True)
+                    with obs.span("shim.drain") as drain:
+                        self.profiler.drain(self.device)
+                    window.timing["drain_ms"] = _ms(drain)
+                with obs.span("shim.profiler_start") as start:
+                    self.profiler.start(window.trace_dir, lead=True)
+                    if not hold:
+                        window.state = "lead"
+                        self._step_cv.notify_all()
+                        self._release_park(window)
             except BaseException:
                 self._drop_window(window)
                 raise
-            if not hold:
-                window.state = "lead"
-                self._step_cv.notify_all()
-                self._release_park(window)
-            t1 = time.time()
-            window.timing["profiler_start_ms"] = int((t1 - t0) * 1000)
-        return t1
+            window.timing["profiler_start_ms"] = _ms(start)
+        return (start.start_us + start.dur_us) / 1e6
 
     def _drop_window(self, window: _Window) -> None:
         """Ends `window` (the warmup's after its stop, any other before
@@ -1978,15 +2046,39 @@ class TraceClient:
         finish also writes the compact profile, where the profiler hands
         one over, else its path) and the window's timing with the save's
         export_ms."""
-        error, window = self._capture_window(
-            TraceConfig(duration_ms=self.ring.config.window_ms), trace_dir)
+        error, _, timing, trace_file, pending = self._capture(
+            TraceConfig(duration_ms=self.ring.config.window_ms), trace_dir,
+            profile_top=self.ring.config.top_ops)
         if error:
             raise RuntimeError(error)
-        t0 = time.time()
-        trace_file, pending = self._export(
-            trace_dir, profile_top=self.ring.config.top_ops)
-        return pending or trace_file, {
-            **window.timing, "export_ms": int((time.time() - t0) * 1000)}
+        return pending or trace_file, timing
+
+    def _capture(self, cfg: TraceConfig, trace_dir: str,
+                 ctx: obs.TraceContext | None = None, **kw) -> tuple:
+        """One capture's work on this (the poll) thread, under a
+        shim.capture span whose parent is `ctx` (else the ambient span):
+        its window and, where that ran clean, the save (shim.export; `kw`
+        goes to the profiler's export). Returns (error or None, window,
+        its timing with the save's export_ms and, where the save left no
+        finish, the trace's trace_bytes and lost_launches, the trace path
+        or None, its PendingWrite or None)."""
+        trace_file = pending = None
+        with obs.span("shim.capture", ctx=ctx):
+            error, window = self._capture_window(cfg, trace_dir)
+            timing = dict(window.timing)
+            if error is None:
+                try:
+                    with obs.span("shim.export") as export:
+                        trace_file, pending = self._export(trace_dir, **kw)
+                    timing["export_ms"] = _ms(export)
+                    if pending is None:
+                        timing["trace_bytes"] = os.path.getsize(trace_file)
+                        timing["lost_launches"] = getattr(
+                            self.profiler, "last_finish", {}).get(
+                                "lost_launches")
+                except Exception as e:  # noqa: BLE001 - fails the capture
+                    error = f"trace export failed: {e}"
+        return error, window, timing, trace_file, pending
 
     def _export(self, trace_dir: str, **kw) -> tuple:
         """The stopped capture's save: (trace path, its PendingWrite or
@@ -2035,23 +2127,9 @@ class TraceClient:
             delay = cfg.start_time_ms / 1000.0 - early_s - time.time()
             if delay > 0:
                 time.sleep(delay)
-        trace_file = pending = None
-        with obs.span("shim.capture", ctx=ctx):
-            error, window = self._capture_window(cfg, trace_dir)
-        timing = {"received_ms": received_ms, **window.timing}
-        if error is None:
-            with obs.span("shim.export", ctx=ctx):
-                t0 = time.time()
-                try:
-                    trace_file, pending = self._export(trace_dir)
-                    timing["export_ms"] = int((time.time() - t0) * 1000)
-                    if pending is None:
-                        timing["trace_bytes"] = os.path.getsize(trace_file)
-                        timing["lost_launches"] = getattr(
-                            self.profiler, "last_finish", {}).get(
-                                "lost_launches")
-                except Exception as e:  # noqa: BLE001 - fails the capture
-                    error = f"trace export failed: {e}"
+        error, window, timing, trace_file, pending = self._capture(
+            cfg, trace_dir, ctx)
+        timing = {"received_ms": received_ms, **timing}
         args = (cfg, pid, trace_dir, trace_file, window.started_ms, error,
                 timing, ctx)
         if pending is None:
@@ -2106,21 +2184,12 @@ class TraceClient:
         if started is None:
             return ("trace aborted: client stopped" if self._stop.is_set()
                     else _BUSY), window
-        window._t_start = time.monotonic()
         # The window opens a lead after the start returned, or at the start
         # time where one is set and later.
         opens_at = max(started + DURATION_LEAD_S, cfg.start_time_ms / 1000.0)
-        stopped = self._stop.wait(max(opens_at - time.time(), 0.0))
-        if not stopped:
-            opened_ns = time.time_ns()
-            self.profiler.open_window(opened_ns)
-            window.started_ms = opened_ns // 10**6
-            window._t_start = time.monotonic()
-            with self._step_cv:
-                window.state = "active"  # step() marks its steps from here
-            stopped = self._stop.wait(cfg.duration_ms / 1000.0)
-        with self._step_cv:
-            self._window = None
+        with obs.span("shim.lead") as lead:
+            stopped = self._stop.wait(max(opens_at - time.time(), 0.0))
+        window.timing["lead_ms"] = _ms(lead)
         # An app held at its next Python event for the start is held so
         # for the stop too (C21): on an H100 80GB HBM3 (700 W), 2 of 14
         # fresh processes of an app that never steps hung in their first
@@ -2128,11 +2197,23 @@ class TraceClient:
         # loss.backward().
         park = _EventPark() if window.timing.get("park") == "event" else None
         try:
-            if park is not None:
-                t0 = time.time()
-                window.timing["stop_parked"] = park.hold(
-                    EVENT_PARK_WAIT_S, self._stop)
-                window.timing["stop_park_ms"] = int((time.time() - t0) * 1000)
+            with obs.span("shim.window") as span:
+                if not stopped:
+                    # The window's opening, on the clock of its span.
+                    opened_ns = span.start_us * 1000
+                    self.profiler.open_window(opened_ns)
+                    window.started_ms = opened_ns // 10**6
+                    with self._step_cv:
+                        window.state = "active"  # step() marks steps now
+                    stopped = self._stop.wait(cfg.duration_ms / 1000.0)
+                with self._step_cv:
+                    self._window = None
+                if park is not None:
+                    with obs.span("shim.stop_park") as held:
+                        window.timing["stop_parked"] = park.hold(
+                            EVENT_PARK_WAIT_S, self._stop)
+                    window.timing["stop_park_ms"] = _ms(held)
+            window.timing["window_ms"] = _ms(span)
             self._stop_profiler(window, "stopped")
         finally:
             if park is not None and not park.release():
@@ -2162,9 +2243,11 @@ class TraceClient:
             if self._window is not None:
                 return (_BUSY, window)
             self._window = window
-            opened = self._step_cv.wait_for(
-                lambda: window.state != "armed" or self._stop.is_set(),
-                timeout=self.step_start_timeout_s)
+            with obs.span("shim.park") as park:
+                opened = self._step_cv.wait_for(
+                    lambda: window.state != "armed" or self._stop.is_set(),
+                    timeout=self.step_start_timeout_s)
+            window.timing["park_ms"] = _ms(park)
             if window.state == "armed":
                 self._window = None
                 # The step named is the one that opens the profiler.
@@ -2174,28 +2257,35 @@ class TraceClient:
                         f"{self._step_count})"
                         if not opened else "trace aborted: client stopped",
                         window)
-            t0 = time.time()
             try:
-                if lead:
-                    self.profiler.start(trace_dir, lead=True)
-                else:
-                    self.profiler.start(trace_dir)
+                with obs.span("shim.profiler_start") as start:
+                    if lead:
+                        self.profiler.start(trace_dir, lead=True)
+                    else:
+                        self.profiler.start(trace_dir)
             except Exception as e:  # noqa: BLE001 - fails the capture
                 self._window = None
                 window.state = "stopped"
                 self._step_cv.notify_all()
                 return f"profiler start failed: {e}", window
-            window.timing["profiler_start_ms"] = int((time.time() - t0) * 1000)
+            window.timing["profiler_start_ms"] = _ms(start)
             # At the lead boundary's step().
             window.timing.update(parked=True, park="step")
-            window.started_ms = int(t0 * 1000)
-            window._t_start = time.monotonic()
-            window.state = "active"
-            self._step_cv.notify_all()
+            window.started_ms = start.start_us // 1000
             limit = self.step_trace_timeout_s
-            closed = self._step_cv.wait_for(
-                lambda: window.state != "active" or self._stop.is_set(),
-                timeout=limit)
+            # window_ms counts from the start's return: the lead step
+            # (shim.lead, C15) lies inside it.
+            with obs.span("shim.window") as span:
+                if lead:
+                    window.lead_span = obs.Span(
+                        "shim.lead", span.trace_id, obs.mint_id(),
+                        span.span_id, int(time.time() * 1e6), 0)
+                window.state = "active"
+                self._step_cv.notify_all()
+                closed = self._step_cv.wait_for(
+                    lambda: window.state != "active" or self._stop.is_set(),
+                    timeout=limit)
+            window.timing["window_ms"] = _ms(span)
             timed_out = window.state == "active"
             # Closed here whether the training thread parked at its end or
             # the window timed out; its next step() finds no window.
@@ -2233,6 +2323,7 @@ class TraceClient:
                 "status": "error" if error else "ok",
                 "timing": timing,
                 "trace_ctx": ctx.header(),
+                "spans": self._spans_of(ctx),
             }
             if error:
                 manifest["error"] = error
@@ -2259,11 +2350,22 @@ class TraceClient:
                 if getattr(self.profiler, "export_trace_json", True):
                     self._spawn_summary(trace_file, ctx)
             # Ship this capture's spans to the daemon (fire-and-forget).
+            sent = obs.JOURNAL.drain()
+            self._sent_spans.extend(sent)
             try:
-                self._client.send_spans(obs.JOURNAL.drain(),
-                                        dest=self.endpoint)
+                self._client.send_spans(sent, dest=self.endpoint)
             except OSError as e:
                 self.last_error = f"span flush failed: {e}"
+
+    def _spans_of(self, ctx) -> list[dict]:
+        """The spans recorded so far under `ctx`'s trace-id, still in the
+        journal or sent at an earlier manifest, as Chrome-trace events in
+        the order they began (every span of a capture but its
+        shim.artifact_write). Under _finish_lock."""
+        events = [s.chrome_event()
+                  for s in (*self._sent_spans, *obs.JOURNAL.snapshot())
+                  if s.trace_id == ctx.trace_id]
+        return sorted(events, key=lambda e: e["ts"])
 
     def _spawn_summary(self, trace_file: str, ctx) -> None:
         """Writes <run>.summary.json beside a completed capture's trace
